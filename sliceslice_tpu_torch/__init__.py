@@ -1,0 +1,53 @@
+"""sliceslice_tpu_torch — the PyTorch and CUDA port of sliceslice_tpu.
+
+The same substring-search API and answers as the JAX package, for one
+NVIDIA Hopper card: a haystack is laid out once on a device, and needles
+are searched over it by hand-written CUDA kernels (``csrc/find.cu``),
+built with ``nvcc`` at first use.  On the CPU every kernel runs as its
+plain PyTorch version.  The port imports torch and numpy, never jax.
+
+Public API::
+
+    from sliceslice_tpu_torch import DynamicSearcher, BatchedSearcher, preprocess
+    DynamicSearcher(b"ipsum").find(b"lorem ipsum dolor")        # -> 6
+    hay = preprocess(open("corpus", "rb").read(), device="cuda")
+    BatchedSearcher([b"a", b"needle"], device="cuda").find_all(hay)
+"""
+
+from . import config
+from .config import SENTINEL
+from .models import (
+    BatchedSearcher,
+    CudaSearcher,
+    DynamicSearcher,
+    MemchrSearcher,
+    NaiveSearcher,
+    TorchSearcher,
+    naive_find,
+    searcher_for_size,
+)
+from .needle import MAX_NEEDLE_LEN, Needle, build_probe_table, probe_program
+from .ops import DeviceHaystack, preprocess
+from .searcher import EmptyNeedleSearcher, SearcherBase, overlapping_count
+
+__all__ = [
+    "config",
+    "Needle",
+    "MAX_NEEDLE_LEN",
+    "probe_program",
+    "build_probe_table",
+    "BatchedSearcher",
+    "DynamicSearcher",
+    "MemchrSearcher",
+    "NaiveSearcher",
+    "CudaSearcher",
+    "TorchSearcher",
+    "naive_find",
+    "searcher_for_size",
+    "SENTINEL",
+    "DeviceHaystack",
+    "preprocess",
+    "SearcherBase",
+    "overlapping_count",
+    "EmptyNeedleSearcher",
+]

@@ -1,0 +1,280 @@
+"""Batched multi-needle searcher — the main path of the port, find half.
+
+N needles are scanned over one device-resident haystack.  Needles are
+grouped by probe-table width T = ceil(k/4) at construction (exact widths up
+to 8, then buckets 16..512, as in the JAX package); each group's tables
+live on the searcher's device, padded to the JAX package's row plan, and
+each sweep launches the find kernel once per group, then scatters the
+group results back to input order in one indexed assignment.  The
+per-needle early exit lives inside the kernel.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..config import SENTINEL
+from ..needle import (
+    MAX_NEEDLE_LEN,
+    as_bytes,
+    build_probe_table,
+    needed_halo_for_t,
+    num_probes,
+)
+from ..ops import scan_kernel, torch_backend
+from ..ops.layout import DeviceHaystack, preprocess
+from ..ops.scan_math import table_bits
+from ..searcher import DeviceLike, HaystackLike, _hay_bytes, resolve_device
+
+#: Widths beyond the exact-width limit are bucketed.
+WIDE_T_BUCKETS = (16, 32, 64, 128, 256, 512)
+
+
+def _t_bucket(t: int) -> int:
+    if t <= scan_kernel.PROBE_UNROLL:
+        return max(t, 1)
+    for b in WIDE_T_BUCKETS:
+        if t <= b:
+            return b
+    raise ValueError(f"needle needs {t} probes > max bucket {WIDE_T_BUCKETS[-1]}")
+
+
+class _Group:
+    """Needles sharing one probe-table width: device-resident tables,
+    pre-padded to the JAX row plan, plus host copies of every row-ordered
+    array so a reorder never reads the device back."""
+
+    #: retained per-haystack-length device ends (FIFO-evicted; a serving
+    #: loop over many distinct corpus lengths must not grow unboundedly).
+    _ENDS_CACHE_CAP = 16
+
+    def __init__(
+        self,
+        indices: np.ndarray,
+        values: np.ndarray,
+        masks: np.ndarray,
+        lengths: np.ndarray,
+        device: torch.device,
+    ):
+        self.indices = indices
+        self.n, self.t = values.shape
+        self.device = device
+        self.lengths = lengths
+        self.values_host = values
+        self.masks_host = masks
+        _, self.n_pad = scan_kernel.plan_block(self.n, self.t)
+        self._upload_tables()
+        #: device row permutation not yet applied to the HOST copies — set
+        #: by the device-side optimizer; host readers call sync_host first.
+        self._host_perm_pending: Optional[torch.Tensor] = None
+
+    @classmethod
+    def from_needles(cls, indices, needles: List[bytes], t: int, device) -> "_Group":
+        vals, msks, lens = build_probe_table(needles, t_max=t)
+        return cls(indices, vals, msks, lens, device)
+
+    def _upload_tables(self) -> None:
+        rowpad = ((0, self.n_pad - self.n), (0, 0))
+        self.values_dev = table_bits(np.pad(self.values_host, rowpad), self.device)
+        self.masks_dev = table_bits(np.pad(self.masks_host, rowpad), self.device)
+        self._ends_cache: dict[int, torch.Tensor] = {}
+
+    def sync_host(self) -> None:
+        """Materialize a pending device-side row permutation into the host
+        copies (one int32[n] readback, deferred until a host consumer needs
+        row order)."""
+        if self._host_perm_pending is None:
+            return
+        perm = self._host_perm_pending[: self.n].cpu().numpy()
+        self._host_perm_pending = None
+        self.indices = self.indices[perm]
+        self.lengths = self.lengths[perm]
+        self.values_host = self.values_host[perm]
+        self.masks_host = self.masks_host[perm]
+
+    def reorder(self, key: np.ndarray) -> None:
+        """Permute this group's rows ascending by ``key`` (stable); padded
+        rows stay at the end.  Device tables are rebuilt from the permuted
+        host copies."""
+        self.sync_host()
+        perm = np.argsort(key, kind="stable")
+        self.indices = self.indices[perm]
+        self.lengths = self.lengths[perm]
+        self.values_host = self.values_host[perm]
+        self.masks_host = self.masks_host[perm]
+        self._upload_tables()
+
+    def ends_dev(self, hay_len: int) -> torch.Tensor:
+        """int32[n_pad] ends ``max(len - k + 1, 0)``; padded rows get 0."""
+        e = self._ends_cache.get(hay_len)
+        if e is None:
+            self.sync_host()
+            ends = np.maximum(hay_len - self.lengths.astype(np.int64) + 1, 0)
+            ends = np.pad(ends.astype(np.int32), (0, self.n_pad - self.n))
+            e = torch.from_numpy(ends).to(self.device)
+            self._ends_cache[hay_len] = e
+            while len(self._ends_cache) > self._ENDS_CACHE_CAP:
+                self._ends_cache.pop(next(iter(self._ends_cache)))
+        return e
+
+
+class BatchedSearcher:
+    def __init__(
+        self,
+        needles: Sequence,
+        position: Optional[int] = None,
+        *,
+        device: DeviceLike = "cpu",
+    ):
+        self.needles = [as_bytes(n) for n in needles]
+        self.device = resolve_device(device)
+        if position is not None:
+            # The single-needle searchers' contract (reference: position <
+            # needle.size(), src/x86.rs:300).
+            for nd in self.needles:
+                if not (0 <= position < len(nd)):
+                    raise ValueError(
+                        f"invalid position {position} for needle of length {len(nd)}"
+                    )
+        for nd in self.needles:
+            if len(nd) > MAX_NEEDLE_LEN:
+                raise NotImplementedError(
+                    f"needles longer than MAX_NEEDLE_LEN={MAX_NEEDLE_LEN} are "
+                    "not ported yet (ROADMAP queue 1, item 12: huge needles)"
+                )
+        buckets: dict[int, list[int]] = {}
+        for i, nd in enumerate(self.needles):
+            buckets.setdefault(_t_bucket(max(1, num_probes(len(nd)))), []).append(i)
+        self.groups = [
+            _Group.from_needles(
+                np.asarray(idx, np.int64), [self.needles[i] for i in idx], t, self.device
+            )
+            for t, idx in sorted(buckets.items())
+        ]
+        self._finish_init()
+
+    def _finish_init(self) -> None:
+        self.max_t = max((g.t for g in self.groups), default=1)
+        #: true (unpadded) row count per group — static across reorders.
+        self._order_sizes = tuple(g.n for g in self.groups)
+        self._rebuild_order()
+
+    def _rebuild_order(self) -> None:
+        """Device copy of the concatenated group->input scatter order."""
+        for g in self.groups:
+            g.sync_host()
+        idx = [g.indices for g in self.groups]
+        order = np.concatenate(idx).astype(np.int64) if idx else np.zeros((0,), np.int64)
+        self._order_dev = torch.from_numpy(order).to(self.device)
+
+    def __len__(self) -> int:
+        return len(self.needles)
+
+    def _layout(self, hay: HaystackLike) -> DeviceHaystack:
+        # The halo must cover the widest group's probe table.
+        need = needed_halo_for_t(self.max_t)
+        if isinstance(hay, DeviceHaystack):
+            if hay.device != self.device:
+                raise ValueError(
+                    f"haystack lives on {hay.device}, the searcher's tables on {self.device}"
+                )
+            return hay.ensure_halo(need)
+        return preprocess(_hay_bytes(hay), kh=need, device=self.device)
+
+    def find_all(self, hay: HaystackLike) -> np.ndarray:
+        """First-match offset per needle (int64[N]); -1 where absent."""
+        n = len(self.needles)
+        if n == 0:
+            return np.zeros((0,), np.int64)
+        out = self.find_all_device(hay).cpu().numpy().astype(np.int64)
+        out[out >= SENTINEL] = -1
+        return out
+
+    def find_all_device(self, hay: HaystackLike) -> torch.Tensor:
+        """Device-resident int32[N] first offsets (SENTINEL where absent),
+        with no host transfer and no synchronisation: the building block
+        for pipelined sweeps."""
+        dh = self._layout(hay)
+        parts = []
+        for g in self.groups:
+            ends = g.ends_dev(dh.length)
+            if dh.tiled:
+                parts.append(
+                    scan_kernel.batched_find(
+                        dh.flat, g.values_dev, g.masks_dev, ends, n_real=g.n
+                    )
+                )
+            else:
+                parts.append(
+                    torch_backend.find_batched_flat(dh.flat, g.values_dev, g.masks_dev, ends)
+                )
+        return _scatter(len(self.needles), self._order_sizes, self._order_dev, parts)
+
+    def search_all(self, hay: HaystackLike) -> np.ndarray:
+        return self.find_all(hay) >= 0
+
+    def optimize_for(
+        self, hay: HaystackLike, firsts: Optional[np.ndarray] = None
+    ) -> "BatchedSearcher":
+        """Adaptive block scheduling: reorder each width group's rows
+        ascending by measured first-match offsets (absent rows last), so
+        needles that finish together sit together.  Results are exact in
+        any row order — only scheduling changes.
+
+        ``firsts``: offsets from a prior :meth:`find_all` (-1 absent); the
+        reschedule is then a host permute plus an upload.  Omitted, one
+        measuring sweep runs and the schedule is applied on the device with
+        no readback (the host copies sync lazily).  Returns self."""
+        if firsts is None:
+            dh = self._layout(hay)
+            if dh.tiled and self.groups:
+                self._apply_schedule_device(self.find_all_device(dh))
+                return self
+            firsts = self.find_all(hay)
+        self._apply_schedule(np.asarray(firsts))
+        return self
+
+    def _apply_schedule_device(self, firsts: torch.Tensor) -> None:
+        """Device-side reschedule from a device-resident measuring sweep:
+        per group, gather the firsts through the scatter order, stable
+        argsort (SENTINEL-absent rows sort last, as on the host path), and
+        permute the real rows of values/masks and every cached ends vector;
+        padded rows stay in place."""
+        off = 0
+        new_order = []
+        for g, sz in zip(self.groups, self._order_sizes):
+            idx = self._order_dev[off : off + sz]
+            off += sz
+            p = torch.argsort(firsts[idx], stable=True)
+            new_order.append(idx[p])
+            # In place: the tables and cached ends are this searcher's own.
+            g.values_dev[:sz] = g.values_dev[:sz][p]
+            g.masks_dev[:sz] = g.masks_dev[:sz][p]
+            for e in g._ends_cache.values():
+                e[:sz] = e[:sz][p]
+            # Compose with any earlier un-synced device permutation:
+            # host rows A, device rows A[p1][p2] = A[p1[p2]].
+            pending = g._host_perm_pending
+            g._host_perm_pending = p if pending is None else pending[p]
+        if new_order:
+            self._order_dev = torch.cat(new_order)
+
+    def _apply_schedule(self, firsts: np.ndarray) -> None:
+        """Host-path reschedule from measured first offsets."""
+        key = np.where(firsts < 0, np.iinfo(np.int64).max, firsts)
+        for g in self.groups:
+            g.sync_host()  # indices must be current before keying
+            g.reorder(key[g.indices])
+        self._rebuild_order()
+
+
+def _scatter(n: int, sizes: tuple, order: torch.Tensor, parts: list) -> torch.Tensor:
+    """Unpad the group results, concatenate them, and scatter them back to
+    input order with one indexed assignment."""
+    out = torch.zeros((n,), dtype=torch.int32, device=order.device)
+    if parts:
+        out[order] = torch.cat([p[:sz] for p, sz in zip(parts, sizes)])
+    return out
