@@ -2,8 +2,9 @@
 
 The same substring-search API and answers as the JAX package, for one
 NVIDIA Hopper card: a haystack is laid out once on a device, and needles
-are searched over it by hand-written CUDA kernels (``csrc/find.cu``),
-built with ``nvcc`` at first use.  On the CPU every kernel runs as its
+are searched over it, or counted, by hand-written CUDA kernels
+(``csrc/*.cu``), built with ``nvcc`` at first use; word lists are swept
+against each other pair by pair.  On the CPU every kernel runs as its
 plain PyTorch version.  The port imports torch and numpy, never jax.
 
 Public API::
@@ -12,6 +13,9 @@ Public API::
     DynamicSearcher(b"ipsum").find(b"lorem ipsum dolor")        # -> 6
     hay = preprocess(open("corpus", "rb").read(), device="cuda")
     BatchedSearcher([b"a", b"needle"], device="cuda").find_all(hay)
+    BatchedSearcher([b"a", b"needle"], device="cuda").count_all(hay)
+    DynamicSearcher(b"aa").count_in(b"aaaa")                   # -> 3
+    PairwiseSearcher([b"ab", b"abc"], device="cuda").contains_matrix()
 """
 
 from . import config
@@ -28,6 +32,7 @@ from .models import (
 )
 from .needle import MAX_NEEDLE_LEN, Needle, build_probe_table, probe_program
 from .ops import DeviceHaystack, preprocess
+from .ops.pairwise import PairwiseSearcher, pairwise_contains_all
 from .searcher import EmptyNeedleSearcher, SearcherBase, overlapping_count
 
 __all__ = [
@@ -37,6 +42,8 @@ __all__ = [
     "probe_program",
     "build_probe_table",
     "BatchedSearcher",
+    "PairwiseSearcher",
+    "pairwise_contains_all",
     "DynamicSearcher",
     "MemchrSearcher",
     "NaiveSearcher",

@@ -17,6 +17,7 @@ import numpy as np
 from .models.batched import BatchedSearcher, _Group
 from .needle import as_bytes
 from .ops.layout import DeviceHaystack, preprocess
+from .ops.pairwise import PairwiseSearcher
 from .searcher import DeviceLike, resolve_device
 
 
@@ -54,3 +55,23 @@ def batched_searcher(
         raise ValueError("group indices must cover every needle exactly once")
     bs._finish_init()
     return bs
+
+
+def pairwise_searcher(
+    needles: Sequence, valt, mskt, ln, block: int, *, device: DeviceLike = "cpu"
+) -> PairwiseSearcher:
+    """A port ``PairwiseSearcher`` holding a JAX searcher's needle tables:
+    ``valt``/``mskt`` uint32 (tn, N) as the JAX package keeps them
+    (``_valt``, ``_mskt``), ``ln`` int32 (N,) (``_ln``) and its ``block``."""
+    valt = np.asarray(valt, np.uint32)
+    mskt = np.asarray(mskt, np.uint32)
+    ln = np.asarray(ln, np.int32).reshape(-1)
+    ps = PairwiseSearcher.__new__(PairwiseSearcher)
+    ps.needles = [bytes(w) for w in needles]
+    ps.block = int(block)
+    ps.device = resolve_device(device)
+    n = len(ps.needles)
+    if valt.ndim != 2 or valt.shape != mskt.shape or valt.shape[1] != n or ln.shape[0] != n:
+        raise ValueError("valt, mskt (tn, N) and ln (N,) must describe the N needles")
+    ps._set_tables(valt.T, mskt.T, ln)
+    return ps

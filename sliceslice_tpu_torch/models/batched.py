@@ -1,12 +1,14 @@
-"""Batched multi-needle searcher — the main path of the port, find half.
+"""Batched multi-needle searcher — the main path of the port: first
+offsets (``find_all``) and overlapping counts (``count_all``).
 
 N needles are scanned over one device-resident haystack.  Needles are
 grouped by probe-table width T = ceil(k/4) at construction (exact widths up
 to 8, then buckets 16..512, as in the JAX package); each group's tables
 live on the searcher's device, padded to the JAX package's row plan, and
-each sweep launches the find kernel once per group, then scatters the
-group results back to input order in one indexed assignment.  The
-per-needle early exit lives inside the kernel.
+each sweep launches the find (or count) kernel once per group, then
+scatters the group results back to input order in one indexed assignment.
+The per-needle early exit of find lives inside the kernel; a count scans
+everything, and is exact in any row order.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from ..needle import (
 from ..ops import scan_kernel, torch_backend
 from ..ops.layout import DeviceHaystack, preprocess
 from ..ops.scan_math import table_bits
-from ..searcher import DeviceLike, HaystackLike, _hay_bytes, resolve_device
+from ..searcher import DeviceLike, HaystackLike, _hay_bytes, overlapping_count, resolve_device
 
 #: Widths beyond the exact-width limit are bucketed.
 WIDE_T_BUCKETS = (16, 32, 64, 128, 256, 512)
@@ -215,6 +217,44 @@ class BatchedSearcher:
 
     def search_all(self, hay: HaystackLike) -> np.ndarray:
         return self.find_all(hay) >= 0
+
+    def _count_layout(self, hay: HaystackLike) -> DeviceHaystack:
+        """The layout a count scans.  On the card it is always the kernel
+        layout: a flat rung there is re-laid on the card, so no count of
+        the card's bytes runs on the host."""
+        dh = self._layout(hay)
+        if dh.tiled or dh.device.type != "cuda":
+            return dh
+        return dh.kernel_layout(needed_halo_for_t(self.max_t))
+
+    def count_all_device(self, hay: HaystackLike) -> torch.Tensor:
+        """Device-resident int32[N] overlapping-occurrence counts: one count
+        kernel launch per width group, then the scatter, with no host
+        transfer and no synchronisation."""
+        dh = self._count_layout(hay)
+        if not dh.tiled:
+            raise ValueError(
+                "count_all requires a tiled layout "
+                "(preprocess with force_cols=True for short haystacks)"
+            )
+        parts = [
+            scan_kernel.batched_count(
+                dh.flat, g.values_dev, g.masks_dev, g.ends_dev(dh.length), n_real=g.n
+            )
+            for g in self.groups
+        ]
+        return _scatter(len(self.needles), self._order_sizes, self._order_dev, parts)
+
+    def count_all(self, hay: HaystackLike) -> np.ndarray:
+        """Overlapping occurrence count per needle (int64[N]); a flat
+        layout on the CPU counts on the host, as in the JAX package."""
+        dh = self._count_layout(hay)
+        if not dh.tiled:
+            data = dh.host_bytes
+            if data is None:
+                raise ValueError("counting on a flat DeviceHaystack requires host bytes")
+            return np.array([overlapping_count(data, nd) for nd in self.needles], dtype=np.int64)
+        return self.count_all_device(dh).cpu().numpy().astype(np.int64)
 
     def optimize_for(
         self, hay: HaystackLike, firsts: Optional[np.ndarray] = None

@@ -8,9 +8,9 @@ searchers (src/x86.rs:476-490); otherwise the generic kernel searcher
 yet (ROADMAP queue 1, item 12) and raise ``NotImplementedError``.
 
 Haystacks of at most :data:`HOST_HAY_BYTES` that arrive as host bytes are
-searched on the host by the native SWAR tier (utils/native.py): a device
-round trip costs more than a sub-4 KB host scan.  Preprocessed
-:class:`DeviceHaystack` inputs always take the device path.
+searched on the host by the native SWAR tier (utils/native.py), and counted
+on the host: a device round trip costs more than a sub-4 KB host scan.
+Preprocessed :class:`DeviceHaystack` inputs always take the device path.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from typing import Optional
 
 from ..needle import MAX_NEEDLE_LEN, NeedleLike, as_bytes
 from ..ops.layout import DeviceHaystack
-from ..searcher import EmptyNeedleSearcher, HaystackLike, _hay_bytes
+from ..searcher import EmptyNeedleSearcher, HaystackLike, _hay_bytes, overlapping_count
 from .cuda_searcher import searcher_for_size
 from .memchr import MemchrSearcher
 from .naive import naive_find
@@ -76,6 +76,16 @@ class DynamicSearcher:
             if len(data) <= HOST_HAY_BYTES:
                 return self._host_find(data)
         return self._inner.find(hay)
+
+    def count_in(self, hay: HaystackLike) -> int:
+        """Overlapping occurrence count (see ``SearcherBase.count_in``);
+        host-bytes haystacks of at most :data:`HOST_HAY_BYTES` count on the
+        host."""
+        if self._inner.size and not isinstance(hay, DeviceHaystack):
+            data = _hay_bytes(hay)
+            if len(data) <= HOST_HAY_BYTES:
+                return overlapping_count(data, self._data)
+        return self._inner.count_in(hay)
 
     def _host_find(self, data: bytes) -> Optional[int]:
         from ..utils import native

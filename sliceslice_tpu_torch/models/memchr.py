@@ -1,8 +1,11 @@
 """Single-byte searcher — the ``MemchrSearcher`` analogue (src/lib.rs:119-142):
 a dedicated 1-byte path through the memchr kernel, which compares raw bytes
-with no window building."""
+with no window building.  Counts go through the count kernel with the
+1-byte probe table, as in the JAX package."""
 
 from __future__ import annotations
+
+import numpy as np
 
 from ..needle import probe_program
 from ..ops import scan_kernel, torch_backend
@@ -25,3 +28,14 @@ class MemchrSearcher(SearcherBase):
             vals, msks = probe_program(self.needle.data)
             return torch_backend.find_flat(dh.flat, vals, msks, end)
         return scan_kernel.memchr_find(dh.flat, self._byte, end)
+
+    def _count_device(self, dh: DeviceHaystack):
+        if not dh.tiled:
+            raise NotImplementedError  # flat layout on the CPU: the host count applies
+        vals, msks = probe_program(self.needle.data)
+        return scan_kernel.batched_count(
+            dh.flat,
+            np.asarray([vals], np.uint32),
+            np.asarray([msks], np.uint32),
+            np.asarray([dh.length], np.int32),
+        )[0]

@@ -1,7 +1,8 @@
 """Portable torch-ops searcher — the counterpart of the JAX package's
 ``XlaSearcher``: the same probe algorithm as plain tensor code on any
 device, with no kernel.  The differential path the kernels are held
-against."""
+against.  Its count runs as plain torch ops on the layout's device, so a
+layout on the card is never counted on the host."""
 
 from __future__ import annotations
 
@@ -29,3 +30,10 @@ class TorchSearcher(SearcherBase):
             return torch_backend.find_flat(dh.flat, self._values, self._masks, end)
         dh = dh.ensure_kh(k)
         return torch_backend.find_cols(dh.flat, self._values, self._masks, end)
+
+    def _count_device(self, dh: DeviceHaystack):
+        if not dh.tiled:
+            raise NotImplementedError  # flat layout on the CPU: the host count applies
+        k = self.needle.size
+        dh = dh.ensure_kh(k)
+        return torch_backend.count_cols(dh.flat, self._values, self._masks, dh.length - k + 1)

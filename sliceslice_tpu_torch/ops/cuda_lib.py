@@ -1,38 +1,58 @@
-"""Build and load the port's CUDA kernels (``csrc/find.cu``).
+"""Build and load the port's CUDA kernels (every ``csrc/*.cu``).
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface at first use, into ``csrc/build/`` beside it (a
-directory git ignores), and loaded with ctypes.  The library's file name
-carries a hash of the source, so an edited kernel never loads a stale
-build; a build is published by an atomic rename, so a concurrent process
-never maps a half-written file.  Nothing here runs at import time.
+Each source is compiled with ``nvcc`` for ``sm_90a`` at first use, all of
+them at once in parallel processes, and the objects are linked into one
+shared library with a plain C interface, in ``csrc/build/`` beside them (a
+directory git ignores), loaded with ctypes.  The library's file name
+carries a hash of every source and the flags, so an edited kernel never
+loads a stale build; a build is published by an atomic rename, so a
+concurrent process never maps a half-written file.  Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from typing import Optional
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCE = os.path.join(_CSRC, "find.cu")
 BUILD_DIR = os.path.join(_CSRC, "build")
 
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c"]
+LINK_FLAGS = [*ARCH_FLAGS, "-shared"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+#: (restype, argtypes) of every entry point: each pointer and the stream
+#: as c_void_p, so ctypes never cuts a pointer to 32 bits.
+_SIGNATURES = {
+    "ssf_batched_find": (_I, [_P, _LL, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _P]),
+    "ssf_batched_count": (_I, [_P, _LL, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _P]),
+    "ssf_memchr_find": (_I, [_P, _LL, _I, _LL, _LL, _I, _P, _P]),
+    "ssf_pair_block": (_I, [_P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P]),
+    "ssf_error_string": (ctypes.c_char_p, [_I]),
+}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 #: What the build of this process did: library path, seconds spent in
 #: nvcc (0.0 when an existing build was loaded) and ptxas' report.
 build_info: dict = {}
+
+
+def sources() -> list:
+    """Every kernel source, in a fixed order."""
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
 
 
 def nvcc_path() -> Optional[str]:
@@ -46,9 +66,11 @@ def nvcc_path() -> Optional[str]:
 
 
 def _library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"libssf_find-{digest}.so")
+    h = hashlib.sha1(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for src in sources():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"libssf-{h.hexdigest()[:12]}.so")
 
 
 def _build(so: str) -> None:
@@ -59,25 +81,38 @@ def _build(so: str) -> None:
             "CUDA kernels are built from source at first use"
         )
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.tmp.{os.getpid()}"
+    srcs = sources()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
-        capture_output=True, text=True, timeout=600,
-    )
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        try:
-            os.remove(tmp)
-        except OSError:
-            pass
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, so)
-    build_info.update(seconds=seconds, ptxas=proc.stderr + proc.stdout)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, os.path.basename(s) + ".o") for s in srcs]
+        procs = [
+            subprocess.Popen([nvcc, *COMPILE_FLAGS, "-o", o, s], stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+            for s, o in zip(srcs, objs)
+        ]
+        reports, failed = [], []
+        for s, p in zip(srcs, procs):
+            try:
+                out, err = p.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, err = p.communicate()
+            reports.append(err + out)
+            if p.returncode != 0:
+                failed.append(f"{os.path.basename(s)} ({p.returncode}):\n{out}\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed on " + "\n".join(failed))
+        tmp = os.path.join(tmpdir, "lib.so")
+        proc = subprocess.run([nvcc, *LINK_FLAGS, "-o", tmp, *objs], capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, so)
+    build_info.update(seconds=time.perf_counter() - t0, ptxas="".join(reports))
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built first if this source has no build yet."""
+    """The kernel library, built first if these sources have no build yet."""
     global _lib
     with _lock:
         if _lib is not None:
@@ -89,21 +124,10 @@ def load() -> ctypes.CDLL:
             build_info.update(seconds=0.0, ptxas="")
         build_info["library"] = so
         lib = ctypes.CDLL(so)
-        lib.ssf_batched_find.restype = ctypes.c_int
-        lib.ssf_batched_find.argtypes = [
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.ssf_memchr_find.restype = ctypes.c_int
-        lib.ssf_memchr_find.argtypes = [
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.ssf_error_string.restype = ctypes.c_char_p
-        lib.ssf_error_string.argtypes = [ctypes.c_int]
+        for name, (restype, argtypes) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
         _lib = lib
         return lib
 

@@ -111,6 +111,24 @@ class DeviceHaystack:
 
         return self.ensure_halo(needed_halo(k))
 
+    def kernel_layout(self, min_kh: int) -> "DeviceHaystack":
+        """This haystack in the kernel layout with at least ``min_kh`` halo
+        bytes.  A flat rung is re-laid on its own device from its device
+        bytes, with no host copy, and cached in the slot of
+        :meth:`ensure_halo`: the count kernel reads a flat rung on the card
+        this way."""
+        if self.tiled:
+            return self.ensure_halo(min_kh)
+        if self._rehalo is not None and self._rehalo.kh >= min_kh:
+            return self._rehalo
+        kh = round_up(max(min_kh, MIN_KH), 32)
+        flat = torch.zeros(
+            (padded_total(self.length, kh, force_cols=True),), dtype=torch.uint8, device=self.device
+        )
+        flat[: self.length] = self.flat[: self.length]
+        self._rehalo = DeviceHaystack(self.length, kh, flat, True, self.host_bytes)
+        return self._rehalo
+
 
 def preprocess(
     hay: Union[bytes, bytearray, memoryview, np.ndarray],

@@ -1,4 +1,5 @@
-"""Kernel wrappers of the find path: ``batched_find`` and ``memchr_find``.
+"""Kernel wrappers of the find and count paths: ``batched_find``,
+``batched_count`` and ``memchr_find``.
 
 Each wrapper launches its hand-written CUDA kernel (``csrc/find.cu``) for a
 haystack on a CUDA device and runs its plain PyTorch version, defined
@@ -7,12 +8,13 @@ device raises; nothing falls back from the card to the CPU.  Each wrapper
 counts its kernel launches in a plain integer attribute, ``launches``.
 
 ``batched_find`` replaces ``sliceslice_tpu/ops/scan_kernel.py``'s
-``batched_find_cols`` over the Pallas find kernel, ``memchr_find`` its
-``memchr_find_cols``.  The haystack is the flat layout of
-:mod:`.layout`: positions are byte offsets into it, and its zero halo
-must cover ``needed_halo_for_t(t)`` bytes past the last valid position.
-Positions whose probe windows would run past the buffer are never
-evaluated, by either version.
+``batched_find_cols`` over the Pallas find kernel, ``batched_count`` its
+``batched_count_cols`` over the Pallas count kernel, ``memchr_find`` its
+``memchr_find_cols``.  The haystack is the flat layout of :mod:`.layout`:
+positions are byte offsets into it, and its zero halo must cover
+``needed_halo_for_t(t)`` bytes past the last valid position.  Positions
+whose probe windows would run past the buffer are never evaluated, by
+either version.
 """
 
 from __future__ import annotations
@@ -25,16 +27,17 @@ import torch
 from .. import config
 from ..config import SENTINEL
 from . import cuda_lib
-from .scan_math import first_offsets, position_limit, table_bits
+from .scan_math import first_offsets, match_counts, position_limit, table_bits
 
 #: Probe-table widths up to this are exact width groups in
 #: ``BatchedSearcher``; wider tables are bucketed (the JAX unroll limit).
 PROBE_UNROLL = 8
-#: Widest probe table the find kernel takes (``MAX_NEEDLE_LEN / 4``).
+#: Widest probe table the find and count kernels take (``MAX_NEEDLE_LEN / 4``).
 MAX_T = 512
 
-#: Positions the find kernel evaluates per block step, bytes the memchr
-#: kernel reads per block step (csrc/find.cu kFindTile / kMemchrTile).
+#: Positions the find and count kernels evaluate per block step, bytes
+#: the memchr kernel reads per block step (csrc/find.cu kFindTile /
+#: kMemchrTile).
 FIND_TILE = 1024
 MEMCHR_TILE = 4096
 #: Least positions one block owns: below this, extra blocks cost more to
@@ -98,11 +101,56 @@ def _cuda_ready(*tensors: torch.Tensor) -> None:
         raise ValueError("haystack buffer must be 16-byte aligned and sized")
 
 
+def _n_real(n_real, n: int) -> int:
+    return n if n_real is None else max(0, min(int(n_real), n))
+
+
+def _operands(hay, values, masks, ends, base):
+    """The checked operands of the find and count wrappers: ``base`` and
+    the tables as int32 tensors on ``hay``'s device (numpy tables re-masked,
+    as the JAX wrappers do)."""
+    _check_hay(hay)
+    base = _check_base(hay, base)
+    device = hay.device
+    if isinstance(values, np.ndarray) and isinstance(masks, np.ndarray):
+        values = np.asarray(values, np.uint32) & np.asarray(masks, np.uint32)
+    values = table_bits(values, device)
+    masks = table_bits(masks, device)
+    ends = torch.as_tensor(ends, dtype=torch.int32).to(device).reshape(-1)
+    n, t = values.shape
+    if masks.shape != values.shape or ends.shape[0] != n:
+        raise ValueError("values, masks and ends must describe the same rows")
+    if not 1 <= t <= MAX_T:
+        raise ValueError(f"probe table width {t} outside 1..{MAX_T}")
+    return base, values, masks, ends
+
+
+def _launch(entry: str, hay, values, masks, ends, out, base: int, n_real: int) -> bool:
+    """One launch of the find or count kernel (``entry``) over rows below
+    ``n_real``, writing into ``out``; False when there is nothing to scan."""
+    values, masks, ends = values.contiguous(), masks.contiguous(), ends.contiguous()
+    _cuda_ready(hay, values, masks, ends)
+    t = values.shape[1]
+    n_pos = position_limit(hay.numel(), t)
+    if n_real == 0 or n_pos == 0:
+        return False
+    lib = cuda_lib.load()
+    with torch.cuda.device(hay.device):
+        span, n_spans = plan_spans(n_pos, n_real, FIND_TILE, _sm_count(torch.cuda.current_device()))
+        err = getattr(lib, entry)(
+            hay.data_ptr(), n_pos, values.data_ptr(), masks.data_ptr(),
+            ends.data_ptr(), out.data_ptr(), n_real, t, base, span, n_spans,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    cuda_lib.check(err, entry)
+    return True
+
+
 def batched_find_plain(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor:
     """Plain PyTorch version of :func:`batched_find` (same signature and
     answers; tables as int32 bit-pattern tensors on ``hay``'s device)."""
     n, t = values.shape
-    n_real = n if n_real is None else max(0, min(int(n_real), n))
+    n_real = _n_real(n_real, n)
     out = torch.full((n,), SENTINEL, dtype=torch.int32, device=hay.device)
     if n_real == 0:
         return out
@@ -124,44 +172,60 @@ def batched_find(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor:
     are uint32 numpy tables (re-masked here, as the JAX wrapper does) or
     int32 bit-pattern tensors; ``ends`` are int32, in the same frame as the
     reported offsets.  Padded rows (mask 0, end 0) report SENTINEL."""
-    _check_hay(hay)
-    base = _check_base(hay, base)
+    base, values, masks, ends = _operands(hay, values, masks, ends, base)
     device = hay.device
-    if isinstance(values, np.ndarray) and isinstance(masks, np.ndarray):
-        values = np.asarray(values, np.uint32) & np.asarray(masks, np.uint32)
-    values = table_bits(values, device)
-    masks = table_bits(masks, device)
-    ends = torch.as_tensor(ends, dtype=torch.int32).to(device).reshape(-1)
-    n, t = values.shape
-    if masks.shape != values.shape or ends.shape[0] != n:
-        raise ValueError("values, masks and ends must describe the same rows")
-    if not 1 <= t <= MAX_T:
-        raise ValueError(f"probe table width {t} outside 1..{MAX_T}")
     if device.type == "cpu":
         return batched_find_plain(hay, values, masks, ends, base, n_real)
     if device.type != "cuda":
         raise ValueError(f"no find kernel for device {device}")
-    n_real = n if n_real is None else max(0, min(int(n_real), n))
-    values, masks, ends = values.contiguous(), masks.contiguous(), ends.contiguous()
-    _cuda_ready(hay, values, masks, ends)
+    n = values.shape[0]
     out = torch.full((n,), SENTINEL, dtype=torch.int32, device=device)
-    n_pos = position_limit(hay.numel(), t)
-    if n_real == 0 or n_pos == 0:
-        return out
-    lib = cuda_lib.load()
-    with torch.cuda.device(device):
-        span, n_spans = plan_spans(n_pos, n_real, FIND_TILE, _sm_count(torch.cuda.current_device()))
-        err = lib.ssf_batched_find(
-            hay.data_ptr(), n_pos, values.data_ptr(), masks.data_ptr(),
-            ends.data_ptr(), out.data_ptr(), n_real, t, base, span, n_spans,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    cuda_lib.check(err, "ssf_batched_find")
-    batched_find.launches += 1
+    if _launch("ssf_batched_find", hay, values, masks, ends, out, base, _n_real(n_real, n)):
+        batched_find.launches += 1
     return out
 
 
 batched_find.launches = 0
+
+
+def batched_count_plain(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`batched_count` (same signature and
+    answers; tables as int32 bit-pattern tensors on ``hay``'s device)."""
+    n, t = values.shape
+    n_real = _n_real(n_real, n)
+    out = torch.zeros((n,), dtype=torch.int32, device=hay.device)
+    if n_real == 0:
+        return out
+    bound = position_limit(hay.numel(), t)
+    limits = (ends[:n_real].to(torch.int64) - base).clamp(max=bound)
+    out[:n_real] = match_counts(hay, values[:n_real], masks[:n_real], limits).to(torch.int32)
+    return out
+
+
+def batched_count(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor:
+    """Overlapping match counts (int32[N]) of N probe programs over the
+    flat haystack ``hay``, with the operands of :func:`batched_find`.
+
+    Row ``n < n_real`` reports how many positions ``p`` with ``p + base <
+    ends[n]`` satisfy every slot; the counts do not depend on ``base``
+    otherwise.  Rows at or past ``n_real`` are never scanned and report 0,
+    as do padded rows (mask 0, end 0).  ``ends`` must exclude positions
+    past ``length - k + 1``: a needle ending in zero bytes also matches in
+    the layout's zero halo."""
+    base, values, masks, ends = _operands(hay, values, masks, ends, base)
+    device = hay.device
+    if device.type == "cpu":
+        return batched_count_plain(hay, values, masks, ends, base, n_real)
+    if device.type != "cuda":
+        raise ValueError(f"no count kernel for device {device}")
+    n = values.shape[0]
+    out = torch.zeros((n,), dtype=torch.int32, device=device)
+    if _launch("ssf_batched_count", hay, values, masks, ends, out, base, _n_real(n_real, n)):
+        batched_count.launches += 1
+    return out
+
+
+batched_count.launches = 0
 
 
 def memchr_find_plain(hay, byte, end, base=0) -> torch.Tensor:

@@ -1,8 +1,8 @@
-"""Packed-window and first-offset math as plain torch ops.
+"""Packed-window, first-offset and count math as plain torch ops.
 
 The single source of the probe evaluation for every plain (non-kernel)
 path of the port: the flat rung, ``TorchSearcher`` and the plain versions
-of the CUDA kernels.  Counterpart of ``sliceslice_tpu/ops/scan_math.py``.
+of the CUDA find and count kernels.  Counterpart of ``sliceslice_tpu/ops/scan_math.py``.
 
 torch's CPU build has no ``<<`` or ``min`` for ``uint32``, so windows and
 probe tables are carried as int32 BIT PATTERNS: windows are assembled in
@@ -41,11 +41,13 @@ def position_limit(nbytes: int, t: int) -> int:
 
 
 def packed_windows(hay_u8: torch.Tensor) -> torch.Tensor:
-    """uint8[L] -> int32[L-3] little-endian 4-byte windows (bit patterns):
+    """uint8[..., L] -> int32[..., L-3] little-endian 4-byte windows (bit
+    patterns) along the last axis:
     ``P[p] = b[p] | b[p+1]<<8 | b[p+2]<<16 | b[p+3]<<24``."""
     b = hay_u8.to(torch.int64)
-    n = b.shape[0]
-    w = b[0 : n - 3] | (b[1 : n - 2] << 8) | (b[2 : n - 1] << 16) | (b[3:n] << 24)
+    n = b.shape[-1]
+    w = (b[..., 0 : n - 3] | (b[..., 1 : n - 2] << 8) | (b[..., 2 : n - 1] << 16)
+         | (b[..., 3:n] << 24))
     return w.to(torch.int32)
 
 
@@ -93,4 +95,43 @@ def first_offsets(
             first = torch.where(acc, pos[None, :], SENTINEL).amin(dim=1)
             out[sel] = torch.minimum(out[sel], first)
         rows = rows[out[rows] == SENTINEL]
+    return out
+
+
+def match_counts(
+    hay_u8: torch.Tensor,
+    values: torch.Tensor,
+    masks: torch.Tensor,
+    limits: torch.Tensor,
+) -> torch.Tensor:
+    """int64[N]: for each row the number of positions ``p < limits[n]`` at
+    which every probe slot matches (overlapping matches), the full-scan
+    counterpart of :func:`first_offsets`, chunked the same way with no
+    early exit.  The same guarantee on ``limits`` applies."""
+    n, t = values.shape
+    device = hay_u8.device
+    out = torch.zeros((n,), dtype=torch.int64, device=device)
+    if n == 0:
+        return out
+    limits = limits.to(device=device, dtype=torch.int64)
+    lim_max = int(limits.max())
+    rows = torch.nonzero(limits > 0).flatten()
+    step = max(4096, min(1 << 16, _STEP_ELEMS // max(1, rows.numel())))
+    for c0 in range(0, max(lim_max, 0), step):
+        rows = rows[limits[rows] > c0]
+        if rows.numel() == 0:
+            break
+        c1 = min(c0 + step, lim_max)
+        width = c1 - c0
+        win = packed_windows(hay_u8[c0 : c1 + 4 * t - 1])
+        pos = torch.arange(c0, c1, dtype=torch.int64, device=device)
+        chunk = max(1, _STEP_ELEMS // width)
+        for r0 in range(0, rows.numel(), chunk):
+            sel = rows[r0 : r0 + chunk]
+            v, m = values[sel], masks[sel]
+            acc = pos[None, :] < limits[sel, None]
+            for ti in range(t):
+                w = win[4 * ti : 4 * ti + width]
+                acc &= (w[None, :] & m[:, ti : ti + 1]) == v[:, ti : ti + 1]
+            out[sel] += acc.sum(dim=1)
     return out

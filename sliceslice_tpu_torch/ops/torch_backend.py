@@ -2,7 +2,8 @@
 
 Counterpart of the find half of ``sliceslice_tpu/ops/xla_backend.py``: the
 flat short-haystack rung (on any device) and the differential path behind
-``TorchSearcher``.  These were plain XLA in the JAX package, so they stay
+``TorchSearcher``, whose count (:func:`count_cols`) keeps a layout on the
+card from being counted on the host.  These were plain XLA in the JAX package, so they stay
 plain tensor code here; the hand-written kernels live in
 :mod:`.scan_kernel`.
 """
@@ -12,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..config import SENTINEL
-from .scan_math import first_offsets, packed_windows, position_limit, table_bits
+from .scan_math import first_offsets, match_counts, packed_windows, position_limit, table_bits
 
 
 def _rolled_windows(flat: torch.Tensor) -> torch.Tensor:
@@ -65,3 +66,15 @@ def find_cols(flat, values, masks, end) -> torch.Tensor:
     bound = position_limit(flat.numel(), values.shape[1])
     limit = torch.tensor([min(int(end), bound)], dtype=torch.int64)
     return first_offsets(flat, values, masks, limit)[0].to(torch.int32)
+
+
+def count_cols(flat, values, masks, end) -> torch.Tensor:
+    """Overlapping match count (0-d int64) over the kernel layout — the
+    same answer the count kernel gives, as plain torch ops.  The layout's
+    halo must cover the probe width."""
+    device = flat.device
+    values = table_bits(values, device).reshape(1, -1)
+    masks = table_bits(masks, device).reshape(1, -1)
+    bound = position_limit(flat.numel(), values.shape[1])
+    limit = torch.tensor([min(int(end), bound)], dtype=torch.int64)
+    return match_counts(flat, values, masks, limit)[0]

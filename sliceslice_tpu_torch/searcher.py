@@ -5,6 +5,7 @@ searcher objects, src/x86.rs:266-526):
 
 * ``Searcher(needle)`` / ``Searcher.with_position(needle, position)``;
 * ``search_in(haystack) -> bool`` and ``find(haystack) -> Optional[int]``;
+* ``count_in(haystack) -> int``, the number of overlapping occurrences;
 * ``inlined_search_in``, an alias kept for parity;
 * empty needles are rejected by concrete searchers and handled by the
   dynamic dispatcher's N0 arm.
@@ -23,7 +24,7 @@ import torch
 
 from .config import SENTINEL
 from .needle import Needle, NeedleLike, needed_halo
-from .ops.layout import DeviceHaystack, preprocess
+from .ops.layout import SHORT_HAY_BYTES, DeviceHaystack, preprocess
 
 HaystackLike = Union[bytes, bytearray, memoryview, np.ndarray, str, DeviceHaystack]
 DeviceLike = Union[str, torch.device]
@@ -75,7 +76,8 @@ def _hay_bytes(hay: HaystackLike) -> bytes:
 
 class SearcherBase:
     """Common contract: validation, trivial-length short-circuits, and the
-    bytes/DeviceHaystack plumbing.  Subclasses implement ``_find_device``."""
+    bytes/DeviceHaystack plumbing.  Subclasses implement ``_find_device``
+    and, where they have a device count, ``_count_device``."""
 
     def __init__(
         self,
@@ -118,6 +120,55 @@ class SearcherBase:
             return self._trivial_find(data, k)
         off = int(self._find_device(self._layout(data)))
         return None if off >= SENTINEL else off
+
+    def count_in(self, hay: HaystackLike) -> int:
+        """Number of OVERLAPPING occurrences of the needle (the JAX
+        package's extension of the reference's bool ``search_in``).  A
+        layout on the card is counted on the card, a flat rung re-laid
+        there into the kernel layout.  Elsewhere a searcher without a
+        device count (``_count_device`` raises ``NotImplementedError``),
+        and any flat layout, counts on the host, as in the JAX package."""
+        k = self.needle.size
+        if isinstance(hay, DeviceHaystack):
+            if hay.length <= k:
+                return self._trivial_count(hay.host_bytes, k)
+            if hay.device.type == "cuda":
+                return int(self._count_device(hay.kernel_layout(needed_halo(k))))
+            if hay.tiled:
+                try:
+                    return int(self._count_device(hay))
+                except NotImplementedError:
+                    pass
+            data = hay.host_bytes
+            if data is None:
+                raise ValueError(
+                    "counting on this DeviceHaystack requires host bytes "
+                    "(preprocess with keep_host=True)"
+                )
+            return overlapping_count(data, self.needle.data)
+        data = _hay_bytes(hay)
+        if len(data) <= k:
+            return self._trivial_count(data, k)
+        if len(data) <= SHORT_HAY_BYTES:
+            return overlapping_count(data, self.needle.data)
+        dh = self._layout(data)
+        try:
+            return int(self._count_device(dh))
+        except NotImplementedError:
+            return overlapping_count(data, self.needle.data)
+
+    def _trivial_count(self, data: Optional[bytes], k: int) -> int:
+        if data is None:
+            raise ValueError(
+                "DeviceHaystack shorter than needle requires host bytes "
+                "(preprocess with keep_host=True)"
+            )
+        if len(data) < k:
+            return 0
+        return 1 if data == self.needle.data else 0
+
+    def _count_device(self, dh: DeviceHaystack):
+        raise NotImplementedError
 
     def _trivial_find(self, data: Optional[bytes], k: int) -> Optional[int]:
         # hay shorter than needle -> no match; equal length -> whole-slice
@@ -166,6 +217,12 @@ class EmptyNeedleSearcher:
 
     def find(self, hay: HaystackLike) -> Optional[int]:
         return 0
+
+    def count_in(self, hay: HaystackLike) -> int:
+        # The empty needle matches at every gap: len + 1 positions.
+        if isinstance(hay, DeviceHaystack):
+            return hay.length + 1
+        return len(_hay_bytes(hay)) + 1
 
     def __repr__(self):
         return "EmptyNeedleSearcher()"
