@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``sliceslice_tpu_torch/csrc`` with
 nvcc, holds each kernel against its plain PyTorch version on the card, and
-drives the port's three main paths against host oracles:
+drives the port's main paths against host oracles:
 
 * find: ``preprocess`` -> ``BatchedSearcher.find_all`` over all 4,585
   words of data/words.txt in the 857,425-byte data/i386.txt, then
@@ -14,10 +14,19 @@ drives the port's three main paths against host oracles:
 * count: ``BatchedSearcher.count_all`` over the same words and corpus
   before and after ``optimize_for``, ``DynamicSearcher.count_in`` on every
   arm and counts in the 256 MiB corpus, against ``overlapping_count``;
+* positions: ``BatchedSearcher.positions_all`` over the same words and
+  corpus before and after ``optimize_for`` (both tiers),
+  ``DynamicSearcher.positions`` on every arm, a flat layout on the card
+  kept without host bytes, and the 256 MiB corpus's needles, against the
+  host positions oracle;
 * the all-pairs sweep: ``PairwiseSearcher`` over the length-sorted words,
   all 21,022,225 pairs, against ``bytes.find``;
+* the ablation harness: every variant of the probe kernel at t = 1, 2, 3
+  over the JAX harness's tables (4,585 rows over i386), against its plain
+  version and the count and find kernels;
 
-then times the sweeps and each kernel with CUDA events.  Every phase
+then times the sweeps, each kernel and the ablation table with CUDA
+events.  Every phase
 prints one line and its seconds; any failure raises and exits non-zero.
 The next-to-last lines are a JSON object describing the kernels and the
 card's name and power limit; the last line is ``{"ok": true, "device":
@@ -37,8 +46,13 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIND_SOURCE = "sliceslice_tpu_torch/csrc/find.cu"
 PAIR_SOURCE = "sliceslice_tpu_torch/csrc/pairwise.cu"
+PROBE_SOURCE = "sliceslice_tpu_torch/csrc/probe.cu"
 BIG_BYTES = 256 * 1024 * 1024
 SWEEPS = 32
+#: positions_all sweeps per timed sample (each reads its answers back).
+POSITION_SWEEPS = 4
+#: Probe-table widths the ablation harness runs.
+PROBE_TS = (1, 2, 3)
 
 
 class SmokeFailure(RuntimeError):
@@ -121,8 +135,9 @@ def phase_kernels(torch, device):
     from sliceslice_tpu_torch import PairwiseSearcher, overlapping_count, preprocess
     from sliceslice_tpu_torch.config import SENTINEL
     from sliceslice_tpu_torch.needle import build_probe_table, needed_halo_for_t
-    from sliceslice_tpu_torch.ops import pairwise, scan_kernel
+    from sliceslice_tpu_torch.ops import pairwise, scan_kernel, torch_backend
     from sliceslice_tpu_torch.ops.scan_math import table_bits
+    from sliceslice_tpu_torch.searcher import _host_positions
 
     rng = np.random.default_rng(1234)
     body = rng.integers(97, 101, (1 << 20) - 128, dtype=np.uint8)
@@ -130,7 +145,7 @@ def phase_kernels(torch, device):
     hay = np.concatenate([body, tail]).tobytes()
     dh = preprocess(hay, kh=needed_halo_for_t(32), device=device)
     widths = list(range(1, 9)) + [16, 32]
-    max_err = count_err = 0
+    max_err = count_err = bitmap_err = 0
     rows = 0
     for t in widths:
         needles = _kernel_tables(hay, rng, t)
@@ -160,6 +175,16 @@ def phase_kernels(torch, device):
             check(np.array_equal(got, plain), f"count kernel != plain at t={t} base={base}")
             exp = np.where(np.arange(n_pad) < n_real, counts, 0)
             check(np.array_equal(got, exp), f"count kernel != overlapping_count at t={t} base={base}")
+            got = scan_kernel.match_bitmap(dh.flat, v, m, e, base=base, n_real=n_real)
+            plain = scan_kernel.match_bitmap_plain(dh.flat, v, m, e, base=base, n_real=n_real)
+            bitmap_err = max(bitmap_err, int((got.long() - plain.long()).abs().max()))
+            check(torch.equal(got, plain), f"match-bitmap kernel != plain at t={t} base={base}")
+            if base == 0:
+                words = got.cpu().numpy()
+                for i, nd in enumerate(needles):
+                    check(np.array_equal(torch_backend.decode_match_bitmap(words[i]),
+                                         _host_positions(hay, nd)),
+                          f"match-bitmap kernel != host positions at t={t}, row {i}")
             rows += n_pad
     find_err = max_err
     max_err = 0
@@ -194,11 +219,12 @@ def phase_kernels(torch, device):
         check(int(cnt) == int((exp >= 0).sum()), f"pair kernel count != bytes.find, block {block}")
         pairs += exp.size
     say("kernels", find_rows=rows, find_widths=widths, find_max_abs_err=find_err,
-        count_rows=rows, count_max_abs_err=count_err,
+        count_rows=rows, count_max_abs_err=count_err, bitmap_rows=rows,
+        bitmap_max_abs_err=bitmap_err,
         memchr_cases=cases, memchr_max_abs_err=memchr_err,
         pair_pairs=pairs, pair_max_abs_err=pair_err, equal=True)
     return {"batched_find": find_err, "memchr_find": memchr_err,
-            "batched_count": count_err, "pair_block": pair_err}
+            "batched_count": count_err, "pair_block": pair_err, "match_bitmap": bitmap_err}
 
 
 def phase_i386(torch, device, hay, words):
@@ -340,7 +366,127 @@ def phase_count(torch, device, hay, words, i386_dh, big):
         parity=True, parity_after_optimize_for=True, flat_rung_words=len(flat_words),
         dynamic_lengths=lengths, dynamic_checks=checks,
         big_needles=len(needles), big_total_matches=int(exp_big.sum()))
+    return bs, int(exp.sum()), exp_big
+
+
+def phase_positions(torch, device, hay, words, i386_dh, big, i386_total, big_counts):
+    """Positions on the positions path: all words over i386 before and
+    after optimize_for (both tiers), DynamicSearcher.positions on every
+    arm, a flat layout on the card kept without host bytes, and the 256 MiB
+    corpus's needles and periodic run; totals against the count phase."""
+    from sliceslice_tpu_torch import BatchedSearcher, DynamicSearcher, preprocess
+    from sliceslice_tpu_torch.ops import scan_kernel, torch_backend
+    from sliceslice_tpu_torch.searcher import _host_positions
+
+    cap = torch_backend.SPARSE_POSITIONS_CAP
+    t0 = time.perf_counter()
+    exp = [_host_positions(hay, w) for w in words]
+    oracle_s = time.perf_counter() - t0
+    bs = BatchedSearcher(words, device=device)
+
+    def same(got, exp_rows, what):
+        bad = sum(not np.array_equal(g, e) for g, e in zip(got, exp_rows))
+        check(len(got) == len(exp_rows) and bad == 0, f"{what}: {bad} rows differ")
+
+    got = bs.positions_all(i386_dh)
+    same(got, exp, "i386 positions")
+    total = sum(len(p) for p in got)
+    dense = sum(len(p) > cap for p in got)
+    check(total == i386_total, f"i386 positions total {total} != count total {i386_total}")
+    check(0 < dense < len(words), f"i386 positions: {dense} dense rows, no row on one tier")
+    bs.optimize_for(i386_dh)
+    same(bs.positions_all(i386_dh), exp, "i386 positions after optimize_for")
+
+    rng = np.random.default_rng(13)
+    small = hay[100_000:106_000]            # bytes, 4096 < len <= 8192: host positions
+    tiny = preprocess(hay[:3000], keep_host=False, device=device)   # flat rung, card only
+    check(not tiny.tiled, "the 3,000-byte layout is not the flat rung")
+    flat_words = words[::15]
+    b0 = scan_kernel.match_bitmap.launches
+    flat_bs = BatchedSearcher(flat_words, device=device)
+    same(flat_bs.positions_all(tiny), [_host_positions(hay[:3000], w) for w in flat_words],
+         "positions over the flat rung on the card")
+    check(scan_kernel.match_bitmap.launches > b0,
+          "positions_all over the flat rung on the card did not launch the bitmap kernel")
+    lengths = [0, 1, 2, 3, 5, 8, 12, 16, 17, 24, 32, 33, 40, 100, 1000]
+    checks = 0
+    for k in lengths:
+        for h_bytes, h in ((small, small), (hay[:3000], tiny), (hay, i386_dh), (hay, hay)):
+            start = int(rng.integers(0, len(h_bytes) - k))
+            for nd in (h_bytes[start:start + k], h_bytes[-k:] if k else b"", b"\xfe" * k,
+                       h_bytes[len(h_bytes) - k + 1:] + b"\0" if k else b""):
+                before = scan_kernel.match_bitmap.launches
+                got = DynamicSearcher(nd, device=device).positions(h)
+                check(np.array_equal(got, _host_positions(h_bytes, nd)),
+                      f"DynamicSearcher.positions k={k} differs")
+                if k and h is tiny:
+                    check(scan_kernel.match_bitmap.launches == before + 1,
+                          f"positions k={k} over the flat rung on the card did not launch the bitmap kernel")
+                checks += 1
+
+    big_dh, big_hay, big_needles = big
+    periodic = b"\xfa\xfb" * 3
+    needles = big_needles + [periodic]
+    t0 = time.perf_counter()
+    exp_big = [_host_positions(big_hay, nd) for nd in needles]
+    oracle_s += time.perf_counter() - t0
+    got = BatchedSearcher(needles, device=device).positions_all(big_dh)
+    same(got, exp_big, "256 MiB positions")
+    sizes = np.array([len(p) for p in got])
+    check(np.array_equal(sizes, big_counts), "256 MiB positions totals != the count phase's counts")
+    check(np.array_equal(DynamicSearcher(periodic, device=device).positions(big_dh), exp_big[-1]),
+          "256 MiB corpus: periodic positions differ")
+    say("positions", words=len(words), total_i386_matches=total, dense_rows=dense,
+        sparse_cap=cap, parity=True, parity_after_optimize_for=True,
+        flat_rung_words=len(flat_words), dynamic_lengths=lengths, dynamic_checks=checks,
+        big_needles=len(needles), big_total_matches=int(sizes.sum()),
+        big_dense_rows=int((sizes > cap).sum()), host_oracle_s=round(oracle_s, 3))
     return bs
+
+
+def phase_probe(torch, device, hay):
+    """Every variant of the ablation kernel at t = 1, 2, 3 over the JAX
+    harness's tables (4,585 rows over i386): equal to its plain version,
+    the answer-preserving ones to the count and find kernels, the planted
+    rows (t=2) at their bytes.find offsets."""
+    from sliceslice_tpu_torch import overlapping_count, preprocess
+    from sliceslice_tpu_torch.config import SENTINEL
+    from sliceslice_tpu_torch.needle import needed_halo_for_t
+    from sliceslice_tpu_torch.ops import scan_kernel
+    from sliceslice_tpu_torch.ops.scan_math import table_bits
+    from sliceslice_tpu_torch.scripts import kernel_probe as kp
+
+    n = 4585
+    dh = preprocess(hay, kh=needed_halo_for_t(max(PROBE_TS)), device=device)
+    err, setups, plants = 0, {}, []
+    for t in PROBE_TS:
+        values, masks = kp.make_tables(hay, t, n)
+        v, m = table_bits(values, device), table_bits(masks, device)
+        e = torch.from_numpy(kp.table_ends(masks, len(hay))).to(device)
+        count = scan_kernel.batched_count(dh.flat, v, m, e, n_real=n)
+        first = scan_kernel.batched_find(dh.flat, v, m, e, n_real=n)
+        for variant in kp.VARIANTS:
+            got = kp.probe(variant, dh.flat, v, m, e, n_real=n)
+            plain = kp.probe_plain(variant, dh.flat, v, m, e, n_real=n)
+            err = max(err, int((got.long() - plain.long()).abs().max()))
+            check(torch.equal(got, plain), f"probe kernel != plain: {variant}, t={t}")
+            if variant in kp.COUNTING:
+                check(torch.equal(got, count), f"probe {variant} != batched_count at t={t}")
+            elif variant == "first":
+                check(torch.equal(got, first), f"probe first != batched_find at t={t}")
+            elif variant == "nomin":
+                check(torch.equal(got, (first != SENTINEL).to(torch.int32)),
+                      f"probe nomin != batched_find != SENTINEL at t={t}")
+        if t == 2:
+            for row, nd in kp.planted(hay, masks).items():
+                check(int(first[row]) == hay.find(nd) and int(count[row]) == overlapping_count(hay, nd),
+                      f"planted row {row} not at its bytes.find offset")
+                plants.append((row, int(first[row]), int(count[row])))
+        setups[t] = (dh.flat, v, m, e, n)
+    say("probe", rows=n, widths=list(PROBE_TS), variants=list(kp.VARIANTS), max_abs_err=err,
+        equal_to_plain=True, counting_equal_batched_count=True, first_equal_batched_find=True,
+        planted_rows_first_count=plants)
+    return err, setups
 
 
 def phase_pairwise(torch, device, words):
@@ -368,8 +514,9 @@ def phase_pairwise(torch, device, words):
     return ps
 
 
-def phase_times(torch, device, card, i386_dh, bs, big_dh, count_bs, ps):
+def phase_times(torch, device, card, i386_dh, bs, big_dh, count_bs, ps, pos_bs, probe_setups):
     from sliceslice_tpu_torch.ops import pairwise, scan_kernel
+    from sliceslice_tpu_torch.scripts import kernel_probe as kp
     from sliceslice_tpu_torch.utils.profiling import HBM_ROOFLINE, measure
 
     n_words, hay_len = len(bs), i386_dh.length
@@ -447,8 +594,50 @@ def phase_times(torch, device, card, i386_dh, bs, big_dh, count_bs, ps):
                     lambda *a: pairwise.pair_block_plain(*a, count=True), [args],
                     "pair kernel vs plain, count mode, one all-pairs sweep",
                     matrix_mode_kernel_ms=matrix.estimate * 1e3)
+
+    def pos_sweeps():
+        for _ in range(POSITION_SWEEPS):
+            pos_bs.positions_all(i386_dh)
+
+    m = measure(pos_sweeps, f"i386 positions sweep x{POSITION_SWEEPS}", warmup=1, samples=3,
+                device=device)
+    say("times", what="sustained i386 positions sweep (positions_all, batch 16, after optimize_for)",
+        card=card, sweeps=POSITION_SWEEPS, ms_per_sweep=m.estimate * 1e3 / POSITION_SWEEPS,
+        low_ms=m.low * 1e3 / POSITION_SWEEPS, high_ms=m.high * 1e3 / POSITION_SWEEPS,
+        note="each sweep reads its answers back, so each synchronises")
+    batches = [(i386_dh.flat, g.values_dev[i0:i0 + 16], g.masks_dev[i0:i0 + 16],
+                g.ends_dev(hay_len)[i0:i0 + 16], 0, min(16, g.n - i0))
+               for g in pos_bs.groups for i0 in range(0, g.n, 16)]
+    bitmap = vs_plain(scan_kernel.match_bitmap, scan_kernel.match_bitmap_plain, batches,
+                      f"match-bitmap kernel vs plain, one i386 positions sweep ({len(batches)} batches of <= 16 rows)")
+
+    # The ablation table: K launches of each variant, one sync.
+    table = {}
+    for t, (flat, v, m_, e, n) in probe_setups.items():
+        row = {}
+        for variant in kp.VARIANTS:
+            def launches(variant=variant):
+                for _ in range(SWEEPS):
+                    kp.probe(variant, flat, v, m_, e, n_real=n)
+
+            k = measure(launches, f"probe {variant} t={t}", warmup=1, samples=3, device=device)
+            per = k.estimate / SWEEPS
+            row[variant] = {"ms_per_sweep": per * 1e3,
+                            "ns_per_row_1024_positions": per * 1e9 / (n * hay_len / 1024)}
+        table[t] = row
+        say("probe_times", card=card, t=t, rows=n, sweeps=SWEEPS, variants=row)
+    flat, v, m_, e, n = probe_setups[2]
+    probe_plain = measure(lambda: kp.probe_plain("count", flat, v, m_, e, n_real=n),
+                          "probe count plain t=2", warmup=1, samples=3, device=device)
+    probe_ms = (table[2]["count"]["ms_per_sweep"], probe_plain.estimate * 1e3)
+    say("times", what="probe kernel (count variant, t=2, 4,585 rows) vs plain", card=card,
+        kernel_ms=probe_ms[0], plain_ms=probe_ms[1], speedup=probe_ms[1] / probe_ms[0])
+    print("ablation, ms per sweep / ns per (row, 1024 positions), " + card)
+    for t, row in table.items():
+        print(f"  t={t}: " + "  ".join(f"{name} {r['ms_per_sweep']:.4f}/{r['ns_per_row_1024_positions']:.4f}"
+                                      for name, r in row.items()))
     return {"batched_find": find, "memchr_find": (mem_ms, mem_plain_ms),
-            "batched_count": count, "pair_block": pair}
+            "batched_count": count, "pair_block": pair, "match_bitmap": bitmap, "probe": probe_ms}
 
 
 def main() -> int:
@@ -460,12 +649,14 @@ def main() -> int:
     errs = timed(phase_kernels, torch, device)
 
     from sliceslice_tpu_torch.ops import pairwise, scan_kernel
+    from sliceslice_tpu_torch.scripts import kernel_probe
 
     hay = open(os.path.join(REPO, "data/i386.txt"), "rb").read()
     words = [w for w in open(os.path.join(REPO, "data/words.txt"), "rb").read().split(b"\n") if w]
     check(len(words) == 4585 and len(hay) == 857425, "unexpected corpus files")
     wrappers = {"batched_find": scan_kernel.batched_find, "memchr_find": scan_kernel.memchr_find,
-                "batched_count": scan_kernel.batched_count, "pair_block": pairwise.pair_block}
+                "batched_count": scan_kernel.batched_count, "pair_block": pairwise.pair_block,
+                "match_bitmap": scan_kernel.match_bitmap, "probe": kernel_probe.probe}
     launches = {}
 
     def path(names, *phases):
@@ -485,16 +676,22 @@ def main() -> int:
         (phase_i386, (torch, device, hay, words)),
         (phase_dynamic, (torch, device, hay)),
         (phase_big, (torch, device)))
-    (count_bs,) = path(("batched_count",),
-                       (phase_count, (torch, device, hay, words, i386_dh, big)))
+    ((count_bs, i386_total, big_counts),) = path(
+        ("batched_count",), (phase_count, (torch, device, hay, words, i386_dh, big)))
+    (pos_bs,) = path(("match_bitmap",), (phase_positions, (
+        torch, device, hay, words, i386_dh, big, i386_total, big_counts)))
     (ps,) = path(("pair_block",), (phase_pairwise, (torch, device, words)))
+    ((errs["probe"], probe_setups),) = path(("probe",), (phase_probe, (torch, device, hay)))
 
-    times = timed(phase_times, torch, device, card, i386_dh, bs, big[0], count_bs, ps)
+    times = timed(phase_times, torch, device, card, i386_dh, bs, big[0], count_bs, ps, pos_bs,
+                  probe_setups)
     kernels = [
         ("batched_find", FIND_SOURCE, "sliceslice_tpu/ops/scan_kernel.py:266"),
         ("memchr_find", FIND_SOURCE, "sliceslice_tpu/ops/scan_kernel.py:720"),
         ("batched_count", FIND_SOURCE, "sliceslice_tpu/ops/scan_kernel.py:795"),
         ("pair_block", PAIR_SOURCE, "sliceslice_tpu/ops/pairwise.py:103"),
+        ("probe", PROBE_SOURCE, "scripts/kernel_probe.py:64"),
+        ("match_bitmap", FIND_SOURCE, "sliceslice_tpu/ops/xla_backend.py:140 (XLA, not Pallas)"),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -2,9 +2,9 @@
 
 The same substring-search API and answers as the JAX package, for one
 NVIDIA Hopper card: a haystack is laid out once on a device, and needles
-are searched over it, or counted, by hand-written CUDA kernels
-(``csrc/*.cu``), built with ``nvcc`` at first use; word lists are swept
-against each other pair by pair.  On the CPU every kernel runs as its
+are searched over it, counted, or listed at every offset, by hand-written
+CUDA kernels (``csrc/*.cu``), built with ``nvcc`` at first use; word lists
+are swept against each other pair by pair.  On the CPU every kernel runs as its
 plain PyTorch version.  The port imports torch and numpy, never jax.
 
 Public API::
@@ -14,7 +14,9 @@ Public API::
     hay = preprocess(open("corpus", "rb").read(), device="cuda")
     BatchedSearcher([b"a", b"needle"], device="cuda").find_all(hay)
     BatchedSearcher([b"a", b"needle"], device="cuda").count_all(hay)
+    BatchedSearcher([b"a", b"needle"], device="cuda").positions_all(hay)
     DynamicSearcher(b"aa").count_in(b"aaaa")                   # -> 3
+    DynamicSearcher(b"aa").positions(b"aaaa")                  # -> array([0, 1, 2])
     PairwiseSearcher([b"ab", b"abc"], device="cuda").contains_matrix()
 """
 

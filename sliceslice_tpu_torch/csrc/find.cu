@@ -19,6 +19,16 @@
 // (wrapped by memchr_find_cols): the first p with p + base < end at which
 // one byte value occurs, as p + base, or SENTINEL.
 //
+// ssf_match_bitmap replaces the plain-XLA match bitmap of the positions
+// path, sliceslice_tpu/ops/xla_backend.py::_match_bitmap_cols_impl (and its
+// batched vmap): for each row n < n_real, bit b of word w of out[n] is set
+// iff position p = 32w + b satisfies every slot with p + base < ends[n].
+// The bitmap is linear, where the TPU's is laid out by lane.  It is a
+// kernel here because the plain torch version evaluates every position of
+// every row in chunked tensor ops (137x this kernel's time over an i386
+// positions sweep on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md); this one
+// is the shared loop plus a shuffle merge and a store.
+//
 // What bounds them on the H100.  The find kernel reads the corpus once per
 // needle row until that row's first match, so across a sweep it moves
 // (rows x bytes scanned) through L2 and, for corpora larger than the 50 MB
@@ -33,7 +43,8 @@
 //     a warp's loads are 128 contiguous bytes and each window comes from
 //     two aligned words by __funnelshift_r — no packed-window copy of the
 //     corpus in HBM (the TPU layout's 4x-sized windows are not needed);
-//     both kernels share that loop (probe_word);
+//     every kernel but memchr shares that loop (probe_word, in
+//     scan_common.cuh with the ablation kernel of probe.cu);
 //   * a position stops at its first failing probe slot;
 //   * find: the block stops at the first tile (1024 positions) holding a
 //     match: __syncthreads_or finds the tile, a shared atomicMin its first
@@ -46,7 +57,10 @@
 //     shuffles and shared memory and adds its sum to the row with one
 //     atomicAdd.  Integer sums in any order are exact.  The TPU kernel's
 //     clean-segment split only saves vector passes there; here the end
-//     bound is one compare per word, so it is not carried over.
+//     bound is one compare per word, so it is not carried over;
+//   * match bitmap: the count kernel's walk, with one 4-byte store per 32
+//     positions that hold a match instead of a sum, so it costs a count
+//     plus the stores of its matches.
 // Making them fast (TMA tiles shared across needles, a persistent grid) is
 // later work.  The kernels allocate nothing and never synchronise; each
 // entry point returns cudaGetLastError() so the caller sees a refused
@@ -55,46 +69,15 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "scan_common.cuh"
+
 namespace {
 
-constexpr int kSentinel = 0x7fffffff;
-constexpr int kThreads = 256;
-constexpr int kFindTile = kThreads * 4;      // positions per find step
 constexpr int kMemchrTile = kThreads * 16;   // bytes per memchr step
-constexpr int kMaxT = 512;                   // widest probe table
 constexpr int kCheckEvery = 8;               // steps between cross-span checks
 
 __device__ __forceinline__ int read_best(const int32_t* p) {
   return *reinterpret_cast<const volatile int32_t*>(p);
-}
-
-// The probe program at the positions p0 .. p0+3 (p0 word aligned, p0 <
-// stop) that lie below stop: bit r of the result is set when position
-// p0 + r satisfies every slot.  Windows come from two aligned words by
-// __funnelshift_r; a position drops out at its first failing slot, and the
-// walk over slots stops once all four have.
-__device__ __forceinline__ unsigned probe_word(const uint32_t* __restrict__ hay,
-                                               long long p0, long long stop,
-                                               const uint32_t* s_val,
-                                               const uint32_t* s_msk, int t) {
-  const long long rem = stop - p0;
-  unsigned alive = rem >= 4 ? 0xFu : ((1u << rem) - 1u);
-  const long long j = p0 >> 2;
-  uint32_t lo = __ldg(hay + j);
-  for (int i = 0; i < t && alive; ++i) {
-    const uint32_t hi = __ldg(hay + j + i + 1);
-    const uint32_t m = s_msk[i];
-    const uint32_t v = s_val[i];
-    if (m != 0u) {  // a mask-0 slot is trivially true
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const uint32_t w = __funnelshift_r(lo, hi, 8 * r);
-        if ((w & m) != v) alive &= ~(1u << r);
-      }
-    }
-    lo = hi;
-  }
-  return alive;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -108,16 +91,10 @@ batched_find_kernel(const uint32_t* __restrict__ hay, long long n_pos,
   __shared__ int s_first;
 
   const int row = blockIdx.x;  // the grid holds rows < n_real only
-  long long lim = static_cast<long long>(ends[row]) - base;
-  if (lim > n_pos) lim = n_pos;
-  const long long start = static_cast<long long>(blockIdx.y) * span;
-  if (start >= lim) return;
-  const long long stop = (start + span < lim) ? start + span : lim;
+  long long start, stop;
+  if (!row_span(ends, row, n_pos, base, span, &start, &stop)) return;
 
-  for (int i = threadIdx.x; i < t; i += kThreads) {
-    s_val[i] = values[static_cast<long long>(row) * t + i];
-    s_msk[i] = masks[static_cast<long long>(row) * t + i];
-  }
+  load_table(values, masks, row, t, s_val, s_msk);
   if (threadIdx.x == 0) s_first = kSentinel;
   // One thread reads the row's best so that the whole block agrees: a span
   // that starts at or past it has nothing to add.
@@ -164,29 +141,52 @@ count_kernel(const uint32_t* __restrict__ hay, long long n_pos,
   __shared__ unsigned s_warp[kThreads / 32];
 
   const int row = blockIdx.x;  // the grid holds rows < n_real only
-  long long lim = static_cast<long long>(ends[row]) - base;
-  if (lim > n_pos) lim = n_pos;
-  const long long start = static_cast<long long>(blockIdx.y) * span;
-  if (start >= lim) return;
-  const long long stop = (start + span < lim) ? start + span : lim;
+  long long start, stop;
+  if (!row_span(ends, row, n_pos, base, span, &start, &stop)) return;
 
-  for (int i = threadIdx.x; i < t; i += kThreads) {
-    s_val[i] = values[static_cast<long long>(row) * t + i];
-    s_msk[i] = masks[static_cast<long long>(row) * t + i];
-  }
+  load_table(values, masks, row, t, s_val, s_msk);
   __syncthreads();
 
   unsigned count = 0;
   for (long long p0 = start + 4LL * threadIdx.x; p0 < stop; p0 += kFindTile) {
     count += __popc(probe_word(hay, p0, stop, s_val, s_msk, t));
   }
-  count = __reduce_add_sync(0xffffffffu, count);
-  if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = count;
+  block_add(count, out + row, s_warp);
+}
+
+// One row's match bitmap over one span: each thread's 4 surviving
+// positions become a nibble, and the 8 nibbles of a lane group (32
+// consecutive positions, since lane l owns positions 4l .. 4l+3 of its
+// warp's 128) are merged by three XOR shuffles into one linear word, which
+// lane 8g writes.  Only words holding a match are written: the wrapper
+// zeroes the output, and a 32-position word never straddles two spans
+// (spans are multiples of 1024), so no store races another.
+__global__ void __launch_bounds__(kThreads)
+match_bitmap_kernel(const uint32_t* __restrict__ hay, long long n_pos,
+                    const uint32_t* __restrict__ values,
+                    const uint32_t* __restrict__ masks,
+                    const int32_t* __restrict__ ends, uint32_t* out, int t,
+                    long long base, long long span, long long row_words) {
+  __shared__ uint32_t s_val[kMaxT];
+  __shared__ uint32_t s_msk[kMaxT];
+
+  const int row = blockIdx.x;  // the grid holds rows < n_real only
+  long long start, stop;
+  if (!row_span(ends, row, n_pos, base, span, &start, &stop)) return;
+  load_table(values, masks, row, t, s_val, s_msk);
   __syncthreads();
-  if (threadIdx.x < 32) {
-    unsigned sum = threadIdx.x < kThreads / 32 ? s_warp[threadIdx.x] : 0u;
-    sum = __reduce_add_sync(0xffffffffu, sum);
-    if (threadIdx.x == 0 && sum != 0u) atomicAdd(out + row, static_cast<int>(sum));
+
+  uint32_t* bits_row = out + static_cast<long long>(row) * row_words;
+  const int sub = threadIdx.x & 7;  // this lane's nibble in its word
+  // The walk is block-uniform, so every lane reaches every shuffle.
+  for (long long tile = start; tile < stop; tile += kFindTile) {
+    const long long p0 = tile + 4LL * threadIdx.x;
+    unsigned bits = p0 < stop ? probe_word(hay, p0, stop, s_val, s_msk, t) : 0u;
+    bits <<= 4 * sub;
+    bits |= __shfl_xor_sync(0xffffffffu, bits, 1);
+    bits |= __shfl_xor_sync(0xffffffffu, bits, 2);
+    bits |= __shfl_xor_sync(0xffffffffu, bits, 4);
+    if (sub == 0 && bits != 0u) bits_row[p0 >> 5] = bits;
   }
 }
 
@@ -271,6 +271,25 @@ int ssf_batched_count(const void* hay, long long n_pos, const void* values,
       static_cast<const uint32_t*>(values), static_cast<const uint32_t*>(masks),
       static_cast<const int32_t*>(ends), static_cast<int32_t*>(out), t, base,
       span);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same operands as ssf_batched_find; out: uint32[n_real.., row_words]
+// with row_words >= ceil(n_pos / 32), holding 0 on entry.
+int ssf_match_bitmap(const void* hay, long long n_pos, const void* values,
+                     const void* masks, const void* ends, void* out,
+                     int n_real, int t, long long base, long long span,
+                     int n_spans, long long row_words, void* stream) {
+  if (n_real <= 0 || n_pos <= 0) return static_cast<int>(cudaGetLastError());
+  if (t < 1 || t > kMaxT || row_words * 32 < n_pos) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>(n_real), static_cast<unsigned>(n_spans));
+  match_bitmap_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(hay), n_pos,
+      static_cast<const uint32_t*>(values), static_cast<const uint32_t*>(masks),
+      static_cast<const int32_t*>(ends), static_cast<uint32_t*>(out), t, base,
+      span, row_words);
   return static_cast<int>(cudaGetLastError());
 }
 

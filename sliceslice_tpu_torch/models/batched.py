@@ -1,5 +1,6 @@
 """Batched multi-needle searcher — the main path of the port: first
-offsets (``find_all``) and overlapping counts (``count_all``).
+offsets (``find_all``), overlapping counts (``count_all``) and every
+offset (``positions_all``).
 
 N needles are scanned over one device-resident haystack.  Needles are
 grouped by probe-table width T = ceil(k/4) at construction (exact widths up
@@ -29,7 +30,14 @@ from ..needle import (
 from ..ops import scan_kernel, torch_backend
 from ..ops.layout import DeviceHaystack, preprocess
 from ..ops.scan_math import table_bits
-from ..searcher import DeviceLike, HaystackLike, _hay_bytes, overlapping_count, resolve_device
+from ..searcher import (
+    DeviceLike,
+    HaystackLike,
+    _hay_bytes,
+    _host_positions,
+    overlapping_count,
+    resolve_device,
+)
 
 #: Widths beyond the exact-width limit are bucketed.
 WIDE_T_BUCKETS = (16, 32, 64, 128, 256, 512)
@@ -218,10 +226,10 @@ class BatchedSearcher:
     def search_all(self, hay: HaystackLike) -> np.ndarray:
         return self.find_all(hay) >= 0
 
-    def _count_layout(self, hay: HaystackLike) -> DeviceHaystack:
-        """The layout a count scans.  On the card it is always the kernel
-        layout: a flat rung there is re-laid on the card, so no count of
-        the card's bytes runs on the host."""
+    def _full_scan_layout(self, hay: HaystackLike) -> DeviceHaystack:
+        """The layout a count or a positions scan reads.  On the card it is
+        always the kernel layout: a flat rung there is re-laid on the card,
+        so no full scan of the card's bytes runs on the host."""
         dh = self._layout(hay)
         if dh.tiled or dh.device.type != "cuda":
             return dh
@@ -231,7 +239,7 @@ class BatchedSearcher:
         """Device-resident int32[N] overlapping-occurrence counts: one count
         kernel launch per width group, then the scatter, with no host
         transfer and no synchronisation."""
-        dh = self._count_layout(hay)
+        dh = self._full_scan_layout(hay)
         if not dh.tiled:
             raise ValueError(
                 "count_all requires a tiled layout "
@@ -248,13 +256,46 @@ class BatchedSearcher:
     def count_all(self, hay: HaystackLike) -> np.ndarray:
         """Overlapping occurrence count per needle (int64[N]); a flat
         layout on the CPU counts on the host, as in the JAX package."""
-        dh = self._count_layout(hay)
+        dh = self._full_scan_layout(hay)
         if not dh.tiled:
             data = dh.host_bytes
             if data is None:
                 raise ValueError("counting on a flat DeviceHaystack requires host bytes")
             return np.array([overlapping_count(data, nd) for nd in self.needles], dtype=np.int64)
         return self.count_all_device(dh).cpu().numpy().astype(np.int64)
+
+    def positions_all(
+        self,
+        hay: HaystackLike,
+        batch: int = 16,
+        sparse_cap: int = torch_backend.SPARSE_POSITIONS_CAP,
+    ) -> List[np.ndarray]:
+        """ALL (overlapping) match offsets per needle, in input order — the
+        batched ``find_iter`` capability, in the JAX package's two tiers:
+        ``batch`` rows of a width group at a time, one match bitmap each on
+        the layout's device; a row with at most ``sparse_cap`` matches
+        reads back its offsets (``sparse_cap`` words), a denser one its
+        bitmap (corpus/8 bytes) for a host decode.  A flat layout on the
+        card is re-laid there; one elsewhere is scanned on the host, as in
+        the JAX package."""
+        dh = self._full_scan_layout(hay)
+        if not dh.tiled:
+            data = dh.host_bytes
+            if data is None:
+                raise ValueError("positions on a flat DeviceHaystack requires host bytes")
+            return [_host_positions(data, nd) for nd in self.needles]
+        out: List[Optional[np.ndarray]] = [None] * len(self.needles)
+        for g in self.groups:
+            g.sync_host()  # indices in the device tables' row order
+            ends = g.ends_dev(dh.length)
+            for i0 in range(0, g.n, batch):
+                i1 = min(i0 + batch, g.n)
+                res = torch_backend.two_tier_positions(
+                    dh.flat, g.values_dev[i0:i1], g.masks_dev[i0:i1], ends[i0:i1], sparse_cap
+                )
+                for j, p in enumerate(res):
+                    out[g.indices[i0 + j]] = p
+        return out  # type: ignore[return-value]
 
     def optimize_for(
         self, hay: HaystackLike, firsts: Optional[np.ndarray] = None

@@ -9,7 +9,8 @@ yet (ROADMAP queue 1, item 12) and raise ``NotImplementedError``.
 
 Haystacks of at most :data:`HOST_HAY_BYTES` that arrive as host bytes are
 searched on the host by the native SWAR tier (utils/native.py), and counted
-on the host: a device round trip costs more than a sub-4 KB host scan.
+and scanned for positions on the host: a device round trip costs more than
+a sub-4 KB host scan.
 Preprocessed :class:`DeviceHaystack` inputs always take the device path.
 """
 
@@ -19,7 +20,13 @@ from typing import Optional
 
 from ..needle import MAX_NEEDLE_LEN, NeedleLike, as_bytes
 from ..ops.layout import DeviceHaystack
-from ..searcher import EmptyNeedleSearcher, HaystackLike, _hay_bytes, overlapping_count
+from ..searcher import (
+    EmptyNeedleSearcher,
+    HaystackLike,
+    _hay_bytes,
+    _host_positions,
+    overlapping_count,
+)
 from .cuda_searcher import searcher_for_size
 from .memchr import MemchrSearcher
 from .naive import naive_find
@@ -86,6 +93,19 @@ class DynamicSearcher:
             if len(data) <= HOST_HAY_BYTES:
                 return overlapping_count(data, self._data)
         return self._inner.count_in(hay)
+
+    def positions(self, hay: HaystackLike):
+        """All (overlapping) match offsets, ascending (see
+        ``SearcherBase.positions``); host-bytes haystacks of at most
+        :data:`HOST_HAY_BYTES` are scanned on the host."""
+        if self._inner.size and not isinstance(hay, DeviceHaystack):
+            data = _hay_bytes(hay)
+            if len(data) <= HOST_HAY_BYTES:
+                return _host_positions(data, self._data)
+        return self._inner.positions(hay)
+
+    def find_iter(self, hay: HaystackLike):
+        return iter(self.positions(hay).tolist())
 
     def _host_find(self, data: bytes) -> Optional[int]:
         from ..utils import native

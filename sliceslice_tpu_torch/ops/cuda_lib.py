@@ -4,7 +4,7 @@ Each source is compiled with ``nvcc`` for ``sm_90a`` at first use, all of
 them at once in parallel processes, and the objects are linked into one
 shared library with a plain C interface, in ``csrc/build/`` beside them (a
 directory git ignores), loaded with ctypes.  The library's file name
-carries a hash of every source and the flags, so an edited kernel never
+carries a hash of every source, header (``*.cuh``) and flag, so an edited kernel never
 loads a stale build; a build is published by an atomic rename, so a
 concurrent process never maps a half-written file.  Nothing here runs at
 import time.
@@ -39,6 +39,8 @@ _SIGNATURES = {
     "ssf_batched_find": (_I, [_P, _LL, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _P]),
     "ssf_batched_count": (_I, [_P, _LL, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _P]),
     "ssf_memchr_find": (_I, [_P, _LL, _I, _LL, _LL, _I, _P, _P]),
+    "ssf_match_bitmap": (_I, [_P, _LL, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _LL, _P]),
+    "ssf_probe": (_I, [_I, _I, _P, _LL, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _P]),
     "ssf_pair_block": (_I, [_P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P]),
     "ssf_error_string": (ctypes.c_char_p, [_I]),
 }
@@ -67,7 +69,8 @@ def nvcc_path() -> Optional[str]:
 
 def _library_path() -> str:
     h = hashlib.sha1(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for src in sources():
+    headers = sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))
+    for src in sources() + headers:
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"libssf-{h.hexdigest()[:12]}.so")

@@ -1,5 +1,5 @@
-"""Kernel wrappers of the find and count paths: ``batched_find``,
-``batched_count`` and ``memchr_find``.
+"""Kernel wrappers of the find, count and positions paths:
+``batched_find``, ``batched_count``, ``match_bitmap`` and ``memchr_find``.
 
 Each wrapper launches its hand-written CUDA kernel (``csrc/find.cu``) for a
 haystack on a CUDA device and runs its plain PyTorch version, defined
@@ -10,8 +10,10 @@ counts its kernel launches in a plain integer attribute, ``launches``.
 ``batched_find`` replaces ``sliceslice_tpu/ops/scan_kernel.py``'s
 ``batched_find_cols`` over the Pallas find kernel, ``batched_count`` its
 ``batched_count_cols`` over the Pallas count kernel, ``memchr_find`` its
-``memchr_find_cols``.  The haystack is the flat layout of :mod:`.layout`:
-positions are byte offsets into it, and its zero halo must cover
+``memchr_find_cols``, and ``match_bitmap`` the plain-XLA
+``xla_backend.match_bitmap_batched`` of the positions path (linear here).
+The haystack is the flat layout of :mod:`.layout`: positions are byte
+offsets into it, and its zero halo must cover
 ``needed_halo_for_t(t)`` bytes past the last valid position.  Positions
 whose probe windows would run past the buffer are never evaluated, by
 either version.
@@ -27,7 +29,7 @@ import torch
 from .. import config
 from ..config import SENTINEL
 from . import cuda_lib
-from .scan_math import first_offsets, match_counts, position_limit, table_bits
+from .scan_math import first_offsets, match_bits, match_counts, position_limit, table_bits
 
 #: Probe-table widths up to this are exact width groups in
 #: ``BatchedSearcher``; wider tables are bucketed (the JAX unroll limit).
@@ -125,9 +127,10 @@ def _operands(hay, values, masks, ends, base):
     return base, values, masks, ends
 
 
-def _launch(entry: str, hay, values, masks, ends, out, base: int, n_real: int) -> bool:
-    """One launch of the find or count kernel (``entry``) over rows below
-    ``n_real``, writing into ``out``; False when there is nothing to scan."""
+def _launch(entry: str, hay, values, masks, ends, out, base: int, n_real: int, *extra) -> bool:
+    """One launch of the find, count or bitmap kernel (``entry``) over rows
+    below ``n_real``, writing into ``out``, with the entry's ``extra``
+    arguments before the stream; False when there is nothing to scan."""
     values, masks, ends = values.contiguous(), masks.contiguous(), ends.contiguous()
     _cuda_ready(hay, values, masks, ends)
     t = values.shape[1]
@@ -139,7 +142,7 @@ def _launch(entry: str, hay, values, masks, ends, out, base: int, n_real: int) -
         span, n_spans = plan_spans(n_pos, n_real, FIND_TILE, _sm_count(torch.cuda.current_device()))
         err = getattr(lib, entry)(
             hay.data_ptr(), n_pos, values.data_ptr(), masks.data_ptr(),
-            ends.data_ptr(), out.data_ptr(), n_real, t, base, span, n_spans,
+            ends.data_ptr(), out.data_ptr(), n_real, t, base, span, n_spans, *extra,
             torch.cuda.current_stream().cuda_stream,
         )
     cuda_lib.check(err, entry)
@@ -226,6 +229,53 @@ def batched_count(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor
 
 
 batched_count.launches = 0
+
+
+def bitmap_words(nbytes: int, t: int) -> int:
+    """Words per row of :func:`match_bitmap`'s output over an ``nbytes``
+    haystack and width-``t`` tables: one bit per evaluated position."""
+    return -(-position_limit(nbytes, t) // 32)
+
+
+def match_bitmap_plain(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`match_bitmap` (same signature and
+    answers; tables as int32 bit-pattern tensors on ``hay``'s device)."""
+    n, t = values.shape
+    n_real = _n_real(n_real, n)
+    bound = position_limit(hay.numel(), t)
+    out = torch.zeros((n, bitmap_words(hay.numel(), t)), dtype=torch.int32, device=hay.device)
+    if n_real == 0:
+        return out
+    limits = (ends[:n_real].to(torch.int64) - base).clamp(max=bound)
+    out[:n_real] = match_bits(hay, values[:n_real], masks[:n_real], limits, out.shape[1])
+    return out
+
+
+def match_bitmap(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor:
+    """Linear match bitmaps (int32[N, W] of uint32 bit patterns, ``W =
+    bitmap_words(hay.numel(), t)``) of N probe programs over the flat
+    haystack, with the operands of :func:`batched_find`.
+
+    Bit ``b`` of word ``w`` of row ``n < n_real`` is set iff position ``p =
+    32w + b`` satisfies every slot and ``p + base < ends[n]``: positions
+    are layout offsets, ``base`` moves only the end bound.  Rows at or past
+    ``n_real`` are never scanned and stay 0.  As for counts, ``ends`` must
+    exclude positions past ``length - k + 1``."""
+    base, values, masks, ends = _operands(hay, values, masks, ends, base)
+    device = hay.device
+    if device.type == "cpu":
+        return match_bitmap_plain(hay, values, masks, ends, base, n_real)
+    if device.type != "cuda":
+        raise ValueError(f"no match-bitmap kernel for device {device}")
+    n, t = values.shape
+    words = bitmap_words(hay.numel(), t)
+    out = torch.zeros((n, words), dtype=torch.int32, device=device)
+    if _launch("ssf_match_bitmap", hay, values, masks, ends, out, base, _n_real(n_real, n), words):
+        match_bitmap.launches += 1
+    return out
+
+
+match_bitmap.launches = 0
 
 
 def memchr_find_plain(hay, byte, end, base=0) -> torch.Tensor:

@@ -1,8 +1,10 @@
-"""Packed-window, first-offset and count math as plain torch ops.
+"""Packed-window, first-offset, count and match-bitmap math as plain
+torch ops.
 
 The single source of the probe evaluation for every plain (non-kernel)
 path of the port: the flat rung, ``TorchSearcher`` and the plain versions
-of the CUDA find and count kernels.  Counterpart of ``sliceslice_tpu/ops/scan_math.py``.
+of the CUDA find, count, match-bitmap and ablation kernels.  Counterpart
+of ``sliceslice_tpu/ops/scan_math.py``.
 
 torch's CPU build has no ``<<`` or ``min`` for ``uint32``, so windows and
 probe tables are carried as int32 BIT PATTERNS: windows are assembled in
@@ -98,25 +100,21 @@ def first_offsets(
     return out
 
 
-def match_counts(
-    hay_u8: torch.Tensor,
-    values: torch.Tensor,
-    masks: torch.Tensor,
-    limits: torch.Tensor,
-) -> torch.Tensor:
-    """int64[N]: for each row the number of positions ``p < limits[n]`` at
-    which every probe slot matches (overlapping matches), the full-scan
-    counterpart of :func:`first_offsets`, chunked the same way with no
-    early exit.  The same guarantee on ``limits`` applies."""
+def _match_chunks(hay_u8, values, masks, limits):
+    """Yield ``(rows, c0, acc)`` over the probe evaluation, step by step:
+    ``acc[i, c]`` is True when row ``rows[i]`` matches at position ``c0 +
+    c`` below its limit.  Steps are multiples of 32 positions and rows are
+    cut into chunks of about ``_STEP_ELEMS`` elements.  The guarantee of
+    :func:`first_offsets` on ``limits`` applies."""
     n, t = values.shape
     device = hay_u8.device
-    out = torch.zeros((n,), dtype=torch.int64, device=device)
     if n == 0:
-        return out
+        return
     limits = limits.to(device=device, dtype=torch.int64)
     lim_max = int(limits.max())
     rows = torch.nonzero(limits > 0).flatten()
     step = max(4096, min(1 << 16, _STEP_ELEMS // max(1, rows.numel())))
+    step -= step % 32
     for c0 in range(0, max(lim_max, 0), step):
         rows = rows[limits[rows] > c0]
         if rows.numel() == 0:
@@ -133,5 +131,53 @@ def match_counts(
             for ti in range(t):
                 w = win[4 * ti : 4 * ti + width]
                 acc &= (w[None, :] & m[:, ti : ti + 1]) == v[:, ti : ti + 1]
-            out[sel] += acc.sum(dim=1)
+            yield sel, c0, acc
+
+
+def match_counts(
+    hay_u8: torch.Tensor,
+    values: torch.Tensor,
+    masks: torch.Tensor,
+    limits: torch.Tensor,
+) -> torch.Tensor:
+    """int64[N]: for each row the number of positions ``p < limits[n]`` at
+    which every probe slot matches (overlapping matches), the full-scan
+    counterpart of :func:`first_offsets`, chunked the same way with no
+    early exit.  The same guarantee on ``limits`` applies."""
+    out = torch.zeros((values.shape[0],), dtype=torch.int64, device=hay_u8.device)
+    for sel, _, acc in _match_chunks(hay_u8, values, masks, limits):
+        out[sel] += acc.sum(dim=1)
     return out
+
+
+def match_bits(
+    hay_u8: torch.Tensor,
+    values: torch.Tensor,
+    masks: torch.Tensor,
+    limits: torch.Tensor,
+    n_words: int,
+) -> torch.Tensor:
+    """int32[N, n_words] linear match bitmaps (uint32 bit patterns): bit
+    ``b`` of word ``w`` of row ``n`` is set when every probe slot matches
+    at ``p = 32w + b`` and ``p < limits[n]``.  ``n_words`` must cover
+    ``limits``; the guarantee of :func:`first_offsets` on them applies."""
+    device = hay_u8.device
+    out = torch.zeros((values.shape[0], n_words), dtype=torch.int32, device=device)
+    shifts = torch.arange(32, dtype=torch.int64, device=device)
+    for sel, c0, acc in _match_chunks(hay_u8, values, masks, limits):
+        width = acc.shape[1]
+        nw = -(-width // 32)
+        bits = torch.nn.functional.pad(acc, (0, 32 * nw - width)).view(len(sel), nw, 32)
+        words = (bits.to(torch.int64) << shifts).sum(dim=2)
+        out[sel, c0 // 32 : c0 // 32 + nw] = words.to(torch.int32)
+    return out
+
+
+def popcount32(words: torch.Tensor) -> torch.Tensor:
+    """int32 population count of each element of an int32 tensor of uint32
+    bit patterns (torch has no popcount; SWAR steps in int64)."""
+    v = words.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) >> 24 & 0xFF).to(torch.int32)

@@ -1,0 +1,247 @@
+"""Ablation harness of the port's find and count loop — the counterpart of
+the JAX package's ``scripts/kernel_probe.py``.
+
+The JAX script strips its TPU find kernel one piece at a time to find which
+piece costs time.  This one does the same for the loop the port's kernels
+share (``probe_word`` in ``csrc/scan_common.cuh``), through one CUDA kernel
+with one instantiation per variant (``csrc/probe.cu``).  Each variant asks
+the question of one JAX variant:
+
+============  ==========  ==================================================
+variant       JAX         result (equals)
+============  ==========  ==================================================
+count         (baseline)  ``batched_count``
+first         full        ``batched_find`` (probes, per-thread and block
+                          min, ``atomicMin``; no early exit)
+nomin         nomin       1 where ``batched_find`` finds the row, else 0
+noprobe       noprobe     positions below the row's limit whose 4-byte
+                          window is all ones (probe_word's loads, the
+                          table replaced by a constant)
+empty         empty       XOR of the word indices below the row's limit
+                          (the walk and address math, no corpus load)
+nomask        premask     ``batched_count`` (no AND on all-ones slots)
+branchless    premsel     ``batched_count`` (selects, no early exit)
+rows          dedup       ``batched_count`` (``rows`` rows per block share
+                          each loaded word)
+regtab        swpipe      ``batched_count`` (table in registers, t <= 4)
+wide          —           ``batched_count`` (16 positions per thread)
+============  ==========  ==================================================
+
+:func:`probe` launches the kernel for a CUDA haystack and runs
+:func:`probe_plain` for a CPU one; :func:`make_tables` builds the JAX
+script's tables.  Run it as::
+
+    python -m sliceslice_tpu_torch.scripts.kernel_probe [t=K] [r=N] [k=SWEEPS] [n=ROWS] [variant ...]
+
+over ``data/i386.txt`` (default t=2, r=4, 32 sweeps, 4,585 rows, variants
+``count first nomin noprobe empty``): per variant, ms per sweep and ns per
+(row, 1,024 positions), on the first CUDA card, else with the plain
+versions on the CPU (host clock; cut ``n`` there).
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+import sys
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import SENTINEL
+from ..needle import needed_halo_for_t
+from ..ops import cuda_lib, scan_kernel
+from ..ops.scan_math import match_counts, packed_windows, position_limit
+
+#: Variant names, in the order of ``csrc/probe.cu``'s ``Variant`` codes.
+VARIANTS = ("count", "first", "nomin", "noprobe", "empty", "nomask", "branchless",
+            "rows", "regtab", "wide")
+#: Variants whose result equals ``batched_count``.
+COUNTING = ("count", "nomask", "branchless", "rows", "regtab", "wide")
+#: Rows per block the ``rows`` variant takes.
+ROWS = (1, 2, 4, 8)
+#: Widest table the ``regtab`` variant holds in registers.
+REGTAB_MAX_T = 4
+#: Positions per block step: ``wide`` evaluates 16 per thread.
+WIDE_TILE = 4096
+
+#: The JAX script's table plan: rows per block, the final slot's mask
+#: classes (k % 4 = 1, 2, 3, 0) and, for t=2, the rows planted with the
+#: 8 corpus bytes at an offset (``scripts/kernel_probe.py:285-301``).
+NBLK = 256
+MASK_CLASSES = np.array([0xFF, 0xFFFF, 0xFFFFFF, 0xFFFFFFFF], np.uint32)
+PLANTS = ((0, 100_000), (201, 40_000), (255, 700_000), (4000, 856_000))
+
+
+def make_tables(hay: bytes, t: int, n: int = 4585, seed: int = 0):
+    """uint32 ``(values, masks)`` of ``n`` rows padded to a multiple of
+    256, drawn as the JAX script draws them: values 1..6, full masks but
+    for the final slot's four classes in turn, and for t=2 the rows of
+    :data:`PLANTS` holding corpus bytes (where the corpus has them)."""
+    n_pad = -(-n // NBLK) * NBLK
+    rng = np.random.default_rng(seed)
+    values = rng.integers(1, 7, (n_pad, t), dtype=np.uint32).astype(np.uint32)
+    masks = np.full((n_pad, t), 0xFFFFFFFF, np.uint32)
+    masks[:, t - 1] = MASK_CLASSES[np.arange(n_pad) % 4]
+    values = (values & masks).astype(np.uint32)
+    if t == 2:
+        for row, off in PLANTS:
+            if row < n_pad and off + 8 <= len(hay):
+                v0, v1 = struct.unpack("<II", hay[off : off + 8])
+                values[row] = (v0, v1 & masks[row, 1])
+    return values, masks
+
+
+def needle_lengths(masks: np.ndarray) -> np.ndarray:
+    """int64[N]: the needle length each row's table describes: 4 bytes per
+    slot but the last, plus the last slot's mask bytes."""
+    last = np.asarray(masks, np.uint32)[:, -1].astype(np.int64)
+    nbytes = sum(((last >> (8 * b)) & 0xFF) != 0 for b in range(4))
+    return 4 * (masks.shape[1] - 1) + nbytes
+
+
+def table_ends(masks: np.ndarray, length: int) -> np.ndarray:
+    """int32[N] ends ``length - k + 1`` of each row (0 when it is longer
+    than the corpus): no position lets the needle run into the zero halo."""
+    return np.maximum(length - needle_lengths(masks) + 1, 0).astype(np.int32)
+
+
+def planted(hay: bytes, masks: np.ndarray) -> dict:
+    """{row: needle bytes} of the t=2 rows :func:`make_tables` planted."""
+    k = needle_lengths(masks)
+    return {row: hay[off : off + int(k[row])] for row, off in PLANTS
+            if row < masks.shape[0] and off + 8 <= len(hay)}
+
+
+def _check(variant: str, t: int, rows: int) -> None:
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown probe variant {variant!r} (one of {', '.join(VARIANTS)})")
+    if variant == "regtab" and t > REGTAB_MAX_T:
+        raise ValueError(f"regtab holds tables up to t={REGTAB_MAX_T}, got t={t}")
+    if variant == "rows" and rows not in ROWS:
+        raise ValueError(f"rows takes {ROWS} rows per block, got {rows}")
+
+
+def _position_bound(variant: str, nbytes: int, t: int) -> int:
+    """Positions the variant may evaluate: ``wide`` reads 3 words further
+    per slot than the others."""
+    return position_limit(nbytes, t + 3 if variant == "wide" else t)
+
+
+def probe_plain(variant, hay, values, masks, ends, base=0, n_real=None, rows=4) -> torch.Tensor:
+    """Plain PyTorch version of :func:`probe` (same signature and answers),
+    built on ``ops/scan_math.py``."""
+    base, values, masks, ends = scan_kernel._operands(hay, values, masks, ends, base)
+    n, t = values.shape
+    _check(variant, t, rows)
+    n_real = scan_kernel._n_real(n_real, n)
+    if variant == "first":
+        return scan_kernel.batched_find_plain(hay, values, masks, ends, base, n_real)
+    if variant == "nomin":
+        found = scan_kernel.batched_find_plain(hay, values, masks, ends, base, n_real)
+        return (found != SENTINEL).to(torch.int32)
+    out = torch.zeros((n,), dtype=torch.int32, device=hay.device)
+    if n_real == 0:
+        return out
+    bound = _position_bound(variant, hay.numel(), t)
+    limits = (ends[:n_real].to(torch.int64) - base).clamp(min=0, max=bound)
+    if variant == "noprobe":
+        hits = torch.nonzero(packed_windows(hay[: bound + 3]) == -1).flatten()
+        out[:n_real] = torch.searchsorted(hits, limits).to(torch.int32)
+    elif variant == "empty":
+        last = (limits + 3) // 4 - 1  # the last word index visited, -1 for none
+        xor_upto = torch.stack([last, torch.ones_like(last), last + 1, torch.zeros_like(last)])
+        x = xor_upto.gather(0, (last % 4)[None, :])[0]
+        out[:n_real] = torch.where(last >= 0, x, 0).to(torch.int32)
+    else:
+        out[:n_real] = match_counts(hay, values[:n_real], masks[:n_real], limits).to(torch.int32)
+    return out
+
+
+def probe(variant, hay, values, masks, ends, base=0, n_real=None, rows=4) -> torch.Tensor:
+    """int32[N]: one ablation variant of the count loop over the flat
+    haystack ``hay``, with the operands of ``scan_kernel.batched_count``;
+    ``rows`` is the rows per block of the ``rows`` variant.  The module
+    docstring gives each variant's result; rows at or past ``n_real`` hold
+    what an unscanned row holds (0, SENTINEL for ``first``)."""
+    if hay.device.type == "cpu":
+        return probe_plain(variant, hay, values, masks, ends, base, n_real, rows)
+    if hay.device.type != "cuda":
+        raise ValueError(f"no probe kernel for device {hay.device}")
+    base, values, masks, ends = scan_kernel._operands(hay, values, masks, ends, base)
+    n, t = values.shape
+    _check(variant, t, rows)
+    n_real = scan_kernel._n_real(n_real, n)
+    fill = SENTINEL if variant == "first" else 0
+    out = torch.full((n,), fill, dtype=torch.int32, device=hay.device)
+    values, masks, ends = values.contiguous(), masks.contiguous(), ends.contiguous()
+    scan_kernel._cuda_ready(hay, values, masks, ends)
+    n_pos = _position_bound(variant, hay.numel(), t)
+    if n_real == 0 or n_pos <= 0:
+        return out
+    per_block = rows if variant == "rows" else 1
+    tile = WIDE_TILE if variant == "wide" else scan_kernel.FIND_TILE
+    lib = cuda_lib.load()
+    with torch.cuda.device(hay.device):
+        span, n_spans = scan_kernel.plan_spans(
+            n_pos, -(-n_real // per_block), tile,
+            scan_kernel._sm_count(torch.cuda.current_device()))
+        err = lib.ssf_probe(
+            VARIANTS.index(variant), per_block, hay.data_ptr(), n_pos, values.data_ptr(),
+            masks.data_ptr(), ends.data_ptr(), out.data_ptr(), n_real, t, base, span,
+            n_spans, torch.cuda.current_stream().cuda_stream,
+        )
+    cuda_lib.check(err, f"ssf_probe({variant})")
+    probe.launches += 1
+    return out
+
+
+probe.launches = 0
+
+
+def main(argv: Optional[list] = None) -> int:
+    from ..ops.layout import preprocess
+    from ..utils.profiling import card, measure
+
+    opts = {"t": 2, "r": 4, "k": 32, "n": 4585}
+    variants = []
+    for a in sys.argv[1:] if argv is None else argv:
+        key, eq, val = a.partition("=")
+        if eq and key in opts:
+            opts[key] = int(val)
+        else:
+            variants.append(a)
+    t, rows, sweeps, n = opts["t"], opts["r"], opts["k"], opts["n"]
+    variants = variants or ["count", "first", "nomin", "noprobe", "empty"]
+    for v in variants:
+        _check(v, t, rows)
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    hay = open(os.path.join(repo, "data", "i386.txt"), "rb").read()
+    device = torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    dh = preprocess(hay, kh=needed_halo_for_t(t), device=device)
+    values, masks = make_tables(hay, t, n)
+    ends = table_ends(masks, len(hay))
+    where = card(0) if device.type == "cuda" else "CPU, plain versions, host clock"
+    print(f"{where}; t={t}, {n} rows over {len(hay)} bytes, {sweeps} sweeps per sample")
+    tiles = n * len(hay) / 1024
+    for v in variants:
+        out = probe(v, dh.flat, values, masks, ends, n_real=n, rows=rows)
+        same = ""
+        if device.type == "cuda":
+            plain = probe_plain(v, dh.flat, values, masks, ends, n_real=n, rows=rows)
+            same = f"  equals plain: {torch.equal(out, plain)}"
+
+        def run():
+            for _ in range(sweeps):
+                probe(v, dh.flat, values, masks, ends, n_real=n, rows=rows)
+
+        m = measure(run, v, warmup=1, samples=3 if device.type == "cuda" else 1, device=device)
+        per = m.estimate / sweeps
+        print(f"{v:10s}: {per * 1e3:8.4f} ms/sweep  {per * 1e9 / tiles:7.3f} ns/(row, 1024 pos)  "
+              f"nonzero rows {int((out[:n] != (SENTINEL if v == 'first' else 0)).sum())}{same}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

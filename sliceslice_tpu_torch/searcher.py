@@ -6,6 +6,8 @@ searcher objects, src/x86.rs:266-526):
 * ``Searcher(needle)`` / ``Searcher.with_position(needle, position)``;
 * ``search_in(haystack) -> bool`` and ``find(haystack) -> Optional[int]``;
 * ``count_in(haystack) -> int``, the number of overlapping occurrences;
+* ``positions(haystack)`` / ``find_iter(haystack)``, every overlapping
+  occurrence, ascending;
 * ``inlined_search_in``, an alias kept for parity;
 * empty needles are rejected by concrete searchers and handled by the
   dynamic dispatcher's N0 arm.
@@ -23,7 +25,8 @@ import numpy as np
 import torch
 
 from .config import SENTINEL
-from .needle import Needle, NeedleLike, needed_halo
+from .needle import Needle, NeedleLike, needed_halo, probe_program
+from .ops import scan_kernel, torch_backend
 from .ops.layout import SHORT_HAY_BYTES, DeviceHaystack, preprocess
 
 HaystackLike = Union[bytes, bytearray, memoryview, np.ndarray, str, DeviceHaystack]
@@ -157,6 +160,48 @@ class SearcherBase:
         except NotImplementedError:
             return overlapping_count(data, self.needle.data)
 
+    def positions(self, hay: HaystackLike) -> np.ndarray:
+        """ALL (overlapping) match offsets, ascending (int64[M]) — the
+        ``find_iter`` capability of memchr-class libraries.  Device path:
+        one match bitmap per needle (the match-bitmap kernel on the card),
+        read back as the ``SPARSE_POSITIONS_CAP`` earliest offsets when the
+        needle has no more, else whole and decoded on the host.  Host bytes
+        of at most ``SHORT_HAY_BYTES`` are scanned on the host, as are a
+        flat layout and a trivially short haystack off the card; a flat
+        layout on the card is re-laid there (``kernel_layout``)."""
+        k = self.needle.size
+        if isinstance(hay, DeviceHaystack):
+            if hay.length <= k or not (hay.tiled or hay.device.type == "cuda"):
+                data = hay.host_bytes
+                if data is None:
+                    raise ValueError(
+                        "positions on this DeviceHaystack requires host "
+                        "bytes (preprocess with keep_host=True)"
+                    )
+                return _host_positions(data, self.needle.data)
+            dh = hay.kernel_layout(needed_halo(k))
+        else:
+            data = _hay_bytes(hay)
+            if len(data) <= SHORT_HAY_BYTES:
+                return _host_positions(data, self.needle.data)
+            dh = self._layout(data)
+        return self._positions_device(dh)
+
+    def find_iter(self, hay: HaystackLike):
+        """Iterator over all (overlapping) match offsets, ascending."""
+        return iter(self.positions(hay).tolist())
+
+    #: The wrapper that makes a match bitmap for :meth:`positions`.
+    _bitmap = staticmethod(scan_kernel.match_bitmap)
+
+    def _positions_device(self, dh: DeviceHaystack) -> np.ndarray:
+        values, masks = probe_program(self.needle.data)
+        end = np.asarray([dh.length - self.needle.size + 1], np.int32)
+        return torch_backend.two_tier_positions(
+            dh.flat, np.asarray([values], np.uint32), np.asarray([masks], np.uint32), end,
+            torch_backend.SPARSE_POSITIONS_CAP, self._bitmap,
+        )[0]
+
     def _trivial_count(self, data: Optional[bytes], k: int) -> int:
         if data is None:
             raise ValueError(
@@ -223,6 +268,13 @@ class EmptyNeedleSearcher:
         if isinstance(hay, DeviceHaystack):
             return hay.length + 1
         return len(_hay_bytes(hay)) + 1
+
+    def positions(self, hay: HaystackLike) -> np.ndarray:
+        n = hay.length if isinstance(hay, DeviceHaystack) else len(_hay_bytes(hay))
+        return np.arange(n + 1, dtype=np.int64)
+
+    def find_iter(self, hay: HaystackLike):
+        return iter(self.positions(hay).tolist())
 
     def __repr__(self):
         return "EmptyNeedleSearcher()"

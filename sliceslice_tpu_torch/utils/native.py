@@ -1,5 +1,6 @@
 """ctypes bindings for the native SWAR scanner (csrc/swarscan.cpp at the
-repository root), the host rung of ``DynamicSearcher`` for tiny haystacks.
+repository root): the host rung of ``DynamicSearcher`` for tiny haystacks,
+and the match-bitmap decoder of the positions path.
 
 A copy of the JAX package's loader (``sliceslice_tpu/utils/native.py``),
 binding the same sources: compiled on first use with the system toolchain
@@ -14,6 +15,8 @@ import ctypes
 import os
 import subprocess
 from typing import Optional
+
+import numpy as np
 
 _CSRC = os.path.join(os.path.dirname(__file__), "..", "..", "csrc")
 _SRCS = [
@@ -125,6 +128,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64,
         ctypes.c_int64,
     ]
+    lib.decode_bitmap_count.restype = ctypes.c_int64
+    lib.decode_bitmap_count.argtypes = [np.ctypeslib.ndpointer(np.uint32), ctypes.c_int64]
+    lib.decode_bitmap.restype = ctypes.c_int64
+    lib.decode_bitmap.argtypes = [
+        np.ctypeslib.ndpointer(np.uint32), ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, np.ctypeslib.ndpointer(np.int64), ctypes.c_int64,
+    ]
     return lib
 
 
@@ -139,3 +149,20 @@ def swar_find(hay: bytes, needle: bytes, position: Optional[int] = None) -> Opti
     pos = len(needle) - 1 if position is None else position
     r = lib.swar_find_pos(hay, len(hay), needle, len(needle), pos)
     return None if r < 0 else int(r)
+
+
+def decode_bitmap(words: np.ndarray) -> Optional[np.ndarray]:
+    """Native decode of one linear match bitmap (bit ``b`` of word ``w``
+    marks position ``32w + b``; uint32 words or their int32 bit patterns)
+    to ascending int64 positions, or None when the toolchain is missing.
+    The decoder's ``(g, q, lanes)`` layout with ``g = lanes = 1``, ``q =
+    len(words)`` and ``s = 32 q`` is the linear one, walked in order."""
+    lib = load()
+    if lib is None:
+        return None
+    w = np.ascontiguousarray(np.asarray(words).view(np.uint32).reshape(-1))
+    m = int(lib.decode_bitmap_count(w, w.size))
+    out = np.empty(m, dtype=np.int64)
+    if int(lib.decode_bitmap(w, 1, w.size, 1, 32 * w.size, out, m)) != m:
+        return None
+    return out

@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: each kernel against its plain
 PyTorch version on the same CUDA tensors, and the main paths (find, count,
-the pair sweep) against ``bytes.find`` and ``overlapping_count``.  Exact
-comparisons.
+positions, the pair sweep) against ``bytes.find``, ``overlapping_count``
+and the host positions oracle.  Exact comparisons.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA card;
 the card's presence is decided inside the ``cuda`` fixture, never at
@@ -27,8 +27,10 @@ from sliceslice_tpu_torch import (
 )
 from sliceslice_tpu_torch.config import SENTINEL
 from sliceslice_tpu_torch.needle import build_probe_table, needed_halo_for_t
-from sliceslice_tpu_torch.ops import pairwise, scan_kernel
+from sliceslice_tpu_torch.ops import pairwise, scan_kernel, torch_backend
 from sliceslice_tpu_torch.ops.scan_math import table_bits
+from sliceslice_tpu_torch.scripts import kernel_probe
+from sliceslice_tpu_torch.searcher import _host_positions
 
 pytestmark = pytest.mark.gpu
 
@@ -248,3 +250,103 @@ def test_pair_kernel_refuses_bad_operands(cuda):
                             lh, ps._plan(None), ps.block)
     with pytest.raises(ValueError, match="outside"):
         pairwise.pair_block(ps._values, ps._masks, ps._ln, hay, lh, [(0, 0, ps.tn + 1, 4)], ps.block)
+
+
+@pytest.mark.parametrize("t", [1, 2, 3, 5, 16])
+def test_match_bitmap_kernel_equals_plain(cuda, t):
+    rng = np.random.default_rng(200 + t)
+    hay = _hay(t, 300_000)
+    dh = preprocess(hay, kh=needed_halo_for_t(t), device=cuda)
+    needles = []
+    for k in range(max(1, 4 * t - 9), 4 * t + 1):
+        start = int(rng.integers(0, len(hay) - k))
+        needles += [hay[start : start + k], b"\x7f" * k, hay[-k:], hay[len(hay) - k + 1 :] + b"\0"]
+    needles.append(b"a" * max(1, 4 * t - 3))  # dense in the 4-letter body
+    vals, msks, lens = build_probe_table(needles, t_max=t)
+    vals, msks = np.pad(vals, ((0, 4), (0, 0))), np.pad(msks, ((0, 4), (0, 0)))
+    ends = np.pad(np.maximum(len(hay) - lens + 1, 0), (0, 4)).astype(np.int32)
+    n = vals.shape[0]
+    for base, n_real in ((0, n), (4096, n - 6)):
+        e = torch.from_numpy(np.where(ends > 0, ends + base, 0).astype(np.int32)).to(cuda)
+        v, m = table_bits(vals, cuda), table_bits(msks, cuda)
+        before = scan_kernel.match_bitmap.launches
+        got = scan_kernel.match_bitmap(dh.flat, v, m, e, base=base, n_real=n_real)
+        assert scan_kernel.match_bitmap.launches == before + 1
+        assert torch.equal(got, scan_kernel.match_bitmap_plain(dh.flat, v, m, e, base=base, n_real=n_real))
+        words = got.cpu().numpy()
+        for i, nd in enumerate(needles):
+            exp = _host_positions(hay, nd) if i < n_real else np.zeros(0, np.int64)
+            assert torch_backend.decode_match_bitmap(words[i]).tolist() == exp.tolist(), (t, i)
+
+
+@pytest.mark.parametrize("t", [1, 2, 3])
+def test_probe_kernel_equals_plain(cuda, t):
+    """Every ablation variant against its plain version on i386 tables,
+    and the answer-preserving ones against the count and find kernels."""
+    hay = open(os.path.join(DATA, "i386.txt"), "rb").read()
+    dh = preprocess(hay, kh=needed_halo_for_t(t), device=cuda)
+    values, masks = kernel_probe.make_tables(hay, t, n=600)
+    ends = kernel_probe.table_ends(masks, len(hay))
+    v, m = table_bits(values, cuda), table_bits(masks, cuda)
+    e = torch.from_numpy(ends).to(cuda)
+    count = scan_kernel.batched_count(dh.flat, v, m, e, n_real=600)
+    first = scan_kernel.batched_find(dh.flat, v, m, e, n_real=600)
+    for variant in kernel_probe.VARIANTS:
+        for rows in (kernel_probe.ROWS if variant == "rows" else (4,)):
+            before = kernel_probe.probe.launches
+            got = kernel_probe.probe(variant, dh.flat, v, m, e, n_real=600, rows=rows)
+            assert kernel_probe.probe.launches == before + 1
+            plain = kernel_probe.probe_plain(variant, dh.flat, v, m, e, n_real=600, rows=rows)
+            assert torch.equal(got, plain), (variant, rows)
+            if variant in kernel_probe.COUNTING:
+                assert torch.equal(got, count), (variant, rows)
+    assert torch.equal(kernel_probe.probe("first", dh.flat, v, m, e, n_real=600), first)
+    assert torch.equal(kernel_probe.probe("nomin", dh.flat, v, m, e, n_real=600),
+                       (first != SENTINEL).to(torch.int32))
+    if t == 2:
+        for row, nd in kernel_probe.planted(hay, masks).items():
+            if row < 600:
+                assert int(first[row]) == hay.find(nd)
+                assert int(count[row]) == overlapping_count(hay, nd)
+
+
+def test_probe_kernel_refuses_bad_variants(cuda):
+    dh = preprocess(_hay(4, 10_000), device=cuda)
+    values, masks = kernel_probe.make_tables(b"", 5, n=8)
+    ends = kernel_probe.table_ends(masks, 10_000)
+    with pytest.raises(ValueError, match="regtab"):
+        kernel_probe.probe("regtab", dh.flat, values, masks, ends)
+    with pytest.raises(ValueError, match="rows"):
+        kernel_probe.probe("rows", dh.flat, values, masks, ends, rows=3)
+    with pytest.raises(ValueError, match="unknown"):
+        kernel_probe.probe("full", dh.flat, values, masks, ends)
+
+
+def test_positions_on_card(cuda):
+    """Positions of card layouts: i386 words before and after
+    optimize_for, both tiers, every DynamicSearcher arm, and a flat layout
+    kept without host bytes, scanned by the bitmap kernel on the card."""
+    hay = open(os.path.join(DATA, "i386.txt"), "rb").read()
+    words = [w for w in open(os.path.join(DATA, "words.txt"), "rb").read().split(b"\n") if w]
+    sample = words[::29] + [b"e", b"", hay[-3:] + b"\0"]
+    dh = preprocess(hay, kh=24, device=cuda)
+    bs = BatchedSearcher(sample, device=cuda)
+    exp = [_host_positions(hay, w).tolist() for w in sample]
+    before = scan_kernel.match_bitmap.launches
+    assert [p.tolist() for p in bs.positions_all(dh)] == exp
+    assert scan_kernel.match_bitmap.launches > before
+    bs.optimize_for(dh)
+    assert [p.tolist() for p in bs.positions_all(dh, batch=7, sparse_cap=64)] == exp
+    for nd in (b"", b"e", b"the", hay[-9:], b"Protected Mode", hay[-2:] + b"\0"):
+        assert DynamicSearcher(nd, device=cuda).positions(dh).tolist() == _host_positions(hay, nd).tolist()
+    small = _hay(11, 3000)
+    flat = preprocess(small, keep_host=False, device=cuda)
+    assert not flat.tiled
+    for nd in (small[100:103], b"a", small[-5:], small[-2:] + b"\0", b"\x7f\x7f"):
+        before = scan_kernel.match_bitmap.launches
+        assert DynamicSearcher(nd, device=cuda).positions(flat).tolist() == _host_positions(small, nd).tolist()
+        assert scan_kernel.match_bitmap.launches == before + 1
+        assert TorchSearcher(nd, device=cuda).positions(flat).tolist() == _host_positions(small, nd).tolist()
+        assert scan_kernel.match_bitmap.launches == before + 1
+    got = BatchedSearcher([b"a", small[7:12]], device=cuda).positions_all(flat)
+    assert [p.tolist() for p in got] == [_host_positions(small, nd).tolist() for nd in (b"a", small[7:12])]

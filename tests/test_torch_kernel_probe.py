@@ -1,0 +1,267 @@
+"""The port's ablation harness (``sliceslice_tpu_torch/scripts/kernel_probe.py``)
+against the JAX package's (``scripts/kernel_probe.py``), on the CPU.
+
+* ``make_tables`` builds the JAX script's tables byte for byte (captured
+  from its ``main`` by replacing ``build``);
+* each variant's plain version equals its "must equal" column on small
+  corpora;
+* the port's plain ``first`` / ``nomin`` / count family against the JAX
+  ``build`` in TPU interpret mode (``full``, ``nomin``, ``premask``,
+  ``dedup``) on a one-segment layout, decoded to first offsets.
+
+The JAX script is imported by path and its ``pl.pallas_call`` wrapped with
+``monkeypatch``; the script itself is never edited.  Exact comparisons.
+The CUDA kernel is held against the plain versions on the card by
+tests/test_torch_gpu.py and chip_smoke.py."""
+
+import importlib.util
+import os
+import struct
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import sliceslice_tpu as jst
+import sliceslice_tpu_torch.ops.scan_kernel as tsk
+from sliceslice_tpu_torch import overlapping_count, preprocess
+from sliceslice_tpu_torch.config import SENTINEL
+from sliceslice_tpu_torch.needle import needed_halo_for_t
+from sliceslice_tpu_torch.scripts import kernel_probe as kp
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def jax_probe():
+    """The JAX harness as a module, imported by path (never edited)."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_kernel_probe", os.path.join(REPO, "scripts", "kernel_probe.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture
+def interpret(jax_probe, monkeypatch):
+    """``build`` with every ``pl.pallas_call`` in TPU interpret mode, its
+    cache cleared before and after so no compiled call leaks out."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    orig = jax_probe.pl.pallas_call
+    monkeypatch.setattr(jax_probe.pl, "pallas_call",
+                        lambda *a, **k: orig(*a, interpret=pltpu.InterpretParams(), **k))
+    jax_probe.build.cache_clear()
+    yield jax_probe.build
+    jax_probe.build.cache_clear()
+
+
+@pytest.fixture(scope="module")
+def i386():
+    with open(os.path.join(REPO, "data", "i386.txt"), "rb") as f:
+        return f.read()
+
+
+class _Captured(Exception):
+    pass
+
+
+@pytest.mark.parametrize("t", [1, 2, 3])
+def test_make_tables_match_the_jax_harness(jax_probe, monkeypatch, i386, t):
+    seen = {}
+
+    def build(*args, **kwargs):
+        def call(vals, msks, *rest):
+            seen["values"], seen["masks"] = np.asarray(vals), np.asarray(msks)
+            raise _Captured
+
+        return call
+
+    monkeypatch.setattr(jax_probe, "build", build)
+    monkeypatch.setattr(sys, "argv", ["kernel_probe.py", f"t={t}", "U=16", "full"])
+    monkeypatch.chdir(REPO)
+    with pytest.raises(_Captured):
+        jax_probe.main()
+    values, masks = kp.make_tables(i386, t)
+    assert values.dtype == masks.dtype == np.uint32
+    assert values.tobytes() == seen["values"].tobytes()
+    assert masks.tobytes() == seen["masks"].tobytes()
+    if t == 2:
+        plants = kp.planted(i386, masks)
+        assert sorted(plants) == [0, 201, 255, 4000]
+        for row, nd in plants.items():
+            assert len(nd) == kp.needle_lengths(masks)[row]
+            assert i386.find(nd) >= 0
+
+
+def _corpus(rng, n=30_000):
+    """A small-alphabet body with runs of 0xFF bytes (windows that are all
+    ones, for noprobe) and a tail of unique bytes."""
+    body = rng.integers(97, 101, n - 64, dtype=np.uint8)
+    for p in (0, 999, 4096, 17_001):
+        body[p : p + 7] = 0xFF
+    return np.concatenate([body, rng.permutation(np.arange(192, 256, dtype=np.uint8))]).tobytes()
+
+
+def _plant(hay, values, masks, rows_offsets):
+    """Rows of the table holding the corpus bytes at an offset: needles
+    of the length each row's table describes."""
+    k = kp.needle_lengths(masks)
+    t = masks.shape[1]
+    for row, off in rows_offsets:
+        nd = hay[off : off + int(k[row])].ljust(4 * t, b"\0")
+        values[row] = np.frombuffer(nd, "<u4") & masks[row]
+    return {row: hay[off : off + int(k[row])] for row, off in rows_offsets}
+
+
+@pytest.mark.parametrize("t", [1, 2, 3, 5])
+def test_plain_variants_equal_their_columns(rng, t):
+    hay = _corpus(rng)
+    dh = preprocess(hay, kh=needed_halo_for_t(t))
+    values, masks = kp.make_tables(hay, t, n=40)
+    plants = _plant(hay, values, masks, [(1, 3), (6, 1000), (9, 29_000), (14, 17_000), (23, len(hay) - 4 * t)])
+    ends = kp.table_ends(masks, len(hay))
+    count = tsk.batched_count(dh.flat, values, masks, ends, n_real=37)
+    first = tsk.batched_find(dh.flat, values, masks, ends, n_real=37)
+    for row, nd in plants.items():
+        assert int(first[row]) == hay.find(nd) and int(count[row]) == overlapping_count(hay, nd)
+    bound = tsk.position_limit(dh.flat.numel(), t)
+    lim = np.minimum(ends.astype(np.int64), bound)
+    before = kp.probe.launches
+    for variant in kp.VARIANTS:
+        for rows in (kp.ROWS if variant == "rows" else (4,)):
+            if variant == "regtab" and t > kp.REGTAB_MAX_T:
+                with pytest.raises(ValueError, match="regtab"):
+                    kp.probe(variant, dh.flat, values, masks, ends, n_real=37)
+                continue
+            got = kp.probe(variant, dh.flat, values, masks, ends, n_real=37, rows=rows)
+            assert got.dtype == torch.int32 and got.shape == (kp.NBLK,)
+            assert torch.equal(got, kp.probe_plain(variant, dh.flat, values, masks, ends, n_real=37, rows=rows))
+            if variant in kp.COUNTING:
+                assert torch.equal(got, count), variant
+            elif variant == "first":
+                assert torch.equal(got, first)
+            elif variant == "nomin":
+                assert got.tolist() == [int(f != SENTINEL) for f in first.tolist()]
+            elif variant == "noprobe":
+                ones = [q for q in range(len(hay) - 3) if hay[q : q + 4] == b"\xff" * 4]
+                exp = [sum(q < e for q in ones) for e in lim[:37]] + [0] * (kp.NBLK - 37)
+                assert got.tolist() == exp and max(exp) == 16
+            else:  # empty: XOR of the word indices below each limit
+                exp = []
+                for e in lim[:37]:
+                    x = 0
+                    for j in range((int(e) + 3) // 4):
+                        x ^= j
+                    exp.append(x)
+                assert got.tolist() == exp + [0] * (kp.NBLK - 37)
+    assert kp.probe.launches == before  # the CPU takes the plain versions
+
+
+def test_probe_refuses_what_it_has_no_kernel_for(rng):
+    hay = _corpus(rng)
+    dh = preprocess(hay, kh=32)
+    values, masks = kp.make_tables(hay, 2, n=8)
+    ends = kp.table_ends(masks, len(hay))
+    with pytest.raises(ValueError, match="unknown probe variant"):
+        kp.probe("full", dh.flat, values, masks, ends)
+    with pytest.raises(ValueError, match="rows per block"):
+        kp.probe("rows", dh.flat, values, masks, ends, rows=3)
+    with pytest.raises(ValueError, match="no probe kernel"):
+        kp.probe("count", torch.empty(1024, dtype=torch.uint8, device="meta"), values, masks, ends)
+
+
+def _decode_first(out: np.ndarray, s: int) -> list:
+    """First offset per row of the JAX harness's (rows, 128) per-lane
+    values on a one-segment layout: min over lanes of lane * s + value."""
+    lanes = np.arange(out.shape[1], dtype=np.int64) * s
+    hit = out < SENTINEL
+    best = np.where(hit, lanes[None, :] + out, np.iinfo(np.int64).max).min(axis=1)
+    return [int(b) if h else -1 for b, h in zip(best, hit.any(axis=1))]
+
+
+def _dedup_operands(values: np.ndarray, umax: int):
+    """The JAX script's per-block unique slot-0 tables (its ``main``)."""
+    nblocks = values.shape[0] // kp.NBLK
+    uvals = np.zeros((nblocks, umax), np.uint32)
+    cls = np.zeros(values.shape[0], np.int32)
+    for b in range(nblocks):
+        u, inv = np.unique(values[b * kp.NBLK : (b + 1) * kp.NBLK, 0], return_inverse=True)
+        uvals[b, : len(u)] = u
+        cls[b * kp.NBLK : (b + 1) * kp.NBLK] = inv
+    return uvals, cls.reshape(-1, 1)
+
+
+@pytest.mark.parametrize("t", [1, 2, 3])
+def test_plain_variants_match_the_jax_build(interpret, i386, t):
+    """On a one-segment layout (40,000 bytes, kh=24: g=1, s=512) the JAX
+    ``full`` output decodes to first offsets and ``nomin`` flags the rows
+    found: the port's plain ``first``, ``nomin`` and count family give the
+    same rows, with planted needles at their ``bytes.find`` offsets."""
+    import jax.numpy as jnp
+
+    hay = i386[:40_000]
+    jdh = jst.preprocess(hay, kh=24)
+    pw = jdh.windows()
+    g, h = pw.shape[0], pw.shape[1] + 3
+    assert g == 1
+    values, masks = kp.make_tables(hay, t, n=kp.NBLK)
+    plants = _plant(hay, values, masks, [(0, 1000), (100, 5000), (201, 20_000), (255, 39_990 - 4 * t)])
+    vj, mj = jnp.asarray(values), jnp.asarray(masks)
+    out = {v: np.asarray(interpret(g, h, jdh.s, t, kp.NBLK, v)(vj, mj, pw)) for v in ("full", "nomin")}
+    if t == 2:
+        umax = 16
+        uvals, cls = _dedup_operands(values, umax)
+        out["premask"] = np.asarray(interpret(g, h, jdh.s, t, kp.NBLK, "premask")(vj, mj, pw))
+        out["dedup"] = np.asarray(interpret(g, h, jdh.s, t, kp.NBLK, "dedup", 4, umax)(
+            vj, mj, jnp.asarray(uvals), jnp.asarray(cls), pw))
+    ref = _decode_first(out["full"], jdh.s)
+    for row, nd in plants.items():
+        assert ref[row] == hay.find(nd) >= 0
+    assert sum(r >= 0 for r in ref) == len(plants)
+    for v in ("premask", "dedup"):
+        if v in out:
+            assert _decode_first(out[v], jdh.s) == ref, v
+
+    dh = preprocess(hay, kh=needed_halo_for_t(t))
+    ends = kp.table_ends(masks, len(hay))
+    first = kp.probe_plain("first", dh.flat, values, masks, ends)
+    assert [f if f < SENTINEL else -1 for f in first.tolist()] == ref
+    nomin = kp.probe_plain("nomin", dh.flat, values, masks, ends)
+    assert nomin.tolist() == (out["nomin"] < SENTINEL).any(axis=1).astype(int).tolist()
+    for variant in kp.COUNTING:
+        counts = kp.probe_plain(variant, dh.flat, values, masks, ends)
+        assert [int(c > 0) for c in counts.tolist()] == nomin.tolist(), variant
+        for row, nd in plants.items():
+            assert int(counts[row]) == overlapping_count(hay, nd), (variant, row)
+
+
+def test_main_runs_on_the_cpu(capsys):
+    assert kp.main(["t=2", "n=8", "k=1", "count", "empty", "wide"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("CPU, plain versions")
+    assert [ln.split(":")[0].strip() for ln in lines[1:]] == ["count", "empty", "wide"]
+    assert all("ms/sweep" in ln and "ns/(row, 1024 pos)" in ln for ln in lines[1:])
+    with pytest.raises(ValueError, match="regtab"):
+        kp.main(["t=5", "regtab"])
+
+
+def test_table_helpers():
+    masks = np.array([[0xFFFFFFFF, 0xFF], [0xFFFFFFFF, 0xFFFF], [0xFFFFFFFF, 0xFFFFFF],
+                      [0xFFFFFFFF, 0xFFFFFFFF]], np.uint32)
+    assert kp.needle_lengths(masks).tolist() == [5, 6, 7, 8]
+    assert kp.table_ends(masks, 7).tolist() == [3, 2, 1, 0]
+    assert kp.table_ends(masks, 3).tolist() == [0, 0, 0, 0]
+    v, m = kp.make_tables(b"", 2, n=300)
+    assert v.shape == m.shape == (512, 2) and not kp.planted(b"", m)
+    assert set(np.unique(v[:, 0]).tolist()) <= set(range(1, 7))
+    assert struct.pack("<I", int(m[3, 1])) == b"\xff" * 4
