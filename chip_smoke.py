@@ -4,8 +4,13 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``sliceslice_tpu_torch/csrc`` with
-nvcc, holds each kernel against its plain PyTorch version on the card, and
-drives the port's main paths against host oracles:
+nvcc (and fails on any ptxas spill), holds each kernel against its plain
+PyTorch version on the card (the find and count kernels also on their
+work queue's hard cases: t = 1..8, 16, 32, 512, a match only in a row's
+last chunk, absent rows, one-row launches over 1 MiB and 256 MiB, ends
+inside a 16-position group and at the buffer's last words, ``base > 0``,
+``n_real < n``, repeated launches), and drives the port's main paths
+against host oracles:
 
 * find: ``preprocess`` -> ``BatchedSearcher.find_all`` over all 4,585
   words of data/words.txt in the 857,425-byte data/i386.txt, then
@@ -25,12 +30,15 @@ drives the port's main paths against host oracles:
   over the JAX harness's tables (4,585 rows over i386), against its plain
   version and the count and find kernels;
 
-then times the sweeps, each kernel and the ablation table with CUDA
-events.  Every phase
-prints one line and its seconds; any failure raises and exits non-zero.
-The next-to-last lines are a JSON object describing the kernels and the
-card's name and power limit; the last line is ``{"ok": true, "device":
-...}``.  Imports nothing of JAX.
+then times the sweeps, each kernel (the find and count kernels per width
+group, and the count kernel against the ablation harness's ``count``
+variant, the first count loop on its one-block-per-(row, span) plan, in
+turns) and the ablation table with CUDA events.  Every phase prints one
+line and its seconds; any failure raises and exits non-zero.  The
+next-to-last lines are a JSON object describing the kernels (times, bound
+and what sets it, launches per sweep) and the card's name and power
+limit; the last line is ``{"ok": true, "device": ...}``.  Imports nothing
+of JAX.
 """
 
 from __future__ import annotations
@@ -53,6 +61,12 @@ SWEEPS = 32
 POSITION_SWEEPS = 4
 #: Probe-table widths the ablation harness runs.
 PROBE_TS = (1, 2, 3)
+#: Planted only in the last 100 bytes of the 256 MiB corpus.
+LAST_CHUNK_NEEDLE = b"\xfc\xfd\xfe\xfc\xfd\xfe\xfc\xfd\xfe"
+#: The first find and count design's per-width-group kernel times over the
+#: i386 sweep, in µs (traces on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md).
+FIRST_DESIGN_GROUP_US = {"find": {"1": 332.5, "2": 618.2, "3": 365.1, "4..6": 124.5},
+                         "count": {"1": 763.3, "2": 1468.6, "3": 781.7, "4..6": 616.0}}
 
 
 class SmokeFailure(RuntimeError):
@@ -103,9 +117,11 @@ def phase_build():
     info = cuda_lib.build_info
     summary = [ln.strip() for ln in info.get("ptxas", "").splitlines()
                if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    spills = [ln for ln in summary if "spill" in ln and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
     say("build", seconds=round(time.perf_counter() - t0, 3),
         nvcc_seconds=round(info.get("seconds", 0.0), 3),
         library=os.path.relpath(info["library"], REPO), ptxas=summary)
+    check(not spills, f"ptxas reports spills: {spills}")
 
 
 def _kernel_tables(hay: bytes, rng, t: int):
@@ -120,6 +136,39 @@ def _kernel_tables(hay: bytes, rng, t: int):
         needles.append(hay[-k:])                                   # last position
         needles.append(hay[len(hay) - k + 1:] + b"\0")             # zero tail
     return needles
+
+
+def _queue_case_needles(hay: bytes, t: int):
+    """Width-t needles whose answers the work queue makes hard: the only
+    match at the corpus's end (its row's last chunk), absent, a match 5
+    bytes before the end, a zero tail (it also matches in the zero halo),
+    all zeros (only the halo holds them) and the corpus's first bytes."""
+    k = 4 * t
+    return [hay[-k:], bytes([1]) * k, hay[-k - 5:-5], hay[len(hay) - k + 1:] + b"\0",
+            b"\0" * k, hay[:k]]
+
+
+def _queue_checks(torch, device, hay, flat, needles, t, ends, base=0, n_real=None):
+    """Find and count kernels against their plain versions on one table,
+    each launched twice (the answers must not move); returns the find and
+    count answers as lists."""
+    from sliceslice_tpu_torch.needle import build_probe_table
+    from sliceslice_tpu_torch.ops import scan_kernel
+    from sliceslice_tpu_torch.ops.scan_math import table_bits
+
+    vals, msks, _ = build_probe_table(needles, t_max=t)
+    v, m = table_bits(vals, device), table_bits(msks, device)
+    e = torch.from_numpy(np.asarray(ends, np.int64).astype(np.int32)).to(device)
+    out = []
+    for kernel, plain in ((scan_kernel.batched_find, scan_kernel.batched_find_plain),
+                          (scan_kernel.batched_count, scan_kernel.batched_count_plain)):
+        got = kernel(flat, v, m, e, base=base, n_real=n_real)
+        again = kernel(flat, v, m, e, base=base, n_real=n_real)
+        ref = plain(flat, v, m, e, base=base, n_real=n_real)
+        check(torch.equal(got, again), f"{kernel.__name__}: two launches differ at t={t}")
+        check(torch.equal(got, ref), f"{kernel.__name__} != plain on a queue case at t={t}")
+        out.append(got.cpu().tolist())
+    return out
 
 
 def _random_words(rng, count: int, max_len: int):
@@ -143,10 +192,10 @@ def phase_kernels(torch, device):
     body = rng.integers(97, 101, (1 << 20) - 128, dtype=np.uint8)
     tail = rng.permutation(np.arange(128, 256, dtype=np.uint8))  # unique bytes
     hay = np.concatenate([body, tail]).tobytes()
-    dh = preprocess(hay, kh=needed_halo_for_t(32), device=device)
-    widths = list(range(1, 9)) + [16, 32]
+    dh = preprocess(hay, kh=needed_halo_for_t(512), device=device)
+    widths = list(range(1, 9)) + [16, 32, 512]
     max_err = count_err = bitmap_err = 0
-    rows = 0
+    rows = queue_cases = 0
     for t in widths:
         needles = _kernel_tables(hay, rng, t)
         vals, msks, lens = build_probe_table(needles, t_max=t)
@@ -186,6 +235,25 @@ def phase_kernels(torch, device):
                                          _host_positions(hay, nd)),
                           f"match-bitmap kernel != host positions at t={t}, row {i}")
             rows += n_pad
+        # The work queue's hard cases (the ends of each row and of the
+        # buffer, one-row launches), exact against the host oracles too.
+        qn = _queue_case_needles(hay, t)
+        right = np.array([len(hay) - len(nd) + 1 for nd in qn])
+        f, c = _queue_checks(torch, device, hay, dh.flat, qn, t, right)
+        check(f == [SENTINEL if hay.find(nd) < 0 else hay.find(nd) for nd in qn],
+              f"find kernel != bytes.find on the queue cases at t={t}")
+        check(c == [overlapping_count(hay, nd) for nd in qn],
+              f"count kernel != overlapping_count on the queue cases at t={t}")
+        n_pos = scan_kernel.position_limit(dh.flat.numel(), t)
+        for ends in (right - 7, right + 5, np.full(len(qn), n_pos - 3), np.full(len(qn), 1 << 30)):
+            _queue_checks(torch, device, hay, dh.flat, qn, t, ends)
+        for base, n_real in ((4096, len(qn) - 2), (1 << 20, 1)):
+            _queue_checks(torch, device, hay, dh.flat, qn, t, right + base, base, n_real)
+        for nd, end in zip(qn, right):
+            f, c = _queue_checks(torch, device, hay, dh.flat, [nd], t, [end])
+            check(f == [SENTINEL if hay.find(nd) < 0 else hay.find(nd)]
+                  and c == [overlapping_count(hay, nd)], f"one-row launch differs at t={t}")
+        queue_cases += 7 + len(qn)  # tables, each launched twice per kernel
     find_err = max_err
     max_err = 0
     cases = 0
@@ -219,6 +287,7 @@ def phase_kernels(torch, device):
         check(int(cnt) == int((exp >= 0).sum()), f"pair kernel count != bytes.find, block {block}")
         pairs += exp.size
     say("kernels", find_rows=rows, find_widths=widths, find_max_abs_err=find_err,
+        queue_case_tables=queue_cases,
         count_rows=rows, count_max_abs_err=count_err, bitmap_rows=rows,
         bitmap_max_abs_err=bitmap_err,
         memchr_cases=cases, memchr_max_abs_err=memchr_err,
@@ -282,8 +351,10 @@ def phase_big(torch, device):
         arr[off:off + k] = nd
         planted.append(nd.tobytes())
     # A periodic run of bytes the random body never holds, for the count
-    # phase's overlapping matches.
+    # phase's overlapping matches, and a needle only the last 100 bytes
+    # hold (its row's last chunk in the find and count kernels' queue).
     arr[BIG_BYTES - 3000:BIG_BYTES - 1000] = np.tile(np.array([250, 251], np.uint8), 1000)
+    arr[BIG_BYTES - 100:BIG_BYTES - 100 + len(LAST_CHUNK_NEEDLE)] = np.frombuffer(LAST_CHUNK_NEEDLE, np.uint8)
     absent = [bytes([255]) + rng.integers(0, 250, k - 1, dtype=np.uint8).tobytes()
               for k in (1, 2, 3, 4, 7, 12, 24, 40)]
     hay = arr.tobytes()
@@ -303,6 +374,34 @@ def phase_big(torch, device):
     say("big", corpus_bytes=BIG_BYTES, planted=len(planted), absent=len(absent),
         max_offset=int(exp.max()), upload_s=round(upload_s, 3), parity=True)
     return dh, hay, needles
+
+
+def phase_queue_big(torch, device, big):
+    """One-row launches of the find and count kernels over the 256 MiB
+    corpus, against their plain versions and the host oracles: a needle
+    only in its row's last chunk, an absent one (every chunk scanned) and a
+    planted one; two launches each."""
+    from sliceslice_tpu_torch import overlapping_count
+    from sliceslice_tpu_torch.config import SENTINEL
+    from sliceslice_tpu_torch.ops import scan_kernel
+
+    big_dh, big_hay, big_needles = big
+    absent = bytes([255]) + big_hay[1000:1010]
+    checked = []
+    for nd in (LAST_CHUNK_NEEDLE, absent, big_needles[len(big_needles) // 2]):
+        t = max(1, -(-len(nd) // 4))
+        f, c = _queue_checks(torch, device, big_hay, big_dh.flat, [nd], t, [len(big_hay) - len(nd) + 1])
+        exp = big_hay.find(nd)
+        check(f == [SENTINEL if exp < 0 else exp], f"256 MiB one-row find differs for {nd!r}")
+        check(c == [overlapping_count(big_hay, nd)], f"256 MiB one-row count differs for {nd!r}")
+        checked.append({"needle_len": len(nd), "first": exp, "count": c[0]})
+    lim = len(big_hay) - len(LAST_CHUNK_NEEDLE) + 1
+    plans = [scan_kernel.plan_queue(big_dh.flat.numel(), 3, 1, 1, c)
+             for c in (scan_kernel.FIND_CHUNK, scan_kernel.COUNT_CHUNK)]
+    check(all(big_hay.find(LAST_CHUNK_NEEDLE) >= (lim - 1) // p.chunk * p.chunk for p in plans),
+          "the last-chunk needle does not lie in its row's last chunk")
+    say("queue_big", corpus_bytes=len(big_hay), rows=checked, chunks_per_row=[p.n_chunks for p in plans],
+        equal_to_plain=True, equal_to_host=True)
 
 
 def phase_count(torch, device, hay, words, i386_dh, big):
@@ -611,6 +710,30 @@ def phase_times(torch, device, card, i386_dh, bs, big_dh, count_bs, ps, pos_bs, 
     bitmap = vs_plain(scan_kernel.match_bitmap, scan_kernel.match_bitmap_plain, batches,
                       f"match-bitmap kernel vs plain, one i386 positions sweep ({len(batches)} batches of <= 16 rows)")
 
+    # The find and count kernels per width group, next to the first
+    # design's times, and the count kernel against the first design in turns.
+    from sliceslice_tpu_torch.scripts import sweep_times
+
+    groups = sweep_times.group_times(torch, bs, i386_dh, device)
+    say("times", what="find and count kernels per width group, i386 (µs per launch: low, median, high)",
+        card=card, rows={g.t: g.n for g in bs.groups},
+        find_us={t: [round(x * 1e3, 1) for x in v] for t, v in groups["find"].items()},
+        count_us={t: [round(x * 1e3, 1) for x in v] for t, v in groups["count"].items()},
+        first_design_us=FIRST_DESIGN_GROUP_US)
+    calls = group_calls(count_bs)
+    turns = []
+    for name in ("first design", "queue", "queue", "first design"):
+        fn = scan_kernel.batched_count if name == "queue" else (lambda *c: kp.probe("count", *c))
+        m = measure(lambda: [fn(*c) for c in calls], f"count {name}", warmup=1, samples=5,
+                    device=device)
+        turns.append([name, m.estimate * 1e3])
+    old_ms = (turns[0][1] + turns[3][1]) / 2
+    new_ms = (turns[1][1] + turns[2][1]) / 2
+    say("times", what="count kernels of one i386 sweep: the ablation harness's count variant "
+        "(the first count loop, one block per (row, span)) and the queue kernel, in turns",
+        card=card, turns_ms=turns, first_design_ms=old_ms, queue_ms=new_ms,
+        speedup=old_ms / new_ms)
+
     # The ablation table: K launches of each variant, one sync.
     table = {}
     for t, (flat, v, m_, e, n) in probe_setups.items():
@@ -636,8 +759,75 @@ def phase_times(torch, device, card, i386_dh, bs, big_dh, count_bs, ps, pos_bs, 
     for t, row in table.items():
         print(f"  t={t}: " + "  ".join(f"{name} {r['ms_per_sweep']:.4f}/{r['ns_per_row_1024_positions']:.4f}"
                                       for name, r in row.items()))
-    return {"batched_find": find, "memchr_find": (mem_ms, mem_plain_ms),
-            "batched_count": count, "pair_block": pair, "match_bitmap": bitmap, "probe": probe_ms}
+    times = {"batched_find": find, "memchr_find": (mem_ms, mem_plain_ms),
+             "batched_count": count, "pair_block": pair, "match_bitmap": bitmap, "probe": probe_ms}
+
+    # Launches per sweep: one run of each kernel's sweep, counted.
+    per_sweep = {}
+    sweeps_of = {
+        "batched_find": (scan_kernel.batched_find, lambda: bs.find_all_device(i386_dh)),
+        "batched_count": (scan_kernel.batched_count, lambda: count_bs.count_all_device(i386_dh)),
+        "match_bitmap": (scan_kernel.match_bitmap, lambda: pos_bs.positions_all(i386_dh)),
+        "memchr_find": (scan_kernel.memchr_find, lambda: scan_kernel.memchr_find(big_dh.flat, 255, big_end)),
+        "pair_block": (pairwise.pair_block, ps.count_matches_device),
+        "probe": (kp.probe, lambda: kp.probe("count", flat, v, m_, e, n_real=n)),
+    }
+    for name, (wrapper, run) in sweeps_of.items():
+        before = wrapper.launches
+        run()
+        per_sweep[name] = wrapper.launches - before
+    torch.cuda.synchronize()
+    bounds = sweep_bounds(torch, i386_dh, bs, pos_bs, big_end, ps, probe_setups[2])
+    say("bounds", card=card, means="least ms for the run's work: max(INT32 ops / 16.7 T op/s, "
+        "bytes / 3.35 TB/s), one op per position tested", bounds=bounds, launches_per_sweep=per_sweep)
+    return times, bounds, per_sweep
+
+
+def sweep_bounds(torch, i386_dh, bs, pos_bs, big_end, ps, probe_setup) -> dict:
+    """{kernel: (bound ms, "operations" or "bytes")} for the work each
+    timed kernel did in this run: one 32-bit operation per position these
+    inputs need tested (find: up to each row's first match; count, bitmap
+    and the ablation's count: every position below each row's limit; pair:
+    up to each pair's first match or its last position; memchr: every byte
+    scanned), and every input read and output written once."""
+    from sliceslice_tpu_torch.ops.scan_kernel import bitmap_words
+    from sliceslice_tpu_torch.ops.scan_math import position_limit
+    from sliceslice_tpu_torch.utils.profiling import bound_ms
+
+    length, numel = i386_dh.length, i386_dh.flat.numel()
+    firsts = bs.find_all(i386_dh)
+
+    def rows(searcher):
+        for g in searcher.groups:
+            g.sync_host()
+            lim = np.minimum(np.maximum(length - g.lengths.astype(np.int64) + 1, 0),
+                             position_limit(numel, g.t))
+            yield g, lim
+
+    find_ops = count_ops = scan_bytes = bitmap_bytes = 0
+    for g, lim in rows(bs):
+        f = firsts[g.indices]
+        find_ops += int(np.where(f >= 0, np.minimum(f + 1, lim), lim).sum())
+        count_ops += int(lim.sum())
+        scan_bytes += numel + 4 * g.n_pad * (2 * g.t + 2)  # corpus, tables, ends, out
+    for g, lim in rows(pos_bs):
+        batches = -(-g.n // 16)
+        bitmap_bytes += batches * numel + 4 * g.n * (2 * g.t + 1 + bitmap_words(numel, g.t))
+    first = ps.first_matrix()
+    ln = np.array([len(w) for w in ps.needles], np.int64)
+    tested = np.where(first >= 0, first + 1, np.maximum(ln[None, :] - ln[:, None] + 1, 0))
+    pk, lh, _, _ = ps._pack_hay(None)
+    pair_bytes = pk.numel() + 4 * lh.numel() + 4 * (ps._values.numel() + ps._masks.numel()) + 4 * len(ln) + 4
+    flat, v, m, e, n = probe_setup
+    probe_lim = e[:n].to(torch.int64).clamp(max=position_limit(flat.numel(), v.shape[1]))
+    return {
+        "batched_find": bound_ms(find_ops, scan_bytes),
+        "batched_count": bound_ms(count_ops, scan_bytes),
+        "match_bitmap": bound_ms(count_ops, bitmap_bytes),
+        "memchr_find": bound_ms(big_end, big_end),
+        "pair_block": bound_ms(int(tested.sum()), pair_bytes),
+        "probe": bound_ms(int(probe_lim.sum()), flat.numel() + 4 * (v.numel() + m.numel() + 2 * n)),
+    }
 
 
 def main() -> int:
@@ -683,8 +873,9 @@ def main() -> int:
     (ps,) = path(("pair_block",), (phase_pairwise, (torch, device, words)))
     ((errs["probe"], probe_setups),) = path(("probe",), (phase_probe, (torch, device, hay)))
 
-    times = timed(phase_times, torch, device, card, i386_dh, bs, big[0], count_bs, ps, pos_bs,
-                  probe_setups)
+    timed(phase_queue_big, torch, device, big)
+    times, bounds, per_sweep = timed(phase_times, torch, device, card, i386_dh, bs, big[0], count_bs,
+                                     ps, pos_bs, probe_setups)
     kernels = [
         ("batched_find", FIND_SOURCE, "sliceslice_tpu/ops/scan_kernel.py:266"),
         ("memchr_find", FIND_SOURCE, "sliceslice_tpu/ops/scan_kernel.py:720"),
@@ -693,10 +884,15 @@ def main() -> int:
         ("probe", PROBE_SOURCE, "scripts/kernel_probe.py:64"),
         ("match_bitmap", FIND_SOURCE, "sliceslice_tpu/ops/xla_backend.py:140 (XLA, not Pallas)"),
     ]
+    # No single PyTorch call computes any of these functions (a first
+    # match, an overlapping count, a match bitmap, a first byte, a pair
+    # matrix of first matches), so library_ms is null throughout.
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errs[name], "ms": times[name][0],
-         "plain_ms": times[name][1]} for name, source, replaces in kernels]}))
+         "plain_ms": times[name][1], "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "launches_per_sweep": per_sweep[name], "library_ms": None}
+        for name, source, replaces in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

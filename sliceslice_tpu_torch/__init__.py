@@ -4,20 +4,22 @@ The same substring-search API and answers as the JAX package, for one
 NVIDIA Hopper card: a haystack is laid out once on a device, and needles
 are searched over it, counted, or listed at every offset, by hand-written
 CUDA kernels (``csrc/*.cu``), built with ``nvcc`` at first use; word lists
-are swept against each other pair by pair.  On the CPU every kernel runs as its
-plain PyTorch version.  The port imports torch and numpy, never jax.
+are swept against each other pair by pair.  Every entry point runs on the
+card unless the caller passes ``device="cpu"``, where every kernel runs as
+its plain PyTorch version; without a card the default raises.  The port
+imports torch and numpy, never jax.
 
 Public API::
 
     from sliceslice_tpu_torch import DynamicSearcher, BatchedSearcher, preprocess
     DynamicSearcher(b"ipsum").find(b"lorem ipsum dolor")        # -> 6
-    hay = preprocess(open("corpus", "rb").read(), device="cuda")
-    BatchedSearcher([b"a", b"needle"], device="cuda").find_all(hay)
-    BatchedSearcher([b"a", b"needle"], device="cuda").count_all(hay)
-    BatchedSearcher([b"a", b"needle"], device="cuda").positions_all(hay)
+    hay = preprocess(open("corpus", "rb").read())               # on the card
+    BatchedSearcher([b"a", b"needle"]).find_all(hay)
+    BatchedSearcher([b"a", b"needle"]).count_all(hay)
+    BatchedSearcher([b"a", b"needle"]).positions_all(hay)
     DynamicSearcher(b"aa").count_in(b"aaaa")                   # -> 3
-    DynamicSearcher(b"aa").positions(b"aaaa")                  # -> array([0, 1, 2])
-    PairwiseSearcher([b"ab", b"abc"], device="cuda").contains_matrix()
+    DynamicSearcher(b"aa", device="cpu").positions(b"aaaa")    # -> array([0, 1, 2])
+    PairwiseSearcher([b"ab", b"abc"]).contains_matrix()
 """
 
 from . import config

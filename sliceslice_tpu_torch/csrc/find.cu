@@ -1,5 +1,6 @@
-// Hand-written Hopper (sm_90a) kernels of the find and count paths, behind
-// a plain C interface loaded with ctypes (sliceslice_tpu_torch/ops/cuda_lib.py).
+// Hand-written Hopper (sm_90a) kernels of the find, count and positions
+// paths, behind a plain C interface loaded with ctypes
+// (sliceslice_tpu_torch/ops/cuda_lib.py).
 //
 // ssf_batched_find replaces the Pallas find kernel
 // sliceslice_tpu/ops/scan_kernel.py::_raw_batched_call (wrapped there by
@@ -23,48 +24,47 @@
 // path, sliceslice_tpu/ops/xla_backend.py::_match_bitmap_cols_impl (and its
 // batched vmap): for each row n < n_real, bit b of word w of out[n] is set
 // iff position p = 32w + b satisfies every slot with p + base < ends[n].
-// The bitmap is linear, where the TPU's is laid out by lane.  It is a
-// kernel here because the plain torch version evaluates every position of
-// every row in chunked tensor ops (137x this kernel's time over an i386
-// positions sweep on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md); this one
-// is the shared loop plus a shuffle merge and a store.
+// The bitmap is linear, where the TPU's is laid out by lane.
 //
-// What bounds them on the H100.  The find kernel reads the corpus once per
-// needle row until that row's first match, so across a sweep it moves
-// (rows x bytes scanned) through L2 and, for corpora larger than the 50 MB
-// L2, HBM; per position it spends one funnel shift, one AND and one compare
-// per probe slot, and almost every position fails at the first slot.  A
-// row is therefore bound by load latency and L2 bandwidth, not by integer
-// throughput.  The count kernel has no early exit: every row reads the
-// whole corpus, so a sweep moves rows x corpus bytes through L1/L2 and is
-// bound by that traffic.  The design answers that simply:
-//   * one block per (row, span of positions); 256 threads each own one
-//     aligned 32-bit word and evaluate the 4 positions that start in it, so
-//     a warp's loads are 128 contiguous bytes and each window comes from
-//     two aligned words by __funnelshift_r — no packed-window copy of the
-//     corpus in HBM (the TPU layout's 4x-sized windows are not needed);
-//     every kernel but memchr shares that loop (probe_word, in
-//     scan_common.cuh with the ablation kernel of probe.cu);
-//   * a position stops at its first failing probe slot;
-//   * find: the block stops at the first tile (1024 positions) holding a
-//     match: __syncthreads_or finds the tile, a shared atomicMin its first
-//     position, and a global atomicMin merges spans.  That is the
-//     per-needle early exit; it subsumes the TPU kernel's per-block exit.
-//     A span block skips tiles that start past the row's current best, so
-//     spans behind an early match cost one read of the result;
-//   * count: each thread adds the popcount of its surviving positions in a
-//     register, walking its span with no barrier; the block sums by warp
-//     shuffles and shared memory and adds its sum to the row with one
-//     atomicAdd.  Integer sums in any order are exact.  The TPU kernel's
-//     clean-segment split only saves vector passes there; here the end
-//     bound is one compare per word, so it is not carried over;
-//   * match bitmap: the count kernel's walk, with one 4-byte store per 32
-//     positions that hold a match instead of a sum, so it costs a count
-//     plus the stores of its matches.
-// Making them fast (TMA tiles shared across needles, a persistent grid) is
-// later work.  The kernels allocate nothing and never synchronise; each
-// entry point returns cudaGetLastError() so the caller sees a refused
-// launch.
+// What bounds find and count on the H100.  Their work is integer: one
+// funnel shift, AND and compare per position per slot tested, and almost
+// every position fails at its first slot.  The positions these inputs need
+// tested are, per row, its first match + 1 for find and its whole limit for
+// count; at one 32-bit operation each against the INT32 rate (132 SMs x 64
+// lanes x 1.98 GHz = 16.7 T op/s) that is the bound, far above the bytes
+// (the corpus, tables and outputs once each at 3.35 TB/s).  What kept the
+// first design (one block per (row, span), 4 positions per thread per
+// step) far from it was not the compares but, per the ablation kernel
+// (probe.cu, PERF.md §5), the loads, their 64-bit address math and the
+// table reads from shared memory, and, for find, the serial walk of a row
+// whose first match lies late: one block walked it tile by tile.  The
+// design answers that:
+//   * the wide step: 256 threads each evaluate 16 consecutive positions
+//     from one 16-byte load plus one word per slot (probe_wide in
+//     scan_common.cuh), with 32-bit offsets; tables of t <= 4 slots (all
+//     but 4 of the 4,585 i386 words) live in registers, one instantiation
+//     per width, wider ones in shared memory;
+//   * the chunk-major work queue: a persistent grid sized to the card
+//     (blocks resident per SM x SMs) takes items (row, chunk of `chunk`
+//     positions) from one counter, chunk c of every row before chunk c+1
+//     of any row (next_item).  A late row's chunks spread over every SM
+//     instead of one block's walk, and a single-row launch spreads over
+//     the card too;
+//   * find: an item whose row already holds a match at or before the
+//     chunk's start is skipped; within a chunk the block stops at the first
+//     wide tile (4,096 positions) that holds a match (one __syncthreads_or
+//     per tile), takes its first position by a shared atomicMin and merges
+//     it into out[row] by a global atomicMin.  Work is the positions up to
+//     each row's first match, plus at most the chunks in flight;
+//   * count: the same queue with no skip; each thread sums its positions'
+//     popcounts in a register and the block adds its sum once per item
+//     (block_add).  Integer sums and minima in any order are exact;
+//   * match bitmap (not redesigned): one block per (row, span), probe_word
+//     walked as the count loop once was, with one 4-byte store per 32
+//     positions that hold a match.
+// The kernels allocate nothing (the wrapper zeroes the queue counter) and
+// never synchronise; each entry point returns cudaGetLastError() so the
+// caller sees a refused launch.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -80,78 +80,144 @@ __device__ __forceinline__ int read_best(const int32_t* p) {
   return *reinterpret_cast<const volatile int32_t*>(p);
 }
 
-__global__ void __launch_bounds__(kThreads)
-batched_find_kernel(const uint32_t* __restrict__ hay, long long n_pos,
-                    const uint32_t* __restrict__ values,
-                    const uint32_t* __restrict__ masks,
-                    const int32_t* __restrict__ ends, int32_t* out, int t,
-                    long long base, long long span) {
-  __shared__ uint32_t s_val[kMaxT];
-  __shared__ uint32_t s_msk[kMaxT];
-  __shared__ int s_first;
+// One item of the chunk-major queue: positions [start, stop) of row `row`.
+struct Item {
+  int row, start, stop;
+};
 
-  const int row = blockIdx.x;  // the grid holds rows < n_real only
-  long long start, stop;
-  if (!row_span(ends, row, n_pos, base, span, &start, &stop)) return;
-
-  load_table(values, masks, row, t, s_val, s_msk);
-  if (threadIdx.x == 0) s_first = kSentinel;
-  // One thread reads the row's best so that the whole block agrees: a span
-  // that starts at or past it has nothing to add.
-  if (__syncthreads_or(threadIdx.x == 0 &&
-                       static_cast<long long>(read_best(out + row)) <= start + base)) {
-    return;
+// Thread 0 only: the next item of the queue with positions to scan, or row
+// -1 when the queue is empty.  Item i is chunk c = i / rows of row i % rows,
+// so chunk c of every row is handed out before chunk c + 1 of any row.  An
+// item is dead, and skipped here, when its chunk starts at or past the
+// row's limit min(ends[row] - base, n_pos) or, for find (out != nullptr),
+// at or past the row's best match so far: a stale read of that best only
+// costs work, never an answer, since matches merge by atomicMin.
+__device__ __forceinline__ Item next_item(int* queue, int n_items, int rows, int chunk,
+                                          const int32_t* __restrict__ ends, int base,
+                                          int n_pos, const int32_t* out) {
+  for (;;) {
+    const int i = atomicAdd(queue, 1);
+    if (i >= n_items) return Item{-1, 0, 0};
+    const int c = i / rows;
+    const int row = i - c * rows;
+    const int start = c * chunk;
+    const long long lim = min(static_cast<long long>(__ldg(ends + row)) - base,
+                              static_cast<long long>(n_pos));
+    if (start >= lim) continue;
+    if (out != nullptr && static_cast<long long>(read_best(out + row)) - base <= start) continue;
+    return Item{row, start, lim - start > chunk ? start + chunk : static_cast<int>(lim)};
   }
+}
 
-  int step = 0;
-  for (long long tile = start; tile < stop; tile += kFindTile, ++step) {
-    const long long p0 = tile + 4LL * threadIdx.x;  // word aligned
-    const unsigned alive =
-        p0 < stop ? probe_word(hay, p0, stop, s_val, s_msk, t) : 0u;
-    if (__syncthreads_or(alive != 0u)) {
-      if (alive) {
-        atomicMin(&s_first, static_cast<int>(p0 - start) + __ffs(alive) - 1);
-      }
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        atomicMin(out + row, static_cast<int>(start + s_first + base));
-      }
-      return;
+// The row's table for one item: in registers (val, msk) when T > 0, else
+// in shared memory (s_val, s_msk); the caller has synchronised since the
+// last read of the shared table.
+template <int T>
+__device__ __forceinline__ void item_table(const uint32_t* __restrict__ values,
+                                           const uint32_t* __restrict__ masks, int row, int t,
+                                           uint32_t* val, uint32_t* msk, uint32_t* s_val,
+                                           uint32_t* s_msk) {
+  if constexpr (T > 0) {
+#pragma unroll
+    for (int i = 0; i < T; ++i) {
+      val[i] = __ldg(values + row * T + i);
+      msk[i] = __ldg(masks + row * T + i);
     }
-    if ((step + 1) % kCheckEvery == 0) {
-      // Another span already holds a match at or before the next tile:
-      // nothing left here can beat it.
-      const long long next = tile + kFindTile + base;
-      if (__syncthreads_or(threadIdx.x == 0 &&
-                           static_cast<long long>(read_best(out + row)) <= next)) {
-        return;
-      }
+  } else {
+    load_table(values, masks, row, t, s_val, s_msk);
+    __syncthreads();
+  }
+}
+
+// The first match of one find item, merged into *best.  Every thread of
+// the block calls it; it ends on a barrier only when it finds a match.
+template <int T>
+__device__ __forceinline__ void find_item(const uint32_t* __restrict__ hay, int n_words,
+                                          Item it, const uint32_t* val, const uint32_t* msk,
+                                          int t, int base, int* s_first, int32_t* best) {
+  const int len = it.stop - it.start;
+  for (int rel0 = 0; rel0 < len; rel0 += kWideTile) {
+    const int rel = rel0 + 16 * static_cast<int>(threadIdx.x);
+    const unsigned alive =
+        rel < len ? probe_wide<T>(hay, n_words, it.start + rel, it.stop, val, msk, t) : 0u;
+    if (__syncthreads_or(alive != 0u)) {
+      if (alive) atomicMin(s_first, it.start + rel + __ffs(alive) - 1);
+      __syncthreads();
+      if (threadIdx.x == 0) atomicMin(best, *s_first + base);
+      return;
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-count_kernel(const uint32_t* __restrict__ hay, long long n_pos,
-             const uint32_t* __restrict__ values,
-             const uint32_t* __restrict__ masks,
-             const int32_t* __restrict__ ends, int32_t* out, int t,
-             long long base, long long span) {
-  __shared__ uint32_t s_val[kMaxT];
-  __shared__ uint32_t s_msk[kMaxT];
-  __shared__ unsigned s_warp[kThreads / 32];
-
-  const int row = blockIdx.x;  // the grid holds rows < n_real only
-  long long start, stop;
-  if (!row_span(ends, row, n_pos, base, span, &start, &stop)) return;
-
-  load_table(values, masks, row, t, s_val, s_msk);
-  __syncthreads();
-
-  unsigned count = 0;
-  for (long long p0 = start + 4LL * threadIdx.x; p0 < stop; p0 += kFindTile) {
-    count += __popc(probe_word(hay, p0, stop, s_val, s_msk, t));
+// The matches of one count item, as this thread's share of the sum.
+template <int T>
+__device__ __forceinline__ unsigned count_item(const uint32_t* __restrict__ hay, int n_words,
+                                               Item it, const uint32_t* val,
+                                               const uint32_t* msk, int t) {
+  const int len = it.stop - it.start;
+  unsigned count = 0u;
+  for (int rel = 16 * static_cast<int>(threadIdx.x); rel < len; rel += kWideTile) {
+    count += __popc(probe_wide<T>(hay, n_words, it.start + rel, it.stop, val, msk, t));
   }
-  block_add(count, out + row, s_warp);
+  return count;
+}
+
+// find (kFind) or count over the chunk-major queue: the block takes items
+// until the queue is empty.  Thread 0 draws each live item (next_item) and
+// the block reads it from shared memory after one barrier; a barrier at
+// the end of each item keeps the shared item, first match and table from
+// being rewritten while a thread still reads them.
+template <bool kFind, int T>
+__device__ __forceinline__ void queue_loop(const uint32_t* __restrict__ hay, int n_words,
+                                           int n_pos, const uint32_t* __restrict__ values,
+                                           const uint32_t* __restrict__ masks,
+                                           const int32_t* __restrict__ ends, int32_t* out,
+                                           int rows, int t, int base, int chunk, int n_items,
+                                           int* queue) {
+  __shared__ uint32_t s_val[T > 0 ? 1 : kMaxT];
+  __shared__ uint32_t s_msk[T > 0 ? 1 : kMaxT];
+  __shared__ Item s_item;
+  __shared__ int s_first;
+  __shared__ unsigned s_warp[kThreads / 32];
+  uint32_t val[T > 0 ? T : 1], msk[T > 0 ? T : 1];
+
+  for (;;) {
+    if (threadIdx.x == 0) {
+      s_item = next_item(queue, n_items, rows, chunk, ends, base, n_pos,
+                         kFind ? out : nullptr);
+      s_first = kSentinel;
+    }
+    __syncthreads();
+    const Item it = s_item;
+    if (it.row < 0) return;
+    item_table<T>(values, masks, it.row, t, val, msk, s_val, s_msk);
+    const uint32_t* tv = T > 0 ? val : s_val;
+    const uint32_t* tm = T > 0 ? msk : s_msk;
+    if constexpr (kFind) {
+      find_item<T>(hay, n_words, it, tv, tm, t, base, &s_first, out + it.row);
+    } else {
+      block_add(count_item<T>(hay, n_words, it, tv, tm, t), out + it.row, s_warp);
+    }
+    __syncthreads();
+  }
+}
+
+#define SSF_QUEUE_PARAMS                                                                  \
+  const uint32_t* __restrict__ hay, int n_words, int n_pos,                               \
+      const uint32_t* __restrict__ values, const uint32_t* __restrict__ masks,            \
+      const int32_t* __restrict__ ends, int32_t* out, int rows, int t, int base, int chunk, \
+      int n_items, int* queue
+#define SSF_QUEUE_ARGS \
+  hay, n_words, n_pos, values, masks, ends, out, rows, t, base, chunk, n_items, queue
+
+template <int T>
+__global__ void __launch_bounds__(kThreads) batched_find_kernel(SSF_QUEUE_PARAMS) {
+  queue_loop<true, T>(SSF_QUEUE_ARGS);
+}
+
+template <int T>
+__global__ void __launch_bounds__(kThreads) count_kernel(SSF_QUEUE_PARAMS) {
+  queue_loop<false, T>(SSF_QUEUE_ARGS);
 }
 
 // One row's match bitmap over one span: each thread's 4 surviving
@@ -234,44 +300,79 @@ memchr_kernel(const uint4* __restrict__ hay, long long lim, uint32_t byte,
   }
 }
 
+// The width-T instantiation of the find (kFind) or count kernel: T = t
+// for tables of up to kMaxRegT slots (held in registers), else 0.
+template <bool kFind, int T>
+void* queue_fn() {
+  return kFind ? reinterpret_cast<void*>(batched_find_kernel<T>)
+               : reinterpret_cast<void*>(count_kernel<T>);
+}
+
+template <bool kFind>
+void* queue_kernel_for(int t) {
+  switch (t) {
+    case 1: return queue_fn<kFind, 1>();
+    case 2: return queue_fn<kFind, 2>();
+    case 3: return queue_fn<kFind, 3>();
+    case 4: return queue_fn<kFind, 4>();
+  }
+  return queue_fn<kFind, 0>();
+}
+
+template <bool kFind>
+int launch_queue(const void* hay, int n_words, int n_pos, const void* values,
+                 const void* masks, const void* ends, void* out, int rows, int t, int base,
+                 int chunk, int n_items, int grid, void* queue, void* stream) {
+  if (rows <= 0 || n_pos <= 0 || n_items <= 0) return static_cast<int>(cudaGetLastError());
+  if (t < 1 || t > kMaxT || chunk <= 0 || chunk % kWideTile || grid <= 0 ||
+      n_pos > 4LL * (n_words - t)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const uint32_t* h = static_cast<const uint32_t*>(hay);
+  const uint32_t* v = static_cast<const uint32_t*>(values);
+  const uint32_t* m = static_cast<const uint32_t*>(masks);
+  const int32_t* e = static_cast<const int32_t*>(ends);
+  int32_t* o = static_cast<int32_t*>(out);
+  int* q = static_cast<int*>(queue);
+  void* args[] = {&h, &n_words, &n_pos, &v, &m, &e, &o, &rows, &t, &base, &chunk, &n_items, &q};
+  const cudaError_t err =
+      cudaLaunchKernel(queue_kernel_for<kFind>(t), dim3(static_cast<unsigned>(grid)),
+                       dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 // hay: n_words 32-bit words of corpus bytes (16-byte aligned).  n_pos: the
 // positions whose t windows lie inside hay, 4 * (n_words - t).  values,
-// masks: uint32[n_real.., t], pre-masked.  ends, out: int32[n_real..]; out
-// must hold SENTINEL on entry.  span: positions per block, a multiple of
-// 1024; n_spans: blocks per row.
-int ssf_batched_find(const void* hay, long long n_pos, const void* values,
-                     const void* masks, const void* ends, void* out,
-                     int n_real, int t, long long base, long long span,
-                     int n_spans, void* stream) {
-  if (n_real <= 0 || n_pos <= 0) return static_cast<int>(cudaGetLastError());
-  if (t < 1 || t > kMaxT) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(n_real), static_cast<unsigned>(n_spans));
-  batched_find_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(hay), n_pos,
-      static_cast<const uint32_t*>(values), static_cast<const uint32_t*>(masks),
-      static_cast<const int32_t*>(ends), static_cast<int32_t*>(out), t, base,
-      span);
-  return static_cast<int>(cudaGetLastError());
+// masks: uint32[rows.., t], pre-masked.  ends, out: int32[rows..]; out must
+// hold SENTINEL on entry.  chunk: positions per item, a multiple of 4,096;
+// n_items: rows * ceil(n_pos / chunk); grid: blocks, at most the resident
+// ones (ssf_queue_blocks x SMs); queue: one int32 holding 0 on entry.
+int ssf_batched_find(const void* hay, int n_words, int n_pos, const void* values,
+                     const void* masks, const void* ends, void* out, int rows, int t,
+                     int base, int chunk, int n_items, int grid, void* queue, void* stream) {
+  return launch_queue<true>(hay, n_words, n_pos, values, masks, ends, out, rows, t, base,
+                            chunk, n_items, grid, queue, stream);
 }
 
 // The same operands as ssf_batched_find; out must hold 0 on entry.
-int ssf_batched_count(const void* hay, long long n_pos, const void* values,
-                      const void* masks, const void* ends, void* out,
-                      int n_real, int t, long long base, long long span,
-                      int n_spans, void* stream) {
-  if (n_real <= 0 || n_pos <= 0) return static_cast<int>(cudaGetLastError());
+int ssf_batched_count(const void* hay, int n_words, int n_pos, const void* values,
+                      const void* masks, const void* ends, void* out, int rows, int t,
+                      int base, int chunk, int n_items, int grid, void* queue, void* stream) {
+  return launch_queue<false>(hay, n_words, n_pos, values, masks, ends, out, rows, t, base,
+                             chunk, n_items, grid, queue, stream);
+}
+
+// Blocks of the find (find != 0) or count kernel for width-t tables that
+// one SM holds at once, into *per_sm.
+int ssf_queue_blocks(int find, int t, void* per_sm) {
   if (t < 1 || t > kMaxT) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(n_real), static_cast<unsigned>(n_spans));
-  count_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(hay), n_pos,
-      static_cast<const uint32_t*>(values), static_cast<const uint32_t*>(masks),
-      static_cast<const int32_t*>(ends), static_cast<int32_t*>(out), t, base,
-      span);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      static_cast<int*>(per_sm), find ? queue_kernel_for<true>(t) : queue_kernel_for<false>(t),
+      kThreads, 0));
 }
 
 // The same operands as ssf_batched_find; out: uint32[n_real.., row_words]

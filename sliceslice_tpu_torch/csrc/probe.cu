@@ -6,11 +6,11 @@
 // time to find which piece costs time.  The TPU pieces (DMA double
 // buffering, packed windows, the 128-lane min, SMEM tables) do not exist on
 // the card, so the pieces stripped here are those of the port's own loop:
-// probe_word (scan_common.cuh) walked as count_kernel walks it (find.cu),
+// probe_word (scan_common.cuh) walked as the first count kernel walked it,
 // one block per (row, span), 256 threads, 4 positions per thread per step.
 // Each variant asks the question of one JAX variant:
 //
-//   count       the count kernel's loop as is (baseline)           = batched_count
+//   count       that first count loop as is (baseline)             = batched_count
 //   first       JAX full: probes, a first-offset min per thread, a block
 //               min and atomicMin, no early exit                  = batched_find
 //   nomin       JAX nomin: probes, OR of the alive bits, one flag per row
@@ -29,8 +29,9 @@
 //               "needles sharing a staged corpus tile" question)  = count
 //   regtab<T>   JAX swpipe: the table read into registers before the loop
 //               (t = T <= 4, unrolled) instead of from shared memory = count
-//   wide        16 positions per thread from one 16-byte load plus one word
-//               per slot                                          = count
+//   wide        the find and count kernels' loop, probe_wide: 16 positions
+//               per thread from one 16-byte load plus one word per slot,
+//               on this kernel's plan                             = count
 //
 // Every variant writes a value derived from its loop, so none can be
 // compiled away; ptxas' report (-Xptxas -v, kept in the build log) gives
@@ -58,8 +59,7 @@ enum Variant : int {
   kWide = 9,
 };
 
-constexpr int kWideTile = kThreads * 16;  // positions per block step, wide
-constexpr int kMaxRows = 8;               // rows per block, rows<R>
+constexpr int kMaxRows = 8;  // rows per block, rows<R>
 
 // The block's minimum of `v` (kSentinel where no thread has one) into
 // *out with one atomicMin.
@@ -87,12 +87,6 @@ __device__ __forceinline__ void block_xor(unsigned v, int32_t* out, unsigned* s_
     x = __reduce_xor_sync(0xffffffffu, x);
     if (threadIdx.x == 0 && x != 0u) atomicXor(out, static_cast<int>(x));
   }
-}
-
-// Bits 0 .. width-1 (width < 32) for the positions below a limit `rem`
-// positions away.
-__device__ __forceinline__ unsigned live_bits(long long rem, int width) {
-  return rem >= width ? (1u << width) - 1u : (rem > 0 ? (1u << rem) - 1u : 0u);
 }
 
 // probe_word without the AND on all-ones slots (nomask), or with every slot
@@ -174,39 +168,6 @@ __device__ __forceinline__ void probe_word_rows(const uint32_t* __restrict__ hay
   }
 }
 
-// wide: positions p0 .. p0+15 (p0 16-byte aligned) from one 16-byte load
-// and one more word, then one word per further slot; slot i reads the
-// words j+i .. j+i+4.
-__device__ __forceinline__ unsigned probe_wide(const uint32_t* __restrict__ hay,
-                                               long long p0, long long stop,
-                                               const uint32_t* s_val,
-                                               const uint32_t* s_msk, int t) {
-  unsigned alive = live_bits(stop - p0, 16);
-  const long long j = p0 >> 2;
-  const uint4 q = __ldg(reinterpret_cast<const uint4*>(hay + j));
-  uint32_t w[5] = {q.x, q.y, q.z, q.w, __ldg(hay + j + 4)};
-  for (int i = 0;;) {
-    const uint32_t m = s_msk[i];
-    const uint32_t v = s_val[i];
-    if (m != 0u) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          if ((__funnelshift_r(w[k], w[k + 1], 8 * r) & m) != v) {
-            alive &= ~(1u << (4 * k + r));
-          }
-        }
-      }
-    }
-    if (++i >= t || !alive) break;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) w[k] = w[k + 1];
-    w[4] = __ldg(hay + j + i + 4);
-  }
-  return alive;
-}
-
 template <int V, int P>
 __global__ void __launch_bounds__(kThreads)
 probe_kernel(const uint32_t* __restrict__ hay, long long n_pos,
@@ -282,9 +243,13 @@ probe_kernel(const uint32_t* __restrict__ hay, long long n_pos,
       load_table(values, masks, row, t, s_val, s_msk);
       __syncthreads();
       if constexpr (V == kWide) {
+        // The find and count kernels' loop (probe_wide) on this plan; n_pos
+        // is 4 * (n_words - t), so the buffer holds n_pos / 4 + t words.
+        const int n_words = static_cast<int>(n_pos >> 2) + t;
         unsigned count = 0u;
         for (long long p0 = start + 16LL * threadIdx.x; p0 < stop; p0 += kWideTile) {
-          count += __popc(probe_wide(hay, p0, stop, s_val, s_msk, t));
+          count += __popc(probe_wide(hay, n_words, static_cast<int>(p0),
+                                     static_cast<int>(stop), s_val, s_msk, t));
         }
         block_add(count, out + row, s_warp);
       } else if constexpr (V == kFirst) {
@@ -330,10 +295,10 @@ extern "C" {
 // variant: one of Variant; param: R for rows (1, 2, 4, 8), ignored
 // otherwise (regtab takes T = t).  The operands are those of
 // ssf_batched_count; out must hold SENTINEL on entry for first and 0 for
-// every other variant.  n_pos: positions whose windows lie in hay, cut for
-// wide to 4 * (n_words - t - 3) (its last word per slot lies 3 further).
-// span: positions per block, a multiple of 4096 for wide and of 1024
-// otherwise; n_spans: blocks per row (per R rows for rows).
+// every other variant.  n_pos: positions whose windows lie in hay,
+// 4 * (n_words - t).  span: positions per block, a multiple of 4096 for
+// wide and of 1024 otherwise; n_spans: blocks per row (per R rows for
+// rows).
 int ssf_probe(int variant, int param, const void* hay, long long n_pos,
               const void* values, const void* masks, const void* ends, void* out,
               int n_real, int t, long long base, long long span, int n_spans,

@@ -1,7 +1,25 @@
-// The probe loop shared by the find, count and match-bitmap kernels
-// (find.cu) and the ablation kernel (probe.cu), with the constants they
-// share.  Header only; every kernel source includes it into its own
-// anonymous namespace, so each object carries its own inlined copy.
+// The probe loops shared by the port's scan kernels, with the constants
+// and helpers they share.  Header only; every kernel source includes it
+// into its own anonymous namespace, so each object carries its own inlined
+// copy.
+//
+// Two loops evaluate the same probe program,
+//     (win32(p + 4i) & msk[i]) == val[i] for every slot i < t,
+// where win32(q) is the little-endian 4-byte window at byte q, built from
+// two aligned words by __funnelshift_r:
+//   * probe_word: 4 positions per thread from one aligned word and one more
+//     word per slot (the match-bitmap kernel and the ablation kernel's
+//     variants other than `wide`);
+//   * probe_wide: 16 positions per thread from one 16-byte load plus one
+//     word, then one more word per slot (the find and count kernels and the
+//     ablation kernel's `wide`).  Per position it spends a quarter of
+//     probe_word's loads and address math, which the ablation (PERF.md §5)
+//     found to be half of the old loop's time.  Its offsets are 32-bit: a
+//     layout is below 2^31 bytes.
+// Both stop a position at its first failing slot and stop the slot walk once
+// every position has failed.  T > 0 fixes the width at compile time (t is
+// then ignored), so that a table of T <= kMaxRegT slots held in registers
+// stays there instead of being read from shared memory once per word.
 
 #pragma once
 
@@ -11,17 +29,14 @@ namespace {
 
 constexpr int kSentinel = 0x7fffffff;
 constexpr int kThreads = 256;
-constexpr int kFindTile = kThreads * 4;  // positions per block step
-constexpr int kMaxT = 512;               // widest probe table
+constexpr int kFindTile = kThreads * 4;   // positions per block step, probe_word
+constexpr int kWideTile = kThreads * 16;  // positions per block step, probe_wide
+constexpr int kMaxT = 512;                // widest probe table
+constexpr int kMaxRegT = 4;               // widest table held in registers
 
 // The probe program at the positions p0 .. p0+3 (p0 word aligned, p0 <
 // stop) that lie below stop: bit r of the result is set when position
-// p0 + r satisfies every slot i < t,
-//     (win32(p0 + r + 4i) & msk[i]) == val[i].
-// Windows come from two aligned words by __funnelshift_r; a position drops
-// out at its first failing slot, and the walk over slots stops once all
-// four have.  T > 0 fixes the width at compile time (t is then ignored), so
-// that a table held in registers stays there.
+// p0 + r satisfies every slot.  Reads the words p0/4 .. p0/4 + width.
 template <int T = 0>
 __device__ __forceinline__ unsigned probe_word(const uint32_t* __restrict__ hay,
                                                long long p0, long long stop,
@@ -44,6 +59,72 @@ __device__ __forceinline__ unsigned probe_word(const uint32_t* __restrict__ hay,
       }
     }
     lo = hi;
+  }
+  return alive;
+}
+
+// Bits 0 .. width-1 (width < 32) for the positions below a limit `rem`
+// positions away.
+__device__ __forceinline__ unsigned live_bits(long long rem, int width) {
+  return rem >= width ? (1u << width) - 1u : (rem > 0 ? (1u << rem) - 1u : 0u);
+}
+
+// One slot of probe_wide: the 16 windows of w[0..4] (positions 4k + r of
+// the group read w[k], w[k+1]) against one masked value.
+__device__ __forceinline__ void probe_slot16(const uint32_t* w, uint32_t m, uint32_t v,
+                                             unsigned* alive) {
+  if (m == 0u) return;  // a mask-0 slot is trivially true
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if ((__funnelshift_r(w[k], w[k + 1], 8 * r) & m) != v) *alive &= ~(1u << (4 * k + r));
+    }
+  }
+}
+
+// The probe program at the positions p0 .. p0+15 (p0 16-byte aligned, p0 <
+// stop) that lie below stop: bit b is set when position p0 + b satisfies
+// every slot.  Slot i reads the words p0/4 + i .. p0/4 + i + 4; a group
+// whose last slot would read past the buffer's n_words words takes
+// probe_word's per-word loads instead, which read no further than the
+// positions below stop need (stop <= 4 * (n_words - width)).
+template <int T = 0>
+__device__ __forceinline__ unsigned probe_wide(const uint32_t* __restrict__ hay, int n_words,
+                                               int p0, int stop, const uint32_t* val,
+                                               const uint32_t* msk, int t) {
+  const int width = T > 0 ? T : t;
+  const int j = p0 >> 2;
+  if (j + width + 4 > n_words) {
+    unsigned alive = 0u;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (p0 + 4 * k < stop) alive |= probe_word<T>(hay, p0 + 4 * k, stop, val, msk, t) << (4 * k);
+    }
+    return alive;
+  }
+  unsigned alive = live_bits(stop - p0, 16);
+  const uint4 q = __ldg(reinterpret_cast<const uint4*>(hay + j));
+  uint32_t w[5] = {q.x, q.y, q.z, q.w, __ldg(hay + j + 4)};
+  if constexpr (T > 0) {
+#pragma unroll
+    for (int i = 0; i < T; ++i) {
+      if (i > 0) {
+        if (!alive) break;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) w[k] = w[k + 1];
+        w[4] = __ldg(hay + j + i + 4);
+      }
+      probe_slot16(w, msk[i], val[i], &alive);
+    }
+  } else {
+    for (int i = 0;;) {
+      probe_slot16(w, msk[i], val[i], &alive);
+      if (++i >= width || !alive) break;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) w[k] = w[k + 1];
+      w[4] = __ldg(hay + j + i + 4);
+    }
   }
   return alive;
 }

@@ -22,7 +22,7 @@ from .searcher import DeviceLike, resolve_device
 
 
 def haystack(
-    host_bytes, length: int, kh: int, tiled: bool, *, device: DeviceLike = "cpu"
+    host_bytes, length: int, kh: int, tiled: bool, *, device: DeviceLike = "cuda"
 ) -> DeviceHaystack:
     """The port's layout of a JAX ``DeviceHaystack``: its host bytes,
     logical ``length``, halo ``kh`` and whether it is tiled (the kernel
@@ -32,7 +32,7 @@ def haystack(
 
 
 def batched_searcher(
-    needles: Sequence, groups: Sequence[tuple], *, device: DeviceLike = "cpu"
+    needles: Sequence, groups: Sequence[tuple], *, device: DeviceLike = "cuda"
 ) -> BatchedSearcher:
     """A port ``BatchedSearcher`` whose width groups hold the given tables in
     the given row order.  ``groups``: one ``(values_host, masks_host,
@@ -58,7 +58,7 @@ def batched_searcher(
 
 
 def pairwise_searcher(
-    needles: Sequence, valt, mskt, ln, block: int, *, device: DeviceLike = "cpu"
+    needles: Sequence, valt, mskt, ln, block: int, *, device: DeviceLike = "cuda"
 ) -> PairwiseSearcher:
     """A port ``PairwiseSearcher`` holding a JAX searcher's needle tables:
     ``valt``/``mskt`` uint32 (tn, N) as the JAX package keeps them

@@ -137,7 +137,7 @@ class BatchedSearcher:
         needles: Sequence,
         position: Optional[int] = None,
         *,
-        device: DeviceLike = "cpu",
+        device: DeviceLike = "cuda",
     ):
         self.needles = [as_bytes(n) for n in needles]
         self.device = resolve_device(device)

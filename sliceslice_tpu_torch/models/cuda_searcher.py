@@ -31,7 +31,7 @@ SPECIALIZED_SIZES = tuple(range(2, 17))
 class CudaSearcher(SearcherBase):
     """Generic single-needle searcher (the reference's fallback ``N`` arm)."""
 
-    def __init__(self, needle, position=None, *, device="cpu"):
+    def __init__(self, needle, position=None, *, device="cuda"):
         super().__init__(needle, position, device=device)
         if self.needle.size == 0:
             raise ValueError(
@@ -64,7 +64,7 @@ class CudaSearcher(SearcherBase):
 
 def _make_specialized(k: int):
     class _Specialized(CudaSearcher):
-        def __init__(self, needle, position=None, *, device="cpu"):
+        def __init__(self, needle, position=None, *, device="cuda"):
             super().__init__(needle, position, device=device)
             if self.needle.size != k:
                 raise ValueError(

@@ -26,6 +26,7 @@ from ..searcher import (
     _hay_bytes,
     _host_positions,
     overlapping_count,
+    resolve_device,
 )
 from .cuda_searcher import searcher_for_size
 from .memchr import MemchrSearcher
@@ -37,8 +38,9 @@ HOST_HAY_BYTES = 4096
 
 class DynamicSearcher:
     def __init__(
-        self, needle: NeedleLike, position: Optional[int] = None, *, device="cpu"
+        self, needle: NeedleLike, position: Optional[int] = None, *, device="cuda"
     ):
+        device = resolve_device(device)  # raises without a card unless "cpu"
         data = as_bytes(needle)
         self._data = data
         k = len(data)
@@ -57,7 +59,7 @@ class DynamicSearcher:
             self._inner = searcher_for_size(k)(data, position, device=device)
 
     @classmethod
-    def with_position(cls, needle: NeedleLike, position: int, *, device="cpu"):
+    def with_position(cls, needle: NeedleLike, position: int, *, device="cuda"):
         return cls(needle, position, device=device)
 
     @property

@@ -14,7 +14,7 @@ from ..searcher import SearcherBase
 
 
 class MemchrSearcher(SearcherBase):
-    def __init__(self, needle, position=None, *, device="cpu"):
+    def __init__(self, needle, position=None, *, device="cuda"):
         super().__init__(needle, position, device=device)
         if self.needle.size != 1:
             raise ValueError(

@@ -13,7 +13,7 @@ from ..searcher import HaystackLike, SearcherBase, _hay_bytes
 
 
 class NaiveSearcher(SearcherBase):
-    def __init__(self, needle, position=None, *, device="cpu"):
+    def __init__(self, needle, position=None, *, device="cuda"):
         super().__init__(needle, position, device=device)
         if self.needle.size == 0:
             raise ValueError("empty needle")

@@ -18,7 +18,7 @@ from ..searcher import SearcherBase
 class TorchSearcher(SearcherBase):
     _bitmap = staticmethod(scan_kernel.match_bitmap_plain)
 
-    def __init__(self, needle, position=None, *, device="cpu"):
+    def __init__(self, needle, position=None, *, device="cuda"):
         super().__init__(needle, position, device=device)
         if self.needle.size == 0:
             raise ValueError("empty needle")

@@ -40,6 +40,20 @@ ALIGN = 128
 MAX_DEVICE_POSITIONS = 2**31 - 1
 
 
+def resolve_device(device: Union[str, torch.device]) -> torch.device:
+    """``device`` as a torch.device with its index: ``"cuda"`` names the
+    current CUDA device, so it compares equal to a tensor's device.  The
+    port's entry points default to ``"cuda"``; without a card that raises,
+    and the CPU (the kernels' plain versions) is used only when asked for."""
+    d = torch.device(device)
+    if d.type == "cuda":
+        if not torch.cuda.is_available():
+            raise ValueError("no CUDA device; pass device='cpu' to run the plain versions")
+        if d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
 def round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
@@ -137,10 +151,11 @@ def preprocess(
     force_cols: bool = False,
     length: Optional[int] = None,
     *,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
 ) -> DeviceHaystack:
-    """Build the layout of a haystack on ``device``.  O(len) once, amortized
-    over all later searches.
+    """Build the layout of a haystack on ``device`` (the card unless the
+    caller passes ``device="cpu"``).  O(len) once, amortized over all
+    later searches.
 
     ``force_cols``: take the kernel layout even at or below
     :data:`SHORT_HAY_BYTES` (the name of the JAX package's switch).
@@ -164,6 +179,7 @@ def preprocess(
             raise ValueError("length only applies to pre-padded ndarrays")
         length = len(data)
         arr = np.frombuffer(data, dtype=np.uint8)
+    device = resolve_device(device)
     kh = round_up(max(kh, MIN_KH), 32)
     tiled = not (length <= SHORT_HAY_BYTES and not force_cols)
     total = padded_total(length, kh, force_cols)

@@ -187,7 +187,7 @@ class PairwiseSearcher:
     #: not pin every list and its (N, H) device matrices.
     _HAY_CACHE_CAP = 12
 
-    def __init__(self, needles: Sequence[bytes], block: int = BLOCK, *, device: DeviceLike = "cpu"):
+    def __init__(self, needles: Sequence[bytes], block: int = BLOCK, *, device: DeviceLike = "cuda"):
         self.needles = [bytes(w) for w in needles]
         self.block = block
         self.device = resolve_device(device)
@@ -295,7 +295,7 @@ class PairwiseSearcher:
         return self._sweep(haystacks, count=True)
 
 
-def pairwise_contains_all(words: Sequence[bytes], *, device: DeviceLike = "cpu") -> np.ndarray:
+def pairwise_contains_all(words: Sequence[bytes], *, device: DeviceLike = "cuda") -> np.ndarray:
     """bool[N, N] containment matrix of a word list against itself (the
     reference short-haystack sweep shape)."""
     return PairwiseSearcher(words, device=device).contains_matrix()

@@ -12,8 +12,11 @@ counts its kernel launches in a plain integer attribute, ``launches``.
 ``batched_count_cols`` over the Pallas count kernel, ``memchr_find`` its
 ``memchr_find_cols``, and ``match_bitmap`` the plain-XLA
 ``xla_backend.match_bitmap_batched`` of the positions path (linear here).
-The haystack is the flat layout of :mod:`.layout`: positions are byte
-offsets into it, and its zero halo must cover
+The find and count kernels take work items (row, chunk of positions) from
+a queue in chunk-major order (:func:`plan_queue`); the bitmap kernel runs
+one block per (row, span) (:func:`plan_spans`).  The haystack is the flat
+layout of :mod:`.layout`: positions are byte offsets into it, and its zero
+halo must cover
 ``needed_halo_for_t(t)`` bytes past the last valid position.  Positions
 whose probe windows would run past the buffer are never evaluated, by
 either version.
@@ -21,7 +24,9 @@ either version.
 
 from __future__ import annotations
 
+import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -37,16 +42,28 @@ PROBE_UNROLL = 8
 #: Widest probe table the find and count kernels take (``MAX_NEEDLE_LEN / 4``).
 MAX_T = 512
 
-#: Positions the find and count kernels evaluate per block step, bytes
-#: the memchr kernel reads per block step (csrc/find.cu kFindTile /
-#: kMemchrTile).
+#: Positions the match-bitmap and ablation kernels evaluate per block step
+#: (4 per thread), positions the find and count kernels evaluate per block
+#: step (16 per thread), bytes the memchr kernel reads per block step
+#: (csrc/scan_common.cuh kFindTile / kWideTile, csrc/find.cu kMemchrTile).
 FIND_TILE = 1024
+WIDE_TILE = 4096
 MEMCHR_TILE = 4096
-#: Least positions one block owns: below this, extra blocks cost more to
-#: schedule than the parallelism they add.
+#: Least positions one block owns in the span plan: below this, extra
+#: blocks cost more to schedule than the parallelism they add.
 MIN_SPAN = 1 << 16
 #: Resident blocks per SM times waves: the grid the span plan aims for.
 BLOCKS_PER_SM = 16
+#: Positions per item of the find and count kernels' work queues, multiples
+#: of WIDE_TILE: of 16 K, 32 K and 64 K, the smallest that loses no more
+#: than the spread on the i386 sweep (PERF.md).  Count's items never
+#: overshoot, so it gains from fewer, longer ones; find's overshoot each
+#: row's first match.
+FIND_CHUNK = 1 << 15
+COUNT_CHUNK = 1 << 16
+#: Widest table the find and count kernels hold in registers
+#: (csrc/scan_common.cuh kMaxRegT); wider ones share one instantiation.
+MAX_REG_T = 4
 
 
 def _round_up(x: int, m: int) -> int:
@@ -75,6 +92,47 @@ def plan_spans(n_pos: int, rows: int, tile: int, sms: int) -> tuple[int, int]:
     most = max(1, n_pos // MIN_SPAN)
     span = _round_up(-(-n_pos // min(want, most)), tile)
     return span, -(-n_pos // span)
+
+
+class QueuePlan(NamedTuple):
+    """One launch of the find or count kernel (csrc/find.cu): a persistent
+    grid of ``grid`` blocks takes ``n_items`` items from a zeroed int32
+    counter; item ``i`` is positions ``[c * chunk, (c + 1) * chunk)`` of row
+    ``i % rows``, with ``c = i // rows``, cut at the row's limit
+    ``min(ends - base, n_pos)``, so chunk ``c`` of every row comes before
+    chunk ``c + 1`` of any row."""
+
+    n_words: int
+    n_pos: int
+    chunk: int
+    n_chunks: int
+    n_items: int
+    grid: int
+
+
+def plan_queue(nbytes: int, t: int, rows: int, resident: int, chunk: int) -> QueuePlan:
+    """The work queue of ``rows`` width-``t`` rows over an ``nbytes``
+    haystack for a card that holds ``resident`` blocks at once: chunks are
+    ``chunk`` positions rounded up to whole wide tiles, doubled while the
+    item count would leave int32."""
+    n_pos = position_limit(nbytes, t)
+    chunk = _round_up(max(int(chunk), 1), WIDE_TILE)
+    while rows * -(-n_pos // chunk) + resident >= 2**31:
+        chunk *= 2
+    n_chunks = -(-n_pos // chunk)
+    n_items = rows * n_chunks
+    return QueuePlan(nbytes // 4, n_pos, chunk, n_chunks, n_items, max(1, min(resident, n_items)))
+
+
+@functools.lru_cache(maxsize=32)
+def _resident_blocks(index: int, find: bool, t_class: int) -> int:
+    """Blocks of the find or count kernel's width-``t_class`` instantiation
+    that CUDA device ``index`` holds at once (blocks per SM times SMs)."""
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = cuda_lib.load().ssf_queue_blocks(int(find), t_class, ctypes.byref(per_sm))
+    cuda_lib.check(err, "ssf_queue_blocks")
+    return per_sm.value * _sm_count(index)
 
 
 def _check_hay(hay: torch.Tensor) -> None:
@@ -127,10 +185,37 @@ def _operands(hay, values, masks, ends, base):
     return base, values, masks, ends
 
 
-def _launch(entry: str, hay, values, masks, ends, out, base: int, n_real: int, *extra) -> bool:
-    """One launch of the find, count or bitmap kernel (``entry``) over rows
-    below ``n_real``, writing into ``out``, with the entry's ``extra``
-    arguments before the stream; False when there is nothing to scan."""
+def _launch_queue(find: bool, hay, values, masks, ends, out, base: int, n_real: int) -> bool:
+    """One launch of the find (``find``) or count kernel over rows below
+    ``n_real`` on its work queue (:func:`plan_queue`), writing into
+    ``out``; False when there is nothing to scan."""
+    values, masks, ends = values.contiguous(), masks.contiguous(), ends.contiguous()
+    _cuda_ready(hay, values, masks, ends)
+    t = values.shape[1]
+    if n_real == 0:
+        return False
+    index = hay.device.index
+    plan = plan_queue(hay.numel(), t, n_real, _resident_blocks(index, find, min(t, MAX_REG_T + 1)),
+                      FIND_CHUNK if find else COUNT_CHUNK)
+    if plan.n_items == 0:
+        return False
+    queue = torch.zeros((1,), dtype=torch.int32, device=hay.device)
+    entry = "ssf_batched_find" if find else "ssf_batched_count"
+    with torch.cuda.device(hay.device):
+        err = getattr(cuda_lib.load(), entry)(
+            hay.data_ptr(), plan.n_words, plan.n_pos, values.data_ptr(), masks.data_ptr(),
+            ends.data_ptr(), out.data_ptr(), n_real, t, base, plan.chunk, plan.n_items,
+            plan.grid, queue.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    cuda_lib.check(err, entry)
+    return True
+
+
+def _launch_spans(entry: str, hay, values, masks, ends, out, base: int, n_real: int, *extra) -> bool:
+    """One launch of the match-bitmap kernel (``entry``), one block per
+    (row, span) over rows below ``n_real``, writing into ``out``, with the
+    entry's ``extra`` arguments before the stream; False when there is
+    nothing to scan."""
     values, masks, ends = values.contiguous(), masks.contiguous(), ends.contiguous()
     _cuda_ready(hay, values, masks, ends)
     t = values.shape[1]
@@ -183,7 +268,7 @@ def batched_find(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor:
         raise ValueError(f"no find kernel for device {device}")
     n = values.shape[0]
     out = torch.full((n,), SENTINEL, dtype=torch.int32, device=device)
-    if _launch("ssf_batched_find", hay, values, masks, ends, out, base, _n_real(n_real, n)):
+    if _launch_queue(True, hay, values, masks, ends, out, base, _n_real(n_real, n)):
         batched_find.launches += 1
     return out
 
@@ -223,7 +308,7 @@ def batched_count(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor
         raise ValueError(f"no count kernel for device {device}")
     n = values.shape[0]
     out = torch.zeros((n,), dtype=torch.int32, device=device)
-    if _launch("ssf_batched_count", hay, values, masks, ends, out, base, _n_real(n_real, n)):
+    if _launch_queue(False, hay, values, masks, ends, out, base, _n_real(n_real, n)):
         batched_count.launches += 1
     return out
 
@@ -270,7 +355,7 @@ def match_bitmap(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor:
     n, t = values.shape
     words = bitmap_words(hay.numel(), t)
     out = torch.zeros((n, words), dtype=torch.int32, device=device)
-    if _launch("ssf_match_bitmap", hay, values, masks, ends, out, base, _n_real(n_real, n), words):
+    if _launch_spans("ssf_match_bitmap", hay, values, masks, ends, out, base, _n_real(n_real, n), words):
         match_bitmap.launches += 1
     return out
 

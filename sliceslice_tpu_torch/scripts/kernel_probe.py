@@ -2,10 +2,12 @@
 the JAX package's ``scripts/kernel_probe.py``.
 
 The JAX script strips its TPU find kernel one piece at a time to find which
-piece costs time.  This one does the same for the loop the port's kernels
-share (``probe_word`` in ``csrc/scan_common.cuh``), through one CUDA kernel
-with one instantiation per variant (``csrc/probe.cu``).  Each variant asks
-the question of one JAX variant:
+piece costs time.  This one does the same for the port's first find and
+count loop (``probe_word`` in ``csrc/scan_common.cuh``, one block per (row,
+span)), through one CUDA kernel with one instantiation per variant
+(``csrc/probe.cu``); ``wide`` runs the loop the find and count kernels now
+share (``probe_wide``) on the same plan.  Each variant asks the question of
+one JAX variant:
 
 ============  ==========  ==================================================
 variant       JAX         result (equals)
@@ -24,18 +26,20 @@ branchless    premsel     ``batched_count`` (selects, no early exit)
 rows          dedup       ``batched_count`` (``rows`` rows per block share
                           each loaded word)
 regtab        swpipe      ``batched_count`` (table in registers, t <= 4)
-wide          —           ``batched_count`` (16 positions per thread)
+wide          —           ``batched_count`` (the find and count kernels'
+                          loop, 16 positions per thread, on this plan)
 ============  ==========  ==================================================
 
 :func:`probe` launches the kernel for a CUDA haystack and runs
 :func:`probe_plain` for a CPU one; :func:`make_tables` builds the JAX
 script's tables.  Run it as::
 
-    python -m sliceslice_tpu_torch.scripts.kernel_probe [t=K] [r=N] [k=SWEEPS] [n=ROWS] [variant ...]
+    python -m sliceslice_tpu_torch.scripts.kernel_probe [t=K] [r=N] [k=SWEEPS] [n=ROWS] [device=D] [variant ...]
 
 over ``data/i386.txt`` (default t=2, r=4, 32 sweeps, 4,585 rows, variants
 ``count first nomin noprobe empty``): per variant, ms per sweep and ns per
-(row, 1,024 positions), on the first CUDA card, else with the plain
+(row, 1,024 positions), on the card (``device=cuda``, the default; it
+raises on a host without one) or, with ``device=cpu``, with the plain
 versions on the CPU (host clock; cut ``n`` there).
 """
 
@@ -63,8 +67,6 @@ COUNTING = ("count", "nomask", "branchless", "rows", "regtab", "wide")
 ROWS = (1, 2, 4, 8)
 #: Widest table the ``regtab`` variant holds in registers.
 REGTAB_MAX_T = 4
-#: Positions per block step: ``wide`` evaluates 16 per thread.
-WIDE_TILE = 4096
 
 #: The JAX script's table plan: rows per block, the final slot's mask
 #: classes (k % 4 = 1, 2, 3, 0) and, for t=2, the rows planted with the
@@ -123,12 +125,6 @@ def _check(variant: str, t: int, rows: int) -> None:
         raise ValueError(f"rows takes {ROWS} rows per block, got {rows}")
 
 
-def _position_bound(variant: str, nbytes: int, t: int) -> int:
-    """Positions the variant may evaluate: ``wide`` reads 3 words further
-    per slot than the others."""
-    return position_limit(nbytes, t + 3 if variant == "wide" else t)
-
-
 def probe_plain(variant, hay, values, masks, ends, base=0, n_real=None, rows=4) -> torch.Tensor:
     """Plain PyTorch version of :func:`probe` (same signature and answers),
     built on ``ops/scan_math.py``."""
@@ -144,7 +140,7 @@ def probe_plain(variant, hay, values, masks, ends, base=0, n_real=None, rows=4) 
     out = torch.zeros((n,), dtype=torch.int32, device=hay.device)
     if n_real == 0:
         return out
-    bound = _position_bound(variant, hay.numel(), t)
+    bound = position_limit(hay.numel(), t)
     limits = (ends[:n_real].to(torch.int64) - base).clamp(min=0, max=bound)
     if variant == "noprobe":
         hits = torch.nonzero(packed_windows(hay[: bound + 3]) == -1).flatten()
@@ -177,11 +173,11 @@ def probe(variant, hay, values, masks, ends, base=0, n_real=None, rows=4) -> tor
     out = torch.full((n,), fill, dtype=torch.int32, device=hay.device)
     values, masks, ends = values.contiguous(), masks.contiguous(), ends.contiguous()
     scan_kernel._cuda_ready(hay, values, masks, ends)
-    n_pos = _position_bound(variant, hay.numel(), t)
+    n_pos = position_limit(hay.numel(), t)
     if n_real == 0 or n_pos <= 0:
         return out
     per_block = rows if variant == "rows" else 1
-    tile = WIDE_TILE if variant == "wide" else scan_kernel.FIND_TILE
+    tile = scan_kernel.WIDE_TILE if variant == "wide" else scan_kernel.FIND_TILE
     lib = cuda_lib.load()
     with torch.cuda.device(hay.device):
         span, n_spans = scan_kernel.plan_spans(
@@ -201,15 +197,18 @@ probe.launches = 0
 
 
 def main(argv: Optional[list] = None) -> int:
-    from ..ops.layout import preprocess
+    from ..ops.layout import preprocess, resolve_device
     from ..utils.profiling import card, measure
 
     opts = {"t": 2, "r": 4, "k": 32, "n": 4585}
+    device = "cuda"
     variants = []
     for a in sys.argv[1:] if argv is None else argv:
         key, eq, val = a.partition("=")
         if eq and key in opts:
             opts[key] = int(val)
+        elif eq and key == "device":
+            device = val
         else:
             variants.append(a)
     t, rows, sweeps, n = opts["t"], opts["r"], opts["k"], opts["n"]
@@ -218,11 +217,11 @@ def main(argv: Optional[list] = None) -> int:
         _check(v, t, rows)
     repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     hay = open(os.path.join(repo, "data", "i386.txt"), "rb").read()
-    device = torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    device = resolve_device(device)
     dh = preprocess(hay, kh=needed_halo_for_t(t), device=device)
     values, masks = make_tables(hay, t, n)
     ends = table_ends(masks, len(hay))
-    where = card(0) if device.type == "cuda" else "CPU, plain versions, host clock"
+    where = card(device.index) if device.type == "cuda" else "CPU, plain versions, host clock"
     print(f"{where}; t={t}, {n} rows over {len(hay)} bytes, {sweeps} sweeps per sample")
     tiles = n * len(hay) / 1024
     for v in variants:

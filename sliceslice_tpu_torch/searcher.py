@@ -14,7 +14,9 @@ searcher objects, src/x86.rs:266-526):
 
 Haystacks may be bytes-like or a preprocessed
 :class:`~sliceslice_tpu_torch.ops.layout.DeviceHaystack`, which carries its
-device.  A bytes-like haystack is laid out on the searcher's ``device``.
+device.  A bytes-like haystack is laid out on the searcher's ``device``:
+the card unless the caller passes ``device="cpu"`` (``resolve_device``
+raises on a host without one).
 """
 
 from __future__ import annotations
@@ -27,19 +29,10 @@ import torch
 from .config import SENTINEL
 from .needle import Needle, NeedleLike, needed_halo, probe_program
 from .ops import scan_kernel, torch_backend
-from .ops.layout import SHORT_HAY_BYTES, DeviceHaystack, preprocess
+from .ops.layout import SHORT_HAY_BYTES, DeviceHaystack, preprocess, resolve_device
 
 HaystackLike = Union[bytes, bytearray, memoryview, np.ndarray, str, DeviceHaystack]
 DeviceLike = Union[str, torch.device]
-
-
-def resolve_device(device: DeviceLike) -> torch.device:
-    """``device`` as a torch.device with its index: ``"cuda"`` names the
-    current CUDA device, so it compares equal to a tensor's device."""
-    d = torch.device(device)
-    if d.type == "cuda" and d.index is None:
-        d = torch.device("cuda", torch.cuda.current_device())
-    return d
 
 
 def overlapping_count(data: bytes, needle: bytes) -> int:
@@ -87,13 +80,13 @@ class SearcherBase:
         needle: NeedleLike,
         position: Optional[int] = None,
         *,
-        device: DeviceLike = "cpu",
+        device: DeviceLike = "cuda",
     ):
         self.needle = Needle(needle, position)
         self.device = resolve_device(device)
 
     @classmethod
-    def with_position(cls, needle: NeedleLike, position: int, *, device: DeviceLike = "cpu"):
+    def with_position(cls, needle: NeedleLike, position: int, *, device: DeviceLike = "cuda"):
         """Reference ``with_position`` (src/x86.rs:296-316)."""
         return cls(needle, position, device=device)
 

@@ -22,6 +22,17 @@ import torch
 #: set below that limit runs slower under load: report :func:`card` beside
 #: any share of this roofline.
 HBM_ROOFLINE = {"h100": 3.35e12}
+#: Peak 32-bit integer operations per second of one H100 SXM: 132 SMs x 64
+#: INT32 lanes x 1.98 GHz (NVIDIA's data sheet and Hopper white paper).
+INT32_PEAK = {"h100": 132 * 64 * 1.98e9}
+
+
+def bound_ms(ops: float, nbytes: float, card: str = "h100") -> tuple:
+    """(ms, "operations" or "bytes"): the least time the card could take
+    for ``ops`` 32-bit integer operations and ``nbytes`` bytes moved, the
+    larger of the two times, and which of them sets it."""
+    t_ops, t_bytes = ops / INT32_PEAK[card], nbytes / HBM_ROOFLINE[card]
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def card(index: int = 0) -> str:

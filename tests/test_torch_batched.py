@@ -11,6 +11,10 @@ import torch
 import sliceslice_tpu as jst
 from sliceslice_tpu_torch import BatchedSearcher, SENTINEL, interop, naive_find, preprocess
 
+#: The CPU tests run the kernels' plain versions: the port's entry points
+#: take the card unless asked for the CPU.
+CPU = "cpu"
+
 
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
@@ -38,7 +42,7 @@ def test_i386_sample_matches_jax(words, i386_small, rng):
         by_len[k][int(rng.integers(0, len(by_len[k])))] for k in sorted(by_len) for _ in range(2)
     ]
     ref = jst.BatchedSearcher(sample).find_all(jst.preprocess(i386_small, kh=24, force_cols=True))
-    got = BatchedSearcher(sample).find_all(preprocess(i386_small, kh=24, force_cols=True))
+    got = BatchedSearcher(sample, device=CPU).find_all(preprocess(i386_small, kh=24, force_cols=True, device=CPU))
     assert got.dtype == np.int64
     assert np.array_equal(got, ref)
     assert np.array_equal(got, oracle_all(i386_small, sample))
@@ -47,8 +51,8 @@ def test_i386_sample_matches_jax(words, i386_small, rng):
 def test_all_words_full_i386(words):
     """The port alone, all 4,585 words over the 857,425-byte corpus."""
     hay = open("data/i386.txt", "rb").read()
-    dh = preprocess(hay, kh=24)
-    bs = BatchedSearcher(words)
+    dh = preprocess(hay, kh=24, device=CPU)
+    bs = BatchedSearcher(words, device=CPU)
     assert {g.t: g.n for g in bs.groups} == {1: 1142, 2: 2206, 3: 1144, 4: 89, 5: 3, 6: 1}
     exp = np.array([hay.find(w) for w in words])
     assert np.array_equal(bs.find_all(dh), exp)
@@ -64,8 +68,8 @@ def test_optimize_for_device_path_exact_and_lazy_sync(rng):
     needles = [hay[i : i + k] for i, k in
                [(5, 4), (77, 7), (9_000, 12), (150_000, 5), (44, 16), (199_990, 9)]]
     needles += [b"NOPE!", b"zz", b"", hay[199_999:]]
-    dh = preprocess(hay, force_cols=True)
-    bs = BatchedSearcher(needles)
+    dh = preprocess(hay, force_cols=True, device=CPU)
+    bs = BatchedSearcher(needles, device=CPU)
     base = bs.find_all(dh)
     assert np.array_equal(base, oracle_all(hay, needles))
     bs.optimize_for(dh)
@@ -87,13 +91,13 @@ def test_optimize_for_device_path_exact_and_lazy_sync(rng):
 def test_optimize_for_host_and_flat_paths(rng):
     hay = bytes(rng.integers(97, 101, (3000,), dtype=np.uint8))
     needles = [hay[i : i + k] for i, k in [(2000, 5), (10, 4), (2990, 8), (7, 1)]] + [b"QQQQ"]
-    bs = BatchedSearcher(needles)
+    bs = BatchedSearcher(needles, device=CPU)
     exp = oracle_all(hay, needles)
     assert np.array_equal(bs.find_all(hay), exp)
     bs.optimize_for(hay)  # flat layout: measured on the host path
     assert all(g._host_perm_pending is None for g in bs.groups)
     assert np.array_equal(bs.find_all(hay), exp)
-    assert np.array_equal(bs.find_all(preprocess(hay, force_cols=True)), exp)
+    assert np.array_equal(bs.find_all(preprocess(hay, force_cols=True, device=CPU)), exp)
 
 
 def test_same_schedule_as_jax_and_interop_tables(rng):
@@ -110,15 +114,15 @@ def test_same_schedule_as_jax_and_interop_tables(rng):
     jbs.optimize_for(jdh)
     for g in jbs.groups:
         g.sync_host()
-    dh = interop.haystack(jdh.host_bytes, jdh.length, jdh.kh, jdh.tiled)
+    dh = interop.haystack(jdh.host_bytes, jdh.length, jdh.kh, jdh.tiled, device=CPU)
     carried = interop.batched_searcher(
-        needles, [(g.values_host, g.masks_host, g.lengths, g.indices) for g in jbs.groups]
+        needles, [(g.values_host, g.masks_host, g.lengths, g.indices) for g in jbs.groups], device=CPU
     )
     assert np.array_equal(carried.find_all(dh), ref)
     assert np.array_equal(ref, oracle_all(hay, needles))
     assert np.array_equal(jbs.find_all(jdh), ref)
 
-    bs = BatchedSearcher(needles)
+    bs = BatchedSearcher(needles, device=CPU)
     bs.optimize_for(dh)
     for g, jg in zip(bs.groups, jbs.groups):
         g.sync_host()
@@ -127,14 +131,14 @@ def test_same_schedule_as_jax_and_interop_tables(rng):
         assert g.values_dev.shape == (jg.n_pad, jg.t)
     with pytest.raises(ValueError, match="cover every needle"):
         interop.batched_searcher(needles, [(g.values_host, g.masks_host, g.lengths, g.indices)
-                                           for g in jbs.groups[1:]])
+                                           for g in jbs.groups[1:]], device=CPU)
 
 
 def test_mixed_lengths_flat(rng):
     hay = bytes(rng.integers(97, 105, (2000,), dtype=np.uint8))
     needles = [b"", b"a", hay[100:101], hay[5:12], hay[1990:2000], hay[0:4],
                b"zzzz", hay[777:800], b"q" * 50, hay[3:3]]
-    bs = BatchedSearcher(needles)
+    bs = BatchedSearcher(needles, device=CPU)
     got = bs.find_all(hay)
     assert np.array_equal(got, oracle_all(hay, needles))
     assert np.array_equal(got, jst.BatchedSearcher(needles).find_all(hay))
@@ -143,11 +147,11 @@ def test_mixed_lengths_flat(rng):
 
 def test_mixed_lengths_cols_and_wide_buckets(rng):
     hay = bytes(rng.integers(97, 103, (30_000,), dtype=np.uint8))
-    dh = preprocess(hay, kh=32, force_cols=True)
+    dh = preprocess(hay, kh=32, force_cols=True, device=CPU)
     needles = [hay[i : i + k] for k in (1, 2, 3, 5, 8, 13, 21, 30, 33, 64, 65, 200)
                for i in (0, 7777, 29_000 - k)]
     needles += [b"nomatch!", b"zz", hay[-6:], hay[-200:]]
-    bs = BatchedSearcher(needles)
+    bs = BatchedSearcher(needles, device=CPU)
     assert sorted(g.t for g in bs.groups) == [1, 2, 4, 6, 8, 16, 32, 64]
     assert np.array_equal(bs.find_all(dh), oracle_all(hay, needles))
 
@@ -155,27 +159,27 @@ def test_mixed_lengths_cols_and_wide_buckets(rng):
 def test_group_order_and_short_haystacks(rng):
     hay = bytes(rng.integers(97, 100, (3000,), dtype=np.uint8))
     needles = [hay[i : i + k] for i, k in [(5, 9), (0, 1), (100, 4), (7, 17), (50, 2)]]
-    assert np.array_equal(BatchedSearcher(needles).find_all(hay), oracle_all(hay, needles))
+    assert np.array_equal(BatchedSearcher(needles, device=CPU).find_all(hay), oracle_all(hay, needles))
     short = hay[:64]
-    got = BatchedSearcher([short + b"x", short, short[:5]]).find_all(short)
+    got = BatchedSearcher([short + b"x", short, short[:5]], device=CPU).find_all(short)
     assert got[0] == -1 and got[1] == 0
-    assert BatchedSearcher([]).find_all(b"anything").shape == (0,)
+    assert BatchedSearcher([], device=CPU).find_all(b"anything").shape == (0,)
 
 
 def test_batched_contracts(rng):
-    BatchedSearcher([b"abc", b"de"], position=1)
+    BatchedSearcher([b"abc", b"de"], position=1, device=CPU)
     with pytest.raises(ValueError, match="position"):
-        BatchedSearcher([b"abc", b"de"], position=2)
+        BatchedSearcher([b"abc", b"de"], position=2, device=CPU)
     with pytest.raises(ValueError, match="position"):
-        BatchedSearcher([b"abc"], position=-1)
+        BatchedSearcher([b"abc"], position=-1, device=CPU)
     with pytest.raises(NotImplementedError, match="queue 1, item 12"):
-        BatchedSearcher([b"a", b"x" * 2049])
+        BatchedSearcher([b"a", b"x" * 2049], device=CPU)
     meta = BatchedSearcher([b"abc"], device="meta")
     with pytest.raises(ValueError, match="lives on cpu"):
-        meta.find_all(preprocess(b"abc" * 4000))
+        meta.find_all(preprocess(b"abc" * 4000, device=CPU))
 
 
 def test_absent_rows_report_sentinel_on_device(rng):
     hay = bytes(rng.integers(97, 99, (20_000,), dtype=np.uint8))
-    dev = BatchedSearcher([b"zz", hay[:3]]).find_all_device(preprocess(hay))
+    dev = BatchedSearcher([b"zz", hay[:3]], device=CPU).find_all_device(preprocess(hay, device=CPU))
     assert dev.tolist() == [SENTINEL, 0]

@@ -28,6 +28,10 @@ from sliceslice_tpu_torch import (
 )
 from sliceslice_tpu_torch.needle import build_probe_table, needed_halo_for_t
 
+#: The CPU tests run the kernels' plain versions: the port's entry points
+#: take the card unless asked for the CPU.
+CPU = "cpu"
+
 
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
@@ -75,7 +79,7 @@ def test_plain_count_matches_jax(t, rng):
     hay = _corpus(rng)
     kh = needed_halo_for_t(t)
     jdh = jl.preprocess(hay, kh=kh, force_cols=True)
-    tdh = tl.preprocess(hay, kh=kh, force_cols=True)
+    tdh = tl.preprocess(hay, kh=kh, force_cols=True, device=CPU)
     needles, values, masks, ends = _table(hay, rng, t)
     n = values.shape[0]
     counts = [overlapping_count(hay, nd) for nd in needles] + [0] * (n - len(needles))
@@ -100,7 +104,7 @@ def test_zero_tail_needles_need_exact_ends(rng):
     needles = [hay[-3:] + b"\0", hay[-2:] + b"\0\0", b"\0"]
     values, masks, lengths = build_probe_table(needles, t_max=1)
     jdh = jl.preprocess(hay, kh=16, force_cols=True)
-    tdh = tl.preprocess(hay, kh=16, force_cols=True)
+    tdh = tl.preprocess(hay, kh=16, force_cols=True, device=CPU)
     right = (len(hay) - lengths + 1).astype(np.int32)
     for ends, exp in ((right, [0, 0, 0]), (right + 3, [1, 1, 3])):
         ref = np.asarray(jsk.batched_count_cols(None, values, masks, ends, s=jdh.s, pw=jdh.windows()))
@@ -118,7 +122,7 @@ def test_count_ends_clamped_and_chunk_boundaries(rng):
         hay[p : p + len(nd)] = nd
     hay = bytes(hay)
     jdh = jl.preprocess(hay, force_cols=True, seg_rows=64)
-    tdh = tl.preprocess(hay, force_cols=True)
+    tdh = tl.preprocess(hay, force_cols=True, device=CPU)
     values, masks, lengths = build_probe_table([nd, nd, b"bca"])
     for end in (len(hay) - len(nd) + 1, jdh.seg_bytes, 65_536, 65_537, 4097, 5, 0):
         ends = np.minimum(np.maximum(len(hay) - lengths + 1, 0), end).astype(np.int32)
@@ -131,7 +135,7 @@ def test_count_ends_clamped_and_chunk_boundaries(rng):
 
 def test_cpu_count_takes_plain_and_counts_no_launch(rng):
     hay = _corpus(rng)
-    dh = tl.preprocess(hay, kh=16, force_cols=True)
+    dh = tl.preprocess(hay, kh=16, force_cols=True, device=CPU)
     values, masks, lengths = build_probe_table([hay[50:53], hay[9000:9008]])
     ends = (len(hay) - lengths + 1).astype(np.int32)
     before = tsk.batched_count.launches
@@ -170,8 +174,8 @@ def test_count_in_matches_jax(rng, k):
     nd = bytes(hay[137 : 137 + k])
     exp = oracle_count(hay, nd)
     ref = jst.DynamicSearcher(nd).count_in(jst.preprocess(hay, force_cols=True))
-    s = DynamicSearcher(nd)
-    assert s.count_in(preprocess(hay, force_cols=True)) == ref == exp
+    s = DynamicSearcher(nd, device=CPU)
+    assert s.count_in(preprocess(hay, force_cols=True, device=CPU)) == ref == exp
     assert s.count_in(hay) == exp  # host bytes over the kernel layout
     # host-bytes path (small haystack -> host rung)
     assert s.count_in(hay[:3000]) == oracle_count(hay[:3000], nd)
@@ -180,39 +184,39 @@ def test_count_in_matches_jax(rng, k):
 def test_count_periodic_overlaps():
     hay = b"ab" * 20_000 + b"c"
     jdh = jst.preprocess(hay, force_cols=True)
-    dh = preprocess(hay, force_cols=True)
+    dh = preprocess(hay, force_cols=True, device=CPU)
     for nd in (b"ab", b"aba", b"abab", b"ababab", b"b", b"bc"):
         exp = oracle_count(hay, nd)
-        assert DynamicSearcher(nd).count_in(dh) == exp, nd
-    assert DynamicSearcher(b"abab").count_in(dh) == jst.DynamicSearcher(b"abab").count_in(jdh)
+        assert DynamicSearcher(nd, device=CPU).count_in(dh) == exp, nd
+    assert DynamicSearcher(b"abab", device=CPU).count_in(dh) == jst.DynamicSearcher(b"abab").count_in(jdh)
     run = b"a" * 30_000
-    assert DynamicSearcher(b"aaaa").count_in(preprocess(run)) == len(run) - 3
-    assert BatchedSearcher([b"a", b"aa", b"aaaa" * 3]).count_all(run).tolist() == [
+    assert DynamicSearcher(b"aaaa", device=CPU).count_in(preprocess(run, device=CPU)) == len(run) - 3
+    assert BatchedSearcher([b"a", b"aa", b"aaaa" * 3], device=CPU).count_all(run).tolist() == [
         len(run), len(run) - 1, len(run) - 11]
 
 
 def test_count_trivial_and_empty():
-    assert DynamicSearcher(b"").count_in(b"abc") == 4
-    assert DynamicSearcher(b"abc").count_in(b"abc") == 1
-    assert DynamicSearcher(b"abcd").count_in(b"abc") == 0
-    assert DynamicSearcher(b"").count_in(preprocess(b"xyz")) == 4
-    assert CudaSearcher(b"abc").count_in(preprocess(b"abc")) == 1
-    assert CudaSearcher(b"abcd").count_in(preprocess(b"abc", keep_host=True)) == 0
-    assert DynamicSearcher(b"").count_in(preprocess(b"x" * 20_000)) == 20_001
+    assert DynamicSearcher(b"", device=CPU).count_in(b"abc") == 4
+    assert DynamicSearcher(b"abc", device=CPU).count_in(b"abc") == 1
+    assert DynamicSearcher(b"abcd", device=CPU).count_in(b"abc") == 0
+    assert DynamicSearcher(b"", device=CPU).count_in(preprocess(b"xyz", device=CPU)) == 4
+    assert CudaSearcher(b"abc", device=CPU).count_in(preprocess(b"abc", device=CPU)) == 1
+    assert CudaSearcher(b"abcd", device=CPU).count_in(preprocess(b"abc", keep_host=True, device=CPU)) == 0
+    assert DynamicSearcher(b"", device=CPU).count_in(preprocess(b"x" * 20_000, device=CPU)) == 20_001
 
 
 def test_count_searchers_agree(rng):
     """The count kernel's searchers, the host-counting TorchSearcher and a
     batch over one layout (the mirror of test_count_in_pallas_vs_batched)."""
     hay = bytes(rng.integers(97, 100, (60_000,), dtype=np.uint8))
-    dh = preprocess(hay, force_cols=True)
+    dh = preprocess(hay, force_cols=True, device=CPU)
     nds = [hay[11:16], hay[100:103], b"aab", hay[-40:]]
-    batched = BatchedSearcher(nds).count_all(dh)
+    batched = BatchedSearcher(nds, device=CPU).count_all(dh)
     for nd, c in zip(nds, batched):
-        assert CudaSearcher(nd).count_in(dh) == TorchSearcher(nd).count_in(dh) == c == oracle_count(hay, nd)
-    assert MemchrSearcher(b"c").count_in(dh) == hay.count(b"c")
+        assert CudaSearcher(nd, device=CPU).count_in(dh) == TorchSearcher(nd, device=CPU).count_in(dh) == c == oracle_count(hay, nd)
+    assert MemchrSearcher(b"c", device=CPU).count_in(dh) == hay.count(b"c")
     before = tsk.batched_count.launches
-    assert MemchrSearcher(b"b").count_in(hay) == hay.count(b"b")
+    assert MemchrSearcher(b"b", device=CPU).count_in(hay) == hay.count(b"b")
     assert tsk.batched_count.launches == before  # CPU: the plain version
 
 
@@ -221,8 +225,8 @@ def test_count_all_words_matches_jax(words, i386_small, rng):
     needles = [words[int(i)] for i in idx] + [b"", b"e", i386_small[500:504], i386_small[-20:]]
     exp = np.array([oracle_count(i386_small, nd) for nd in needles], dtype=np.int64)
     ref = jst.BatchedSearcher(needles).count_all(jst.preprocess(i386_small, kh=24, force_cols=True))
-    dh = preprocess(i386_small, kh=24, force_cols=True)
-    bs = BatchedSearcher(needles)
+    dh = preprocess(i386_small, kh=24, force_cols=True, device=CPU)
+    bs = BatchedSearcher(needles, device=CPU)
     got = bs.count_all(dh)
     assert got.dtype == np.int64
     assert np.array_equal(got, ref) and np.array_equal(got, exp)
@@ -238,20 +242,20 @@ def test_count_all_flat_rung_and_errors(rng):
     hay = bytes(rng.integers(97, 101, (3000,), dtype=np.uint8))
     needles = [b"ab", b"", hay[5:9], b"zz"]
     exp = [oracle_count(hay, nd) for nd in needles]
-    bs = BatchedSearcher(needles)
+    bs = BatchedSearcher(needles, device=CPU)
     assert bs.count_all(hay).tolist() == exp  # flat layout: host count
     assert bs.count_all(hay).tolist() == jst.BatchedSearcher(needles).count_all(hay).tolist()
-    assert bs.count_all(preprocess(hay, force_cols=True)).tolist() == exp
+    assert bs.count_all(preprocess(hay, force_cols=True, device=CPU)).tolist() == exp
     with pytest.raises(ValueError, match="tiled layout"):
         bs.count_all_device(hay)
-    bare = preprocess(hay, keep_host=False)
+    bare = preprocess(hay, keep_host=False, device=CPU)
     with pytest.raises(ValueError, match="requires host bytes"):
         bs.count_all(bare)
     with pytest.raises(ValueError, match="requires host bytes"):
-        DynamicSearcher(b"ab").count_in(bare)
+        DynamicSearcher(b"ab", device=CPU).count_in(bare)
     with pytest.raises(ValueError, match="requires host bytes"):
-        CudaSearcher(b"abcd").count_in(preprocess(b"abc", keep_host=False))
-    assert BatchedSearcher([]).count_all(preprocess(hay, force_cols=True)).shape == (0,)
+        CudaSearcher(b"abcd", device=CPU).count_in(preprocess(b"abc", keep_host=False, device=CPU))
+    assert BatchedSearcher([], device=CPU).count_all(preprocess(hay, force_cols=True, device=CPU)).shape == (0,)
 
 
 def test_kernel_layout_relays_the_flat_rung_on_its_device(rng):
@@ -259,17 +263,17 @@ def test_kernel_layout_relays_the_flat_rung_on_its_device(rng):
     kernel layout built from the device bytes alone, cached, and counted
     with no host bytes by every searcher."""
     hay = bytes(rng.integers(97, 101, (3000,), dtype=np.uint8))
-    flat = preprocess(hay, keep_host=False)
+    flat = preprocess(hay, keep_host=False, device=CPU)
     assert not flat.tiled
     kl = flat.kernel_layout(40)
     assert kl.tiled and kl.kh >= 40 and kl.device == flat.device and kl.host_bytes is None
-    assert torch.equal(kl.flat, preprocess(hay, kh=40, force_cols=True).flat)
+    assert torch.equal(kl.flat, preprocess(hay, kh=40, force_cols=True, device=CPU).flat)
     assert flat.kernel_layout(16) is kl and kl.kernel_layout(16) is kl
     needles = [b"ab", hay[5:9], b"zz", hay[-7:], hay[-2:] + b"\0", hay[100:140]]
     exp = [oracle_count(hay, nd) for nd in needles]
-    assert BatchedSearcher(needles).count_all(kl).tolist() == exp
+    assert BatchedSearcher(needles, device=CPU).count_all(kl).tolist() == exp
     for nd, c in zip(needles, exp):
-        assert DynamicSearcher(nd).count_in(kl) == TorchSearcher(nd).count_in(kl) == c
+        assert DynamicSearcher(nd, device=CPU).count_in(kl) == TorchSearcher(nd, device=CPU).count_in(kl) == c
 
 
 def test_count_all_on_tables_carried_from_jax(rng):
@@ -283,9 +287,9 @@ def test_count_all_on_tables_carried_from_jax(rng):
     ref = jbs.count_all(jdh)
     for g in jbs.groups:
         g.sync_host()
-    dh = interop.haystack(jdh.host_bytes, jdh.length, jdh.kh, jdh.tiled)
+    dh = interop.haystack(jdh.host_bytes, jdh.length, jdh.kh, jdh.tiled, device=CPU)
     carried = interop.batched_searcher(
-        needles, [(g.values_host, g.masks_host, g.lengths, g.indices) for g in jbs.groups]
+        needles, [(g.values_host, g.masks_host, g.lengths, g.indices) for g in jbs.groups], device=CPU
     )
     assert np.array_equal(carried.count_all(dh), ref)
     assert ref.tolist() == [oracle_count(hay, nd) for nd in needles]

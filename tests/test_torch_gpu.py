@@ -77,6 +77,93 @@ def test_find_kernel_equals_plain(cuda, t):
         assert got.cpu().tolist() == exp
 
 
+def _queue_cases(hay: bytes, t: int):
+    """Needles of a width-t table whose answers the work queue makes hard:
+    the only match in the last chunk, an absent needle, a match ending at
+    the corpus's last byte, one ending in zero bytes (it also matches in
+    the zero halo, which the ends must cut), and all-zero needles."""
+    k = 4 * t
+    tail = hay[-k:]
+    return [tail, bytes([1]) * k, hay[-k - 5 : -5], hay[len(hay) - k + 1 :] + b"\0", b"\0" * k,
+            hay[: k]]
+
+
+def _check_queue_kernels(cuda, hay, dh, needles, t, ends, base=0, n_real=None):
+    """Find and count kernels against their plain versions and the host
+    oracles on one table; two launches give the same answers."""
+    vals, msks, lens = build_probe_table(needles, t_max=t)
+    v, m = table_bits(vals, cuda), table_bits(msks, cuda)
+    e = torch.from_numpy(np.asarray(ends, np.int64).astype(np.int32)).to(cuda)
+    got = scan_kernel.batched_find(dh.flat, v, m, e, base=base, n_real=n_real)
+    assert torch.equal(got, scan_kernel.batched_find(dh.flat, v, m, e, base=base, n_real=n_real))
+    assert torch.equal(got, scan_kernel.batched_find_plain(dh.flat, v, m, e, base=base, n_real=n_real))
+    cnt = scan_kernel.batched_count(dh.flat, v, m, e, base=base, n_real=n_real)
+    assert torch.equal(cnt, scan_kernel.batched_count(dh.flat, v, m, e, base=base, n_real=n_real))
+    assert torch.equal(cnt, scan_kernel.batched_count_plain(dh.flat, v, m, e, base=base, n_real=n_real))
+    return got.cpu().tolist(), cnt.cpu().tolist()
+
+
+@pytest.mark.parametrize("t", [1, 2, 3, 4, 5, 8, 16, 32, 512])
+def test_queue_kernels_hard_cases(cuda, t):
+    """The chunk-major queue's hard cases at every width: a match only in
+    the last chunk, absent rows, one-row launches, ends inside a
+    16-position group and ends at the buffer's last words (all-zero needles
+    match through the zero halo up to the last position whose windows fit),
+    base > 0 and n_real < n."""
+    hay = _hay(50 + t, 3 * scan_kernel.COUNT_CHUNK + 1000)
+    dh = preprocess(hay, kh=needed_halo_for_t(t), device=cuda)
+    needles = _queue_cases(hay, t)
+    lens = np.array([len(nd) for nd in needles])
+    right = len(hay) - lens + 1
+    got, cnt = _check_queue_kernels(cuda, hay, dh, needles, t, right)
+    assert got == [hay.find(nd) if hay.find(nd) >= 0 else SENTINEL for nd in needles]
+    assert cnt == [overlapping_count(hay, nd) for nd in needles]
+    n_pos = scan_kernel.position_limit(dh.flat.numel(), t)
+    for ends in (right - 7, right + 5, np.full(len(needles), n_pos - 3), np.full(len(needles), 1 << 30)):
+        _check_queue_kernels(cuda, hay, dh, needles, t, ends)
+    for base, n_real in ((4096, len(needles) - 2), (1 << 20, 1)):
+        _check_queue_kernels(cuda, hay, dh, needles, t, np.where(right > 0, right + base, 0), base, n_real)
+    for nd in needles:  # one-row launches
+        f, c = _check_queue_kernels(cuda, hay, dh, [nd], t, [len(hay) - len(nd) + 1])
+        assert f == [hay.find(nd) if hay.find(nd) >= 0 else SENTINEL] and c == [overlapping_count(hay, nd)]
+
+
+@pytest.mark.parametrize("t", [1, 2, 3, 4])
+def test_register_tables_equal_shared_tables(cuda, t):
+    """The registers-table instantiations (t <= 4) against the
+    shared-memory one on the same rows: a width-t table padded with a
+    mask-0 fifth slot describes the same needles and takes T = 0."""
+    hay = _hay(60 + t, 200_000)
+    dh = preprocess(hay, kh=needed_halo_for_t(5), device=cuda)
+    rng = np.random.default_rng(t)
+    needles = [hay[s : s + k] for k in range(4 * t - 3, 4 * t + 1)
+               for s in rng.integers(0, len(hay) - k, 8)] + _queue_cases(hay, t)
+    vals, msks, lens = build_probe_table(needles, t_max=t)
+    ends = torch.from_numpy((len(hay) - lens + 1).astype(np.int32)).to(cuda)
+    pad = ((0, 0), (0, 5 - t))
+    v, m = table_bits(vals, cuda), table_bits(msks, cuda)
+    v5, m5 = table_bits(np.pad(vals, pad), cuda), table_bits(np.pad(msks, pad), cuda)
+    assert torch.equal(scan_kernel.batched_find(dh.flat, v, m, ends), scan_kernel.batched_find(dh.flat, v5, m5, ends))
+    assert torch.equal(scan_kernel.batched_count(dh.flat, v, m, ends),
+                       scan_kernel.batched_count(dh.flat, v5, m5, ends))
+    assert scan_kernel.batched_count(dh.flat, v, m, ends).cpu().tolist() == [overlapping_count(hay, nd) for nd in needles]
+
+
+def test_one_row_spreads_over_a_large_corpus(cuda):
+    """One row over 64 MiB: absent (every chunk scanned), present only in
+    the last chunk, and counted; the queue gives the row many more chunks
+    than the span plan's 13 blocks."""
+    n = 64 << 20
+    arr = np.random.default_rng(8).integers(0, 200, n, dtype=np.uint8)
+    arr[n - 20 : n - 12] = np.frombuffer(b"\xf0\xf1\xf2\xf3\xf4\xf5\xf6\xf7", np.uint8)
+    hay = arr.tobytes()
+    dh = preprocess(arr, kh=64, device=cuda)
+    assert scan_kernel.plan_queue(dh.flat.numel(), 2, 1, 1 << 20, scan_kernel.COUNT_CHUNK).n_chunks > 13
+    for nd in (b"\xf0\xf1\xf2\xf3\xf4\xf5\xf6\xf7", b"\xff\xfe\xfd", b"\xf7"):
+        f, c = _check_queue_kernels(cuda, hay, dh, [nd], max(1, -(-len(nd) // 4)), [n - len(nd) + 1])
+        assert f == [hay.find(nd) if hay.find(nd) >= 0 else SENTINEL] and c == [overlapping_count(hay, nd)]
+
+
 def test_memchr_kernel_equals_plain(cuda):
     hay = _hay(3, 5_000_000)
     dh = preprocess(hay, device=cuda)

@@ -30,6 +30,10 @@ from sliceslice_tpu_torch.config import SENTINEL
 from sliceslice_tpu_torch.needle import needed_halo_for_t
 from sliceslice_tpu_torch.scripts import kernel_probe as kp
 
+#: The CPU tests run the kernels' plain versions: the port's entry points
+#: take the card unless asked for the CPU.
+CPU = "cpu"
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -126,7 +130,7 @@ def _plant(hay, values, masks, rows_offsets):
 @pytest.mark.parametrize("t", [1, 2, 3, 5])
 def test_plain_variants_equal_their_columns(rng, t):
     hay = _corpus(rng)
-    dh = preprocess(hay, kh=needed_halo_for_t(t))
+    dh = preprocess(hay, kh=needed_halo_for_t(t), device=CPU)
     values, masks = kp.make_tables(hay, t, n=40)
     plants = _plant(hay, values, masks, [(1, 3), (6, 1000), (9, 29_000), (14, 17_000), (23, len(hay) - 4 * t)])
     ends = kp.table_ends(masks, len(hay))
@@ -169,7 +173,7 @@ def test_plain_variants_equal_their_columns(rng, t):
 
 def test_probe_refuses_what_it_has_no_kernel_for(rng):
     hay = _corpus(rng)
-    dh = preprocess(hay, kh=32)
+    dh = preprocess(hay, kh=32, device=CPU)
     values, masks = kp.make_tables(hay, 2, n=8)
     ends = kp.table_ends(masks, len(hay))
     with pytest.raises(ValueError, match="unknown probe variant"):
@@ -232,7 +236,7 @@ def test_plain_variants_match_the_jax_build(interpret, i386, t):
         if v in out:
             assert _decode_first(out[v], jdh.s) == ref, v
 
-    dh = preprocess(hay, kh=needed_halo_for_t(t))
+    dh = preprocess(hay, kh=needed_halo_for_t(t), device=CPU)
     ends = kp.table_ends(masks, len(hay))
     first = kp.probe_plain("first", dh.flat, values, masks, ends)
     assert [f if f < SENTINEL else -1 for f in first.tolist()] == ref
@@ -246,13 +250,13 @@ def test_plain_variants_match_the_jax_build(interpret, i386, t):
 
 
 def test_main_runs_on_the_cpu(capsys):
-    assert kp.main(["t=2", "n=8", "k=1", "count", "empty", "wide"]) == 0
+    assert kp.main(["t=2", "n=8", "k=1", "device=cpu", "count", "empty", "wide"]) == 0
     lines = capsys.readouterr().out.splitlines()
     assert lines[0].startswith("CPU, plain versions")
     assert [ln.split(":")[0].strip() for ln in lines[1:]] == ["count", "empty", "wide"]
     assert all("ms/sweep" in ln and "ns/(row, 1024 pos)" in ln for ln in lines[1:])
     with pytest.raises(ValueError, match="regtab"):
-        kp.main(["t=5", "regtab"])
+        kp.main(["t=5", "device=cpu", "regtab"])
 
 
 def test_table_helpers():

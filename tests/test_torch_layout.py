@@ -11,12 +11,16 @@ from sliceslice_tpu_torch import interop
 from sliceslice_tpu_torch.needle import needed_halo_for_t
 from sliceslice_tpu_torch.ops.scan_math import position_limit
 
+#: The CPU tests run the kernels' plain versions: the port's entry points
+#: take the card unless asked for the CPU.
+CPU = "cpu"
+
 
 @pytest.mark.parametrize("force_cols", [False, True])
 @pytest.mark.parametrize("length", [0, 1, 127, 128, 4096, 8192, 8193, 10_000, 50_000])
 def test_padding_and_halo(length, force_cols, rng):
     data = bytes(rng.integers(0, 256, (length,), dtype=np.uint8))
-    dh = tl.preprocess(data, kh=40, force_cols=force_cols)
+    dh = tl.preprocess(data, kh=40, force_cols=force_cols, device=CPU)
     ref = jl.preprocess(data, kh=40, force_cols=force_cols)
     assert dh.tiled == ref.tiled and dh.kh == ref.kh == 64 and dh.length == length
     flat = dh.flat.numpy()
@@ -34,9 +38,9 @@ def test_padding_and_halo(length, force_cols, rng):
 
 
 def test_flat_rung_boundary():
-    assert not tl.preprocess(b"a" * tl.SHORT_HAY_BYTES).tiled
-    assert tl.preprocess(b"a" * (tl.SHORT_HAY_BYTES + 1)).tiled
-    assert tl.preprocess(b"a" * 10, force_cols=True).tiled
+    assert not tl.preprocess(b"a" * tl.SHORT_HAY_BYTES, device=CPU).tiled
+    assert tl.preprocess(b"a" * (tl.SHORT_HAY_BYTES + 1), device=CPU).tiled
+    assert tl.preprocess(b"a" * 10, force_cols=True, device=CPU).tiled
     assert tl.SHORT_HAY_BYTES == jl.SHORT_HAY_BYTES == 8192
 
 
@@ -46,7 +50,7 @@ def test_position_bound_refused():
     assert tl.MAX_DEVICE_POSITIONS == jl.MAX_DEVICE_POSITIONS
     huge = np.broadcast_to(np.zeros(1, np.uint8), (tl.MAX_DEVICE_POSITIONS - 64,))
     with pytest.raises(ValueError, match="int32 position range"):
-        tl.preprocess(huge)
+        tl.preprocess(huge, device=CPU)
     ok = tl.padded_total(tl.MAX_DEVICE_POSITIONS - 4096, 64)
     assert ok <= tl.MAX_DEVICE_POSITIONS
 
@@ -64,16 +68,16 @@ def test_input_errors_identical(mod):
 def test_prepadded_ndarray_length(rng):
     buf = np.zeros(20_000, np.uint8)
     buf[:9000] = rng.integers(1, 256, 9000, dtype=np.uint8)
-    dh = tl.preprocess(buf, length=9000, kh=16)
+    dh = tl.preprocess(buf, length=9000, kh=16, device=CPU)
     assert dh.length == 9000 and dh.tiled
     assert dh.host_bytes == buf[:9000].tobytes()
     assert dh.flat.numpy()[:9000].tobytes() == dh.host_bytes
-    assert tl.preprocess(buf, keep_host=False).host_bytes is None
+    assert tl.preprocess(buf, keep_host=False, device=CPU).host_bytes is None
 
 
 def test_ensure_halo_rebuild_and_cache(rng):
     data = bytes(rng.integers(0, 256, (20_000,), dtype=np.uint8))
-    dh = tl.preprocess(data, kh=8, force_cols=True)
+    dh = tl.preprocess(data, kh=8, force_cols=True, device=CPU)
     assert dh.kh == 32  # rounded up, as in the JAX package
     dh2 = dh.ensure_halo(64)
     assert dh2.kh >= 64 and dh2.length == dh.length and dh2.tiled
@@ -81,16 +85,16 @@ def test_ensure_halo_rebuild_and_cache(rng):
     assert dh.ensure_halo(16) is dh
     assert dh.ensure_kh(125) is dh.ensure_halo(tl.round_up(127, 32))
     assert dh2.flat.numpy().tobytes()[:20_000] == data
-    no_host = tl.preprocess(data, kh=8, keep_host=False, force_cols=True)
+    no_host = tl.preprocess(data, kh=8, keep_host=False, force_cols=True, device=CPU)
     with pytest.raises(ValueError, match="no host bytes"):
         no_host.ensure_halo(64)
-    flat = tl.preprocess(data[:300])
+    flat = tl.preprocess(data[:300], device=CPU)
     assert flat.ensure_halo(512) is flat  # the flat rung needs no halo
 
 
 def test_supports_needle_len(rng):
     data = bytes(rng.integers(0, 256, (20_000,), dtype=np.uint8))
-    dh = tl.preprocess(data, kh=32, force_cols=True)
+    dh = tl.preprocess(data, kh=32, force_cols=True, device=CPU)
     ref = jl.preprocess(data, kh=32, force_cols=True)
     for k in (1, 4, 32, 33, 64, 65):
         assert dh.supports_needle_len(k) == ref.supports_needle_len(k)
@@ -100,7 +104,7 @@ def test_supports_needle_len(rng):
 def test_interop_haystack_from_jax_state(length, rng):
     data = bytes(rng.integers(0, 256, (length,), dtype=np.uint8))
     ref = jl.preprocess(data, kh=48, force_cols=length > 1000)
-    dh = interop.haystack(ref.host_bytes, ref.length, ref.kh, ref.tiled)
+    dh = interop.haystack(ref.host_bytes, ref.length, ref.kh, ref.tiled, device=CPU)
     assert (dh.length, dh.kh, dh.tiled) == (ref.length, ref.kh, ref.tiled)
     assert dh.host_bytes == data
     assert dh.flat.numpy().tobytes()[:length] == data

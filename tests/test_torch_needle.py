@@ -82,7 +82,7 @@ def test_port_imports_without_jax():
         "import sliceslice_tpu_torch as st\n"
         "from sliceslice_tpu_torch import interop\n"
         "from sliceslice_tpu_torch.utils import profiling, native\n"
-        "assert st.DynamicSearcher(b'ipsum').find(b'lorem ipsum dolor' * 600) == 6\n"
+        "assert st.DynamicSearcher(b'ipsum', device='cpu').find(b'lorem ipsum dolor' * 600) == 6\n"
         "assert 'sliceslice_tpu' not in sys.modules\n"
         "print('ok')\n"
     )

@@ -19,6 +19,10 @@ import sliceslice_tpu_torch.ops.pairwise as tpw
 from sliceslice_tpu_torch import PairwiseSearcher, interop, pairwise_contains_all
 from sliceslice_tpu_torch.ops.scan_math import table_bits
 
+#: The CPU tests run the kernels' plain versions: the port's entry points
+#: take the card unless asked for the CPU.
+CPU = "cpu"
+
 
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
@@ -53,7 +57,7 @@ def random_words(rng, count, max_len=12, alpha=(97, 101)):
 def test_pairwise_random_matches_jax(rng):
     ws = random_words(rng, 60)
     c_exp, f_exp = oracle_matrix(ws, ws)
-    ps = PairwiseSearcher(ws)
+    ps = PairwiseSearcher(ws, device=CPU)
     got_c, got_f = ps.contains_matrix(), ps.first_matrix()
     assert got_c.dtype == np.bool_ and got_f.dtype == np.int32
     assert (got_c == c_exp).all() and (got_f == f_exp).all()
@@ -64,7 +68,7 @@ def test_pairwise_distinct_haystacks_multi_block(rng):
     nd = random_words(rng, 25, max_len=6)
     hs = random_words(rng, 40, max_len=10)
     c_exp, f_exp = oracle_matrix(nd, hs)
-    ps = PairwiseSearcher(nd, block=16)  # multi-block tiling
+    ps = PairwiseSearcher(nd, block=16, device=CPU)  # multi-block tiling
     assert ps._plan(hs) == jpw.PairwiseSearcher(nd, block=16)._plan(hs)[0]
     assert (ps.contains_matrix(hs) == c_exp).all()
     assert (ps.first_matrix(hs) == f_exp).all()
@@ -74,18 +78,18 @@ def test_pairwise_words_sample(words, rng):
     idx = rng.integers(0, len(words), (80,))
     ws = sorted((words[int(i)] for i in idx), key=len)
     c_exp, _ = oracle_matrix(ws, ws)
-    assert (pairwise_contains_all(ws) == c_exp).all()
-    assert (pairwise_contains_all(ws) == jpw.pairwise_contains_all(ws)).all()
+    assert (pairwise_contains_all(ws, device=CPU) == c_exp).all()
+    assert (pairwise_contains_all(ws, device=CPU) == jpw.pairwise_contains_all(ws)).all()
 
 
 def test_pairwise_edge_cases():
     ws = [b"", b"a", b"aa", b"ab", b"ba", b"aba", b"abcdefghijklmnop"]
     c_exp, f_exp = oracle_matrix(ws, ws)
-    ps = PairwiseSearcher(ws)
+    ps = PairwiseSearcher(ws, device=CPU)
     assert (ps.contains_matrix() == c_exp).all()
     assert (ps.first_matrix() == f_exp).all()
     assert (ps.first_matrix([b"", b"x"]) == oracle_matrix(ws, [b"", b"x"])[1]).all()
-    empty = PairwiseSearcher([])
+    empty = PairwiseSearcher([], device=CPU)
     assert empty.first_matrix([b"ab"]).shape == (0, 1)
     assert ps.first_matrix([]).shape == (len(ws), 0)
 
@@ -93,7 +97,7 @@ def test_pairwise_edge_cases():
 def test_count_matches_device(rng):
     ws = random_words(rng, 40)
     c_exp, _ = oracle_matrix(ws, ws)
-    ps = PairwiseSearcher(ws, block=16)
+    ps = PairwiseSearcher(ws, block=16, device=CPU)
     got = ps.count_matches_device()
     assert got.dtype == torch.int32 and got.dim() == 0
     assert int(got) == int(c_exp.sum()) == int(jpw.PairwiseSearcher(ws, block=16).count_matches_device())
@@ -106,7 +110,7 @@ def test_pairwise_matches_jax_pallas_block(rng):
     hs = random_words(rng, 50, max_len=18)
     c_exp, f_exp = oracle_matrix(ws, hs)
     pallas = jpw.PairwiseSearcher(ws, block=16, use_pallas=True)
-    ps = PairwiseSearcher(ws, block=16)
+    ps = PairwiseSearcher(ws, block=16, device=CPU)
     assert (ps.first_matrix(hs) == pallas.first_matrix(hs)).all()
     assert (ps.first_matrix(hs) == f_exp).all()
     assert int(ps.count_matches_device(hs)) == int(pallas.count_matches_device(hs)) == int(c_exp.sum())
@@ -170,18 +174,18 @@ def test_interop_pairwise_searcher(rng):
     hs = random_words(rng, 20, max_len=16)
     jps = jpw.PairwiseSearcher(ws, block=16)
     ps = interop.pairwise_searcher(ws, np.asarray(jps._valt), np.asarray(jps._mskt),
-                                   np.asarray(jps._ln), jps.block)
+                                   np.asarray(jps._ln), jps.block, device=CPU)
     assert ps.tn == jps.tn and ps._plan(hs) == jps._plan(hs)[0]
     assert (ps.first_matrix(hs) == jps.first_matrix(hs)).all()
     assert (ps.contains_matrix() == jps.contains_matrix()).all()
     assert int(ps.count_matches_device()) == int(jps.count_matches_device())
     with pytest.raises(ValueError, match="describe the N needles"):
         interop.pairwise_searcher(ws[1:], np.asarray(jps._valt), np.asarray(jps._mskt),
-                                  np.asarray(jps._ln), 16)
+                                  np.asarray(jps._ln), 16, device=CPU)
 
 
 def test_pair_block_cpu_plain_no_launch_and_checks():
-    ps = PairwiseSearcher([b"ab", b"abc", b""])
+    ps = PairwiseSearcher([b"ab", b"abc", b""], device=CPU)
     hay, lh, _, _ = ps._pack_hay(None)
     args = (ps._values, ps._masks, ps._ln, hay, lh, ps._plan(None), ps.block)
     before = tpw.pair_block.launches
@@ -202,7 +206,7 @@ def test_pair_block_cpu_plain_no_launch_and_checks():
 
 
 def test_hay_cache_is_capped_and_identity_keyed(rng):
-    ps = PairwiseSearcher(random_words(rng, 10))
+    ps = PairwiseSearcher(random_words(rng, 10), device=CPU)
     lists = [random_words(rng, 5) for _ in range(PairwiseSearcher._HAY_CACHE_CAP + 3)]
     for hs in lists:
         ps.first_matrix(hs)
@@ -216,7 +220,7 @@ def test_cache_does_not_pin_instances():
     # No cache outlives its searcher: instances (and their device tables)
     # must be collectable after use in a long-running serving process.
     words = [b"abc", b"abcd", b"zzz", b"bcda"]
-    s = PairwiseSearcher(words)
+    s = PairwiseSearcher(words, device=CPU)
     s.contains_matrix()
     int(s.count_matches_device())
     ref = weakref.ref(s)

@@ -22,6 +22,10 @@ from sliceslice_tpu_torch.ops import torch_backend
 from sliceslice_tpu_torch.searcher import _host_positions
 from sliceslice_tpu_torch.utils import native
 
+#: The CPU tests run the kernels' plain versions: the port's entry points
+#: take the card unless asked for the CPU.
+CPU = "cpu"
+
 
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
@@ -43,7 +47,7 @@ def oracle(hay: bytes, nd: bytes) -> list:
 
 def both(hay, nd, jdh, tdh) -> list:
     """The port's and the JAX package's positions, required equal."""
-    got = DynamicSearcher(nd).positions(tdh)
+    got = DynamicSearcher(nd, device=CPU).positions(tdh)
     ref = jst.DynamicSearcher(nd).positions(jdh)
     assert got.dtype == np.int64
     assert got.tolist() == ref.tolist(), nd
@@ -62,23 +66,23 @@ def test_host_positions_oracle_shapes():
 @pytest.mark.parametrize("nd", [b"a", b"ab", b"aa", b"abcde", b"0123456789abcdef!", b"zzqx"])
 def test_positions_short_host_path(nd):
     hay = (b"abcde" * 400) + (b"a" * 37)  # < SHORT_HAY_BYTES
-    got = DynamicSearcher(nd).positions(hay)
+    got = DynamicSearcher(nd, device=CPU).positions(hay)
     assert got.tolist() == jst.DynamicSearcher(nd).positions(hay).tolist() == oracle(hay, nd)
 
 
 @pytest.mark.parametrize("nd", [b"e", b"th", b"the", b"tion", b"register", b"interrupted"])
 def test_positions_device_bitmap(i386_small, nd):
     jdh = jst.preprocess(i386_small, kh=16)
-    tdh = preprocess(i386_small, kh=16)
+    tdh = preprocess(i386_small, kh=16, device=CPU)
     exp = oracle(i386_small, nd)
     assert both(i386_small, nd, jdh, tdh) == exp
     # count_in must agree with the number of positions
-    assert DynamicSearcher(nd).count_in(tdh) == len(exp)
+    assert DynamicSearcher(nd, device=CPU).count_in(tdh) == len(exp)
 
 
 def test_positions_periodic_overlap_device(i386_small):
     hay = b"ab" * 3 + i386_small + b"a" * 64 + i386_small[: 2**12]
-    jdh, tdh = jst.preprocess(hay, kh=16), preprocess(hay, kh=16)
+    jdh, tdh = jst.preprocess(hay, kh=16), preprocess(hay, kh=16, device=CPU)
     for nd in (b"aa", b"aaa", b"abab"):
         assert both(hay, nd, jdh, tdh) == oracle(hay, nd)
 
@@ -90,7 +94,7 @@ def test_positions_segment_boundary(i386_small):
     hay = i386_small * 3
     jdh = jst.preprocess(hay, kh=16, seg_rows=64)
     assert jdh.g >= 2
-    tdh = preprocess(hay, kh=16)
+    tdh = preprocess(hay, kh=16, device=CPU)
     seg = jdh.seg_bytes
     for b in range(seg, len(hay), seg):
         for nd in (hay[b - 5 : b + 5], hay[b - 1 : b + 2], hay[b - 9 : b + 11]):
@@ -101,27 +105,27 @@ def test_positions_segment_boundary(i386_small):
 
 
 def test_positions_absent_and_empty(i386_small):
-    tdh = preprocess(i386_small, kh=16)
-    assert DynamicSearcher(b"\xff\xfe\xfd").positions(tdh).size == 0
-    got = DynamicSearcher(b"").positions(tdh)
+    tdh = preprocess(i386_small, kh=16, device=CPU)
+    assert DynamicSearcher(b"\xff\xfe\xfd", device=CPU).positions(tdh).size == 0
+    got = DynamicSearcher(b"", device=CPU).positions(tdh)
     assert got.size == len(i386_small) + 1
     assert got[0] == 0 and got[-1] == len(i386_small)
     assert got.tolist() == jst.DynamicSearcher(b"").positions(jst.preprocess(i386_small, kh=16)).tolist()
 
 
 def test_find_iter_matches_positions(i386_small):
-    tdh = preprocess(i386_small, kh=16)
-    s = DynamicSearcher(b"the")
+    tdh = preprocess(i386_small, kh=16, device=CPU)
+    s = DynamicSearcher(b"the", device=CPU)
     assert list(s.find_iter(tdh)) == s.positions(tdh).tolist()
     assert list(s.find_iter(tdh)) == list(jst.DynamicSearcher(b"the").find_iter(jst.preprocess(i386_small, kh=16)))
-    assert list(DynamicSearcher(b"").find_iter(b"abc")) == [0, 1, 2, 3]
+    assert list(DynamicSearcher(b"", device=CPU).find_iter(b"abc")) == [0, 1, 2, 3]
 
 
 def test_positions_all_batched(i386_small, words):
     nds = [w for w in words[:40] if w] + [b"", b"\xff\xfe\xfd"]
     ref = jst.BatchedSearcher(nds).positions_all(jst.preprocess(i386_small, kh=24), batch=8)
-    tdh = preprocess(i386_small, kh=24)
-    bs = BatchedSearcher(nds)
+    tdh = preprocess(i386_small, kh=24, device=CPU)
+    bs = BatchedSearcher(nds, device=CPU)
     res = bs.positions_all(tdh, batch=8)
     assert len(res) == len(nds)
     for nd, got, r in zip(nds, res, ref):
@@ -169,7 +173,7 @@ def test_compact_positions_cap_edges(rng):
         hay[p : p + 4] = b"QRS?"
     hay = bytes(hay)
     needles = [b"XYZ!", b"QRS?", b"NOPE!", hay[5:13]]
-    got = BatchedSearcher(needles).positions_all(preprocess(hay, force_cols=True), sparse_cap=cap)
+    got = BatchedSearcher(needles, device=CPU).positions_all(preprocess(hay, force_cols=True, device=CPU), sparse_cap=cap)
     ref = jst.BatchedSearcher(needles).positions_all(jst.preprocess(hay, force_cols=True), sparse_cap=cap)
     for nd, g, r in zip(needles, got, ref):
         assert g.tolist() == r.tolist() == oracle(hay, nd), nd
@@ -177,7 +181,7 @@ def test_compact_positions_cap_edges(rng):
     # The tier split itself: the compact offsets are complete up to cap.
     vals, msks, lens = build_probe_table(needles)
     ends = (len(hay) - lens + 1).astype(np.int32)
-    dh = preprocess(hay, force_cols=True)
+    dh = preprocess(hay, force_cols=True, device=CPU)
     cnt, pos = torch_backend.compact_positions_batched(dh.flat, vals, msks, ends, cap)
     assert cnt.tolist() == [cap, cap + 1, 0, len(oracle(hay, hay[5:13]))]
     assert pos[0].tolist() == oracle(hay, b"XYZ!")
@@ -194,7 +198,7 @@ def test_compact_vs_bitmap_differential(rng):
         lo, hi = (97, 101) if trial % 2 else (0, 256)
         hay = bytes(rng.integers(lo, hi, (n_bytes,), dtype=np.uint8))
         jdh = jst.preprocess(hay, force_cols=True)
-        dh = preprocess(hay, force_cols=True)
+        dh = preprocess(hay, force_cols=True, device=CPU)
         needles = []
         for _ in range(5):
             k = int(rng.integers(2, 20))
@@ -225,11 +229,11 @@ def test_positions_zero_tail_needles(rng):
     body = rng.integers(97, 101, (30_000 - 64,), dtype=np.uint8)
     hay = np.concatenate([body, rng.permutation(np.arange(192, 256, dtype=np.uint8))]).tobytes()
     needles = [hay[-3:] + b"\0", hay[-2:] + b"\0\0", b"\0", hay[-1:] + b"\0" * 7, hay[-9:]]
-    jdh, tdh = jst.preprocess(hay, kh=16), preprocess(hay, kh=16)
+    jdh, tdh = jst.preprocess(hay, kh=16), preprocess(hay, kh=16, device=CPU)
     for nd in needles:
         assert both(hay, nd, jdh, tdh) == oracle(hay, nd)
     for cap in (1, 4096):
-        got = BatchedSearcher(needles).positions_all(tdh, sparse_cap=cap)
+        got = BatchedSearcher(needles, device=CPU).positions_all(tdh, sparse_cap=cap)
         assert [g.tolist() for g in got] == [oracle(hay, nd) for nd in needles]
     assert [oracle(hay, nd) for nd in needles] == [[], [], [], [], [len(hay) - 9]]
 
@@ -248,7 +252,7 @@ def test_plain_match_bitmap_matches_jax(t, rng):
     values, masks, lengths = build_probe_table(needles, t_max=t)
     ends = np.maximum(len(hay) - lengths + 1, 0).astype(np.int32)
     jdh = jst.preprocess(hay, kh=needed_halo_for_t(t), force_cols=True)
-    tdh = preprocess(hay, kh=needed_halo_for_t(t), force_cols=True)
+    tdh = preprocess(hay, kh=needed_halo_for_t(t), force_cols=True, device=CPU)
     jwords = np.asarray(jxb.match_bitmap_batched(jdh.require_cols(), values, masks, ends, jdh.s))
     n = len(needles)
     before = tsk.match_bitmap.launches
@@ -268,22 +272,22 @@ def test_positions_searchers_and_layouts(i386_small):
     kernel searchers; a flat layout on the CPU is scanned on the host and
     needs host bytes, as in the JAX package; the bitmap wrapper refuses
     devices it has no kernel for."""
-    tdh = preprocess(i386_small, kh=16)
+    tdh = preprocess(i386_small, kh=16, device=CPU)
     for nd in (b"e", b"the", i386_small[-11:], b"\xfe\xfe"):
-        assert TorchSearcher(nd).positions(tdh).tolist() == DynamicSearcher(nd).positions(tdh).tolist()
+        assert TorchSearcher(nd, device=CPU).positions(tdh).tolist() == DynamicSearcher(nd, device=CPU).positions(tdh).tolist()
     small = i386_small[:3000]
-    flat = preprocess(small)
+    flat = preprocess(small, device=CPU)
     assert not flat.tiled
-    assert DynamicSearcher(b"the").positions(flat).tolist() == oracle(small, b"the")
-    assert BatchedSearcher([b"the", b"e"]).positions_all(flat)[1].tolist() == oracle(small, b"e")
-    bare = preprocess(small, keep_host=False)
+    assert DynamicSearcher(b"the", device=CPU).positions(flat).tolist() == oracle(small, b"the")
+    assert BatchedSearcher([b"the", b"e"], device=CPU).positions_all(flat)[1].tolist() == oracle(small, b"e")
+    bare = preprocess(small, keep_host=False, device=CPU)
     with pytest.raises(ValueError, match="requires host bytes"):
-        DynamicSearcher(b"the").positions(bare)
+        DynamicSearcher(b"the", device=CPU).positions(bare)
     with pytest.raises(ValueError, match="requires host bytes"):
-        BatchedSearcher([b"the"]).positions_all(bare)
+        BatchedSearcher([b"the"], device=CPU).positions_all(bare)
     values, masks, _ = build_probe_table([b"abc"])
     with pytest.raises(ValueError, match="no match-bitmap kernel"):
         tsk.match_bitmap(torch.empty(1024, dtype=torch.uint8, device="meta"), values, masks,
                          np.asarray([5], np.int32))
     with pytest.raises(NotImplementedError):
-        BatchedSearcher([b"x" * 2049])
+        BatchedSearcher([b"x" * 2049], device=CPU)

@@ -15,6 +15,10 @@ import sliceslice_tpu_torch.ops.scan_kernel as tsk
 from sliceslice_tpu_torch.config import SENTINEL
 from sliceslice_tpu_torch.needle import build_probe_table, needed_halo_for_t
 
+#: The CPU tests run the kernels' plain versions: the port's entry points
+#: take the card unless asked for the CPU.
+CPU = "cpu"
+
 
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
@@ -55,7 +59,7 @@ def test_plain_find_matches_jax(t, rng):
     hay = _corpus(rng)
     kh = needed_halo_for_t(t)
     jdh = jl.preprocess(hay, kh=kh, force_cols=True)
-    tdh = tl.preprocess(hay, kh=kh, force_cols=True)
+    tdh = tl.preprocess(hay, kh=kh, force_cols=True, device=CPU)
     needles, values, masks, ends = _table(hay, rng, t)
     n = values.shape[0]
     for base, n_real in ((0, None), (5000, n - 7)):
@@ -78,7 +82,7 @@ def test_plain_find_matches_jax(t, rng):
 def test_plain_memchr_matches_jax(rng):
     hay = _corpus(rng)
     jdh = jl.preprocess(hay, kh=16, force_cols=True)
-    tdh = tl.preprocess(hay, kh=16, force_cols=True)
+    tdh = tl.preprocess(hay, kh=16, force_cols=True, device=CPU)
     for byte in (97, 100, 192, 255, 0, 150):
         for end, base in ((len(hay), 0), (len(hay) // 3, 0), (len(hay) + 777, 777), (0, 0)):
             ref = int(jsk.memchr_find_cols(jdh.cols, byte, end, s=jdh.s, base=base))
@@ -97,7 +101,7 @@ def test_host_tables_remasked_like_jax(rng):
     values, masks, lengths = build_probe_table([nd])
     dirty = values | ~masks  # junk bits outside every mask
     ends = np.asarray([len(hay) - 6 + 1], np.int32)
-    tdh = tl.preprocess(hay, kh=16, force_cols=True)
+    tdh = tl.preprocess(hay, kh=16, force_cols=True, device=CPU)
     jdh = jl.preprocess(hay, kh=16, force_cols=True)
     got = int(tsk.batched_find(tdh.flat, dirty, masks, ends)[0])
     ref = int(np.asarray(jsk.batched_find_cols(None, dirty, masks, ends, s=jdh.s, pw=jdh.windows()))[0])
@@ -106,7 +110,7 @@ def test_host_tables_remasked_like_jax(rng):
 
 def test_cpu_takes_plain_and_counts_no_launch(rng):
     hay = _corpus(rng)
-    dh = tl.preprocess(hay, kh=16, force_cols=True)
+    dh = tl.preprocess(hay, kh=16, force_cols=True, device=CPU)
     values, masks, lengths = build_probe_table([hay[50:53], hay[9000:9008]])
     ends = (len(hay) - lengths + 1).astype(np.int32)
     before = (tsk.batched_find.launches, tsk.memchr_find.launches)
@@ -157,3 +161,52 @@ def test_plan_spans_cover_positions(n_pos, rows):
     assert (n_spans - 1) * span < n_pos <= n_spans * span
     assert n_spans == 1 or span >= tsk.MIN_SPAN
     assert n_spans <= 65535  # the grid's y limit
+
+
+def _queue_items(plan, rows, limits):
+    """(row, start, stop) of every live item in the order the kernels' queue
+    hands them out (csrc/scan_common.cuh next_item): item i is chunk
+    i // rows of row i % rows, cut at the row's limit; dead items skipped."""
+    for i in range(plan.n_items):
+        c, row = divmod(i, rows)
+        start = c * plan.chunk
+        if start < limits[row]:
+            yield row, start, min(start + plan.chunk, limits[row])
+
+
+@pytest.mark.parametrize("chunk", ["FIND_CHUNK", "COUNT_CHUNK"])
+@pytest.mark.parametrize("nbytes,t,rows", [(857_600, 2, 2206), (857_600, 1, 1), (20_000, 5, 7),
+                                           (4096 + 128, 4, 3), (1 << 28, 2, 1), (1 << 20, 512, 40)])
+def test_plan_queue_covers_each_row_once_in_chunk_major_order(nbytes, t, rows, chunk):
+    rng = np.random.default_rng(rows)
+    chunk = getattr(tsk, chunk)
+    plan = tsk.plan_queue(nbytes, t, rows, 1056, chunk)
+    assert plan.chunk % tsk.WIDE_TILE == 0 and plan.chunk == chunk
+    # the kernel's position limit is position_limit, and its words hold it
+    assert plan.n_pos == tsk.position_limit(nbytes, t) == 4 * (plan.n_words - t)
+    assert plan.n_items == rows * plan.n_chunks and (plan.n_chunks - 1) * plan.chunk < plan.n_pos
+    assert 1 <= plan.grid <= min(plan.n_items, 1056)
+    # row limits min(ends - base, n_pos): some past the buffer, some empty
+    ends = rng.integers(0, plan.n_pos + 5000, rows)
+    ends[: min(rows, 2)] = (0, 1 << 30)[: min(rows, 2)]
+    limits = np.minimum(ends, plan.n_pos)
+    items = list(_queue_items(plan, rows, limits))
+    chunks = [start // plan.chunk for _, start, _ in items]
+    assert chunks == sorted(chunks)  # chunk c of every row before chunk c + 1 of any
+    covered = np.zeros(rows, np.int64)
+    for row, start, stop in items:  # per row, consecutive and disjoint
+        assert start == covered[row] and start < stop
+        covered[row] = stop
+    assert np.array_equal(covered, limits)
+
+
+def test_plan_queue_spreads_one_row_and_stays_in_int32():
+    """One row gets many chunks where the span plan gave it 13 blocks over
+    i386; item counts that would leave int32 double the chunk."""
+    spans = tsk.plan_spans(tsk.position_limit(857_600, 2), 1, tsk.FIND_TILE, 132)[1]
+    assert tsk.plan_queue(857_600, 2, 1, 1056, tsk.FIND_CHUNK).n_chunks > 13 == spans
+    assert tsk.plan_queue(256 << 20, 2, 1, 1056, tsk.COUNT_CHUNK).n_chunks > 13
+    wide = tsk.plan_queue((1 << 31) - 256, 1, 1 << 20, 1056, tsk.COUNT_CHUNK)
+    assert wide.chunk > tsk.COUNT_CHUNK and wide.n_items + 1056 < 2**31
+    assert tsk.plan_queue(1 << 20, 2, 3, 1056, 5000).chunk == 2 * tsk.WIDE_TILE
+    assert tsk.plan_queue(16, 4, 5, 1056, tsk.FIND_CHUNK).n_items == 0

@@ -21,6 +21,10 @@ from sliceslice_tpu_torch import (
 from sliceslice_tpu_torch.models.cuda_searcher import SPECIALIZED, searcher_for_size
 from sliceslice_tpu_torch.ops.layout import preprocess
 
+#: The CPU tests run the kernels' plain versions: the port's entry points
+#: take the card unless asked for the CPU.
+CPU = "cpu"
+
 BACKENDS = [DynamicSearcher, CudaSearcher, TorchSearcher, NaiveSearcher]
 
 
@@ -40,7 +44,7 @@ def check(cls, needle: bytes, hay: bytes):
     expected = naive_find(hay, needle)
     positions = range(len(needle)) if len(needle) else [None]
     for p in positions:
-        s = cls(needle) if p is None else cls.with_position(needle, p)
+        s = cls(needle, device=CPU) if p is None else cls.with_position(needle, p, device=CPU)
         assert s.find(hay) == expected, (cls.__name__, needle, hay, p)
         assert s.search_in(hay) == (expected is not None)
 
@@ -100,23 +104,23 @@ def test_kernel_layout_every_position(cls, rng):
         (b"zz", filler),
     ]
     for nd, hay in dh_cases:
-        dh = preprocess(hay, kh=16)
+        dh = preprocess(hay, kh=16, device=CPU)
         assert dh.tiled
         exp = naive_find(hay, nd)
         for p in range(len(nd)):
-            assert cls.with_position(nd, p).find(dh) == exp, (cls.__name__, nd, p)
-            assert cls.with_position(nd, p).find(hay) == exp
+            assert cls.with_position(nd, p, device=CPU).find(dh) == exp, (cls.__name__, nd, p)
+            assert cls.with_position(nd, p, device=CPU).find(hay) == exp
 
 
 def test_memchr_backend(rng):
     check(MemchrSearcher, b"q", b"the quick brown fox")
     check(MemchrSearcher, b"z", b"the quick brown fox")
     check(MemchrSearcher, b"\x00", b"ab\x00cd")
-    assert MemchrSearcher(b"x").find(b"") is None
+    assert MemchrSearcher(b"x", device=CPU).find(b"") is None
     hay = bytes(rng.integers(97, 105, (20_000,), dtype=np.uint8)) + b"\x01"
-    dh = preprocess(hay)
+    dh = preprocess(hay, device=CPU)
     for b in (b"a", b"h", b"\x01", b"\x00", b"z"):
-        assert MemchrSearcher(b).find(dh) == naive_find(hay, b)
+        assert MemchrSearcher(b, device=CPU).find(dh) == naive_find(hay, b)
 
 
 @pytest.mark.parametrize("cls", [DynamicSearcher, CudaSearcher, TorchSearcher])
@@ -126,9 +130,9 @@ def test_random_differential_flat(cls, rng):
         for _ in range(3):
             start = int(rng.integers(0, 1500 - k))
             nd = hay[start : start + k]
-            assert cls(nd).find(hay) == naive_find(hay, nd)
+            assert cls(nd, device=CPU).find(hay) == naive_find(hay, nd)
         nd = bytes(rng.integers(0, 256, (k,), dtype=np.uint8))
-        assert cls(nd).find(hay) == naive_find(hay, nd)
+        assert cls(nd, device=CPU).find(hay) == naive_find(hay, nd)
 
 
 @pytest.mark.parametrize("cls", [DynamicSearcher, CudaSearcher, TorchSearcher])
@@ -137,13 +141,13 @@ def test_random_differential_cols_vs_jax(cls, rng):
     against ``bytes.find`` and the JAX package's XlaSearcher on the same
     haystack and needles."""
     hay = bytes(rng.integers(97, 103, (9000,), dtype=np.uint8))
-    dh = preprocess(hay, kh=24, force_cols=True)
+    dh = preprocess(hay, kh=24, force_cols=True, device=CPU)
     jdh = jst.preprocess(hay, kh=24, force_cols=True)
     for k in [1, 2, 4, 5, 8, 13, 16, 24]:
         needles = [hay[s : s + k] for s in (0, 1, 127, 128, 4499, 9000 - k)]
         needles.append(bytes(rng.integers(0, 256, (k,), dtype=np.uint8)))
         for nd in needles:
-            got = cls(nd).find(dh)
+            got = cls(nd, device=CPU).find(dh)
             assert got == naive_find(hay, nd), (k, nd)
             assert got == jst.XlaSearcher(nd).find(jdh), (k, nd)
 
@@ -154,9 +158,9 @@ def test_specialized_family_dispatch():
         assert cls.__name__ == f"Searcher{k}"
         nd = bytes(range(65, 65 + k))
         hay = b"\xff" * 37 + nd + b"\xee" * 9
-        assert cls(nd).find(hay) == 37
+        assert cls(nd, device=CPU).find(hay) == 37
         big = b"\xff" * 9000 + nd + b"\xee" * 9
-        assert cls(nd).find(big) == 9000
+        assert cls(nd, device=CPU).find(big) == 9000
     assert searcher_for_size(17) is CudaSearcher
     assert searcher_for_size(1) is CudaSearcher
 
@@ -166,19 +170,19 @@ def test_long_needles(rng):
     for k in [33, 64, 65, 100, 500, 1000, 2048]:
         start = int(rng.integers(0, 60_000 - k))
         nd = hay[start : start + k]
-        assert CudaSearcher(nd).find(hay) == naive_find(hay, nd), k
+        assert CudaSearcher(nd, device=CPU).find(hay) == naive_find(hay, nd), k
         mutated = bytearray(nd)
         mutated[k // 2] ^= 1
-        assert CudaSearcher(bytes(mutated)).find(hay) == naive_find(hay, bytes(mutated)), k
+        assert CudaSearcher(bytes(mutated), device=CPU).find(hay) == naive_find(hay, bytes(mutated)), k
 
 
 def test_layout_halo_widened_for_long_needle(rng):
     """A needle wider than the layout's halo rebuilds a wider layout from
     the host bytes, as the JAX package does."""
     hay = bytes(rng.integers(97, 99, (30_000,), dtype=np.uint8))
-    dh = preprocess(hay, kh=8)
+    dh = preprocess(hay, kh=8, device=CPU)
     nd = hay[-200:]
-    assert DynamicSearcher(nd).find(dh) == naive_find(hay, nd)
+    assert DynamicSearcher(nd, device=CPU).find(dh) == naive_find(hay, nd)
     assert dh._rehalo is not None and dh._rehalo.kh >= 199
 
 
@@ -188,76 +192,76 @@ def test_layout_halo_widened_for_long_needle(rng):
 @pytest.mark.parametrize("cls", [CudaSearcher, TorchSearcher, MemchrSearcher, NaiveSearcher])
 def test_empty_needle_rejected(cls):
     with pytest.raises(ValueError):
-        cls(b"")
+        cls(b"", device=CPU)
 
 
 @pytest.mark.parametrize("cls", [CudaSearcher, TorchSearcher, DynamicSearcher])
 def test_invalid_position_rejected(cls):
     with pytest.raises(ValueError):
-        cls.with_position(b"abc", 3)
+        cls.with_position(b"abc", 3, device=CPU)
     with pytest.raises(ValueError):
-        cls.with_position(b"abc", -1)
-    cls.with_position(b"abc", 2)
+        cls.with_position(b"abc", -1, device=CPU)
+    cls.with_position(b"abc", 2, device=CPU)
 
 
 def test_dynamic_empty_needle_always_true():
-    d = DynamicSearcher(b"")
+    d = DynamicSearcher(b"", device=CPU)
     assert isinstance(d.inner, EmptyNeedleSearcher)
     assert d.search_in(b"") is True
     assert d.search_in(b"anything") is True
     assert d.find(b"xyz") == 0
-    assert d.find(preprocess(b"x" * 10_000)) == 0
+    assert d.find(preprocess(b"x" * 10_000, device=CPU)) == 0
     with pytest.raises(ValueError):
-        DynamicSearcher.with_position(b"", 1)
+        DynamicSearcher.with_position(b"", 1, device=CPU)
 
 
 def test_dynamic_dispatch_arms():
-    assert isinstance(DynamicSearcher(b"x").inner, MemchrSearcher)
+    assert isinstance(DynamicSearcher(b"x", device=CPU).inner, MemchrSearcher)
     for k in range(2, 17):
-        assert type(DynamicSearcher(b"a" * k).inner).__name__ == f"Searcher{k}"
-    assert type(DynamicSearcher(b"a" * 17).inner) is CudaSearcher
-    assert type(DynamicSearcher(b"a" * 2048).inner) is CudaSearcher
+        assert type(DynamicSearcher(b"a" * k, device=CPU).inner).__name__ == f"Searcher{k}"
+    assert type(DynamicSearcher(b"a" * 17, device=CPU).inner) is CudaSearcher
+    assert type(DynamicSearcher(b"a" * 2048, device=CPU).inner) is CudaSearcher
     with pytest.raises(NotImplementedError, match="queue 1, item 12"):
-        DynamicSearcher(b"a" * 2049)
+        DynamicSearcher(b"a" * 2049, device=CPU)
 
 
 def test_specialized_size_mismatch():
     with pytest.raises(ValueError):
-        SPECIALIZED[4](b"abc")
+        SPECIALIZED[4](b"abc", device=CPU)
     with pytest.raises(ValueError):
-        SPECIALIZED[2](b"abc")
+        SPECIALIZED[2](b"abc", device=CPU)
 
 
 def test_memchr_requires_single_byte():
     with pytest.raises(ValueError):
-        MemchrSearcher(b"ab")
+        MemchrSearcher(b"ab", device=CPU)
 
 
 def test_haystack_type_contract():
-    s = DynamicSearcher(b"ab")
+    s = DynamicSearcher(b"ab", device=CPU)
     assert s.find("xxab") == 2
     assert s.find(np.frombuffer(b"abyy", np.uint8)) == 0
     with pytest.raises(TypeError):
         s.find(np.zeros(4, np.int32))
     assert s.find(bytearray(b"zzzab")) == 3
     assert s.find(memoryview(b"ab")) == 0
-    big = CudaSearcher(b"ab")
+    big = CudaSearcher(b"ab", device=CPU)
     assert big.find("x" * 9000 + "ab") == 9000
     with pytest.raises(TypeError):
         big.find(np.zeros(9000, np.int32))
 
 
 def test_inlined_alias():
-    s = DynamicSearcher(b"ab")
+    s = DynamicSearcher(b"ab", device=CPU)
     assert s.inlined_search_in(b"xxab") is True
-    assert CudaSearcher(b"ab").inlined_search_in(b"zz") is False
+    assert CudaSearcher(b"ab", device=CPU).inlined_search_in(b"zz") is False
 
 
 def test_short_device_haystack_without_host_bytes():
-    dh = preprocess(b"abc", keep_host=False)
+    dh = preprocess(b"abc", keep_host=False, device=CPU)
     with pytest.raises(ValueError, match="host bytes"):
-        CudaSearcher(b"abcdef").find(dh)
-    assert CudaSearcher(b"bc").find(dh) == 1
+        CudaSearcher(b"abcdef", device=CPU).find(dh)
+    assert CudaSearcher(b"bc", device=CPU).find(dh) == 1
 
 
 def test_host_rung_uses_position(rng):
@@ -268,7 +272,7 @@ def test_host_rung_uses_position(rng):
     hay = bytes(rng.integers(97, 100, (HOST_HAY_BYTES,), dtype=np.uint8))
     nd = hay[3000:3010]
     for p in range(len(nd)):
-        assert DynamicSearcher(nd, p).find(hay) == naive_find(hay, nd)
+        assert DynamicSearcher(nd, p, device=CPU).find(hay) == naive_find(hay, nd)
 
 
 def test_host_oracles_match_jax(rng):
