@@ -5,12 +5,12 @@
 
 Builds the port's CUDA kernels from ``sliceslice_tpu_torch/csrc`` with
 nvcc (and fails on any ptxas spill), holds each kernel against its plain
-PyTorch version on the card (the find and count kernels also on their
-work queue's hard cases: t = 1..8, 16, 32, 512, a match only in a row's
-last chunk, absent rows, one-row launches over 1 MiB and 256 MiB, ends
-inside a 16-position group and at the buffer's last words, ``base > 0``,
-``n_real < n``, repeated launches), and drives the port's main paths
-against host oracles:
+PyTorch version on the card (the find, count, match-bitmap and compaction
+kernels also on their work queue's hard cases: t = 1..8, 16, 32, 512, a
+match only in a row's last chunk, absent rows, one-row launches over 1 MiB
+and 256 MiB, ends inside a 16-position group and at the buffer's last
+words, ``base > 0``, ``n_real < n``, repeated launches, compaction caps 1,
+7, 64 and 4096), and drives the port's main paths against host oracles:
 
 * find: ``preprocess`` -> ``BatchedSearcher.find_all`` over all 4,585
   words of data/words.txt in the 857,425-byte data/i386.txt, then
@@ -20,7 +20,8 @@ against host oracles:
   before and after ``optimize_for``, ``DynamicSearcher.count_in`` on every
   arm and counts in the 256 MiB corpus, against ``overlapping_count``;
 * positions: ``BatchedSearcher.positions_all`` over the same words and
-  corpus before and after ``optimize_for`` (both tiers),
+  corpus before and after ``optimize_for`` (both tiers; one bitmap and
+  one compaction launch per width group),
   ``DynamicSearcher.positions`` on every arm, a flat layout on the card
   kept without host bytes, and the 256 MiB corpus's needles, against the
   host positions oracle;
@@ -55,12 +56,16 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 FIND_SOURCE = "sliceslice_tpu_torch/csrc/find.cu"
 PAIR_SOURCE = "sliceslice_tpu_torch/csrc/pairwise.cu"
 PROBE_SOURCE = "sliceslice_tpu_torch/csrc/probe.cu"
+POSITIONS_SOURCE = "sliceslice_tpu_torch/csrc/positions.cu"
 BIG_BYTES = 256 * 1024 * 1024
 SWEEPS = 32
 #: positions_all sweeps per timed sample (each reads its answers back).
 POSITION_SWEEPS = 4
 #: Probe-table widths the ablation harness runs.
 PROBE_TS = (1, 2, 3)
+#: Compaction caps held against the plain version: inside a word, inside
+#: an item, the default.
+CAPS = (1, 7, 64, 4096)
 #: Planted only in the last 100 bytes of the 256 MiB corpus.
 LAST_CHUNK_NEEDLE = b"\xfc\xfd\xfe\xfc\xfd\xfe\xfc\xfd\xfe"
 #: The first find and count design's per-width-group kernel times over the
@@ -148,10 +153,44 @@ def _queue_case_needles(hay: bytes, t: int):
             b"\0" * k, hay[:k]]
 
 
+def _same(a, b) -> bool:
+    return a.dtype == b.dtype and a.equal(b)
+
+
+def _err(a, b) -> int:
+    """Largest absolute difference of two integer tensors of one shape."""
+    check(a.shape == b.shape, f"shapes differ: {tuple(a.shape)} != {tuple(b.shape)}")
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def _positions_checks(flat, v, m, e, base=0, n_real=None):
+    """The match-bitmap kernel (words, item counts, chunk; launched twice)
+    and the compaction kernel at every cap of CAPS against their plain
+    versions on one table; returns the words, the row totals and both
+    largest differences."""
+    from sliceslice_tpu_torch.ops import scan_kernel
+
+    words, counts, chunk = scan_kernel.match_bitmap_counted(flat, v, m, e, base=base, n_real=n_real)
+    again = scan_kernel.match_bitmap_counted(flat, v, m, e, base=base, n_real=n_real)
+    plain = scan_kernel.match_bitmap_counted_plain(flat, v, m, e, base=base, n_real=n_real)
+    check(all(_same(words, o[0]) and _same(counts, o[1]) and chunk == o[2]
+              for o in (again, plain)), f"match-bitmap kernel != plain (t={v.shape[1]}, base={base})")
+    bitmap_err = max(_err(words, plain[0]), _err(counts, plain[1]))
+    compact_err = 0
+    for cap in CAPS:
+        got = scan_kernel.compact_positions(words, counts, chunk, cap)
+        ref = scan_kernel.compact_positions_plain(words, counts, chunk, cap)
+        compact_err = max(compact_err, _err(got[0], ref[0]), _err(got[1], ref[1]))
+        check(_same(got[0], ref[0]) and _same(got[1], ref[1]),
+              f"compaction kernel != plain (t={v.shape[1]}, base={base}, cap={cap})")
+    return words, counts.sum(dim=0, dtype=counts.dtype), bitmap_err, compact_err
+
+
 def _queue_checks(torch, device, hay, flat, needles, t, ends, base=0, n_real=None):
-    """Find and count kernels against their plain versions on one table,
-    each launched twice (the answers must not move); returns the find and
-    count answers as lists."""
+    """Find, count, match-bitmap and compaction kernels against their plain
+    versions on one table, each launched twice (the answers must not move),
+    the bitmap's row totals against the counts; returns the find and count
+    answers as lists."""
     from sliceslice_tpu_torch.needle import build_probe_table
     from sliceslice_tpu_torch.ops import scan_kernel
     from sliceslice_tpu_torch.ops.scan_math import table_bits
@@ -168,6 +207,8 @@ def _queue_checks(torch, device, hay, flat, needles, t, ends, base=0, n_real=Non
         check(torch.equal(got, again), f"{kernel.__name__}: two launches differ at t={t}")
         check(torch.equal(got, ref), f"{kernel.__name__} != plain on a queue case at t={t}")
         out.append(got.cpu().tolist())
+    _, totals, _, _ = _positions_checks(flat, v, m, e, base, n_real)
+    check(totals.cpu().tolist() == out[1], f"bitmap row totals != counts on a queue case at t={t}")
     return out
 
 
@@ -179,8 +220,8 @@ def _random_words(rng, count: int, max_len: int):
 
 
 def phase_kernels(torch, device):
-    """Find, count, memchr and pair-block kernels against their plain
-    versions (and the host oracles) on the card."""
+    """Find, count, match-bitmap, compaction, memchr and pair-block kernels
+    against their plain versions (and the host oracles) on the card."""
     from sliceslice_tpu_torch import PairwiseSearcher, overlapping_count, preprocess
     from sliceslice_tpu_torch.config import SENTINEL
     from sliceslice_tpu_torch.needle import build_probe_table, needed_halo_for_t
@@ -194,7 +235,7 @@ def phase_kernels(torch, device):
     hay = np.concatenate([body, tail]).tobytes()
     dh = preprocess(hay, kh=needed_halo_for_t(512), device=device)
     widths = list(range(1, 9)) + [16, 32, 512]
-    max_err = count_err = bitmap_err = 0
+    max_err = count_err = bitmap_err = compact_err = 0
     rows = queue_cases = 0
     for t in widths:
         needles = _kernel_tables(hay, rng, t)
@@ -224,10 +265,9 @@ def phase_kernels(torch, device):
             check(np.array_equal(got, plain), f"count kernel != plain at t={t} base={base}")
             exp = np.where(np.arange(n_pad) < n_real, counts, 0)
             check(np.array_equal(got, exp), f"count kernel != overlapping_count at t={t} base={base}")
-            got = scan_kernel.match_bitmap(dh.flat, v, m, e, base=base, n_real=n_real)
-            plain = scan_kernel.match_bitmap_plain(dh.flat, v, m, e, base=base, n_real=n_real)
-            bitmap_err = max(bitmap_err, int((got.long() - plain.long()).abs().max()))
-            check(torch.equal(got, plain), f"match-bitmap kernel != plain at t={t} base={base}")
+            got, totals, b_err, c_err = _positions_checks(dh.flat, v, m, e, base, n_real)
+            bitmap_err, compact_err = max(bitmap_err, b_err), max(compact_err, c_err)
+            check(np.array_equal(totals.cpu().numpy(), exp), f"bitmap row totals != counts at t={t} base={base}")
             if base == 0:
                 words = got.cpu().numpy()
                 for i, nd in enumerate(needles):
@@ -289,11 +329,12 @@ def phase_kernels(torch, device):
     say("kernels", find_rows=rows, find_widths=widths, find_max_abs_err=find_err,
         queue_case_tables=queue_cases,
         count_rows=rows, count_max_abs_err=count_err, bitmap_rows=rows,
-        bitmap_max_abs_err=bitmap_err,
+        bitmap_max_abs_err=bitmap_err, compaction_caps=list(CAPS), compaction_max_abs_err=compact_err,
         memchr_cases=cases, memchr_max_abs_err=memchr_err,
         pair_pairs=pairs, pair_max_abs_err=pair_err, equal=True)
     return {"batched_find": find_err, "memchr_find": memchr_err,
-            "batched_count": count_err, "pair_block": pair_err, "match_bitmap": bitmap_err}
+            "batched_count": count_err, "pair_block": pair_err, "match_bitmap": bitmap_err,
+            "compact_positions": compact_err}
 
 
 def phase_i386(torch, device, hay, words):
@@ -487,8 +528,14 @@ def phase_positions(torch, device, hay, words, i386_dh, big, i386_total, big_cou
         bad = sum(not np.array_equal(g, e) for g, e in zip(got, exp_rows))
         check(len(got) == len(exp_rows) and bad == 0, f"{what}: {bad} rows differ")
 
+    b0, c0 = scan_kernel.match_bitmap_counted.launches, scan_kernel.compact_positions.launches
     got = bs.positions_all(i386_dh)
+    sweep_launches = (scan_kernel.match_bitmap_counted.launches - b0,
+                      scan_kernel.compact_positions.launches - c0)
     same(got, exp, "i386 positions")
+    check(sweep_launches == (len(bs.groups), len(bs.groups)),
+          f"i386 positions sweep: {sweep_launches} bitmap and compaction launches, "
+          f"not one each per width group ({len(bs.groups)})")
     total = sum(len(p) for p in got)
     dense = sum(len(p) > cap for p in got)
     check(total == i386_total, f"i386 positions total {total} != count total {i386_total}")
@@ -501,12 +548,13 @@ def phase_positions(torch, device, hay, words, i386_dh, big, i386_total, big_cou
     tiny = preprocess(hay[:3000], keep_host=False, device=device)   # flat rung, card only
     check(not tiny.tiled, "the 3,000-byte layout is not the flat rung")
     flat_words = words[::15]
-    b0 = scan_kernel.match_bitmap.launches
+    b0, c0 = scan_kernel.match_bitmap_counted.launches, scan_kernel.compact_positions.launches
     flat_bs = BatchedSearcher(flat_words, device=device)
     same(flat_bs.positions_all(tiny), [_host_positions(hay[:3000], w) for w in flat_words],
          "positions over the flat rung on the card")
-    check(scan_kernel.match_bitmap.launches > b0,
-          "positions_all over the flat rung on the card did not launch the bitmap kernel")
+    check(scan_kernel.match_bitmap_counted.launches == b0 + len(flat_bs.groups)
+          and scan_kernel.compact_positions.launches == c0 + len(flat_bs.groups),
+          "positions_all over the flat rung on the card did not launch the bitmap and compaction kernels")
     lengths = [0, 1, 2, 3, 5, 8, 12, 16, 17, 24, 32, 33, 40, 100, 1000]
     checks = 0
     for k in lengths:
@@ -514,13 +562,14 @@ def phase_positions(torch, device, hay, words, i386_dh, big, i386_total, big_cou
             start = int(rng.integers(0, len(h_bytes) - k))
             for nd in (h_bytes[start:start + k], h_bytes[-k:] if k else b"", b"\xfe" * k,
                        h_bytes[len(h_bytes) - k + 1:] + b"\0" if k else b""):
-                before = scan_kernel.match_bitmap.launches
+                before = (scan_kernel.match_bitmap_counted.launches, scan_kernel.compact_positions.launches)
                 got = DynamicSearcher(nd, device=device).positions(h)
                 check(np.array_equal(got, _host_positions(h_bytes, nd)),
                       f"DynamicSearcher.positions k={k} differs")
                 if k and h is tiny:
-                    check(scan_kernel.match_bitmap.launches == before + 1,
-                          f"positions k={k} over the flat rung on the card did not launch the bitmap kernel")
+                    check((scan_kernel.match_bitmap_counted.launches, scan_kernel.compact_positions.launches)
+                          == (before[0] + 1, before[1] + 1),
+                          f"positions k={k} over the flat rung on the card did not launch both kernels")
                 checks += 1
 
     big_dh, big_hay, big_needles = big
@@ -536,7 +585,8 @@ def phase_positions(torch, device, hay, words, i386_dh, big, i386_total, big_cou
     check(np.array_equal(DynamicSearcher(periodic, device=device).positions(big_dh), exp_big[-1]),
           "256 MiB corpus: periodic positions differ")
     say("positions", words=len(words), total_i386_matches=total, dense_rows=dense,
-        sparse_cap=cap, parity=True, parity_after_optimize_for=True,
+        sparse_cap=cap, sweep_bitmap_launches=sweep_launches[0],
+        sweep_compaction_launches=sweep_launches[1], width_groups=len(bs.groups), parity=True, parity_after_optimize_for=True,
         flat_rung_words=len(flat_words), dynamic_lengths=lengths, dynamic_checks=checks,
         big_needles=len(needles), big_total_matches=int(sizes.sum()),
         big_dense_rows=int((sizes > cap).sum()), host_oracle_s=round(oracle_s, 3))
@@ -614,7 +664,7 @@ def phase_pairwise(torch, device, words):
 
 
 def phase_times(torch, device, card, i386_dh, bs, big_dh, count_bs, ps, pos_bs, probe_setups):
-    from sliceslice_tpu_torch.ops import pairwise, scan_kernel
+    from sliceslice_tpu_torch.ops import pairwise, scan_kernel, torch_backend
     from sliceslice_tpu_torch.scripts import kernel_probe as kp
     from sliceslice_tpu_torch.utils.profiling import HBM_ROOFLINE, measure
 
@@ -700,15 +750,23 @@ def phase_times(torch, device, card, i386_dh, bs, big_dh, count_bs, ps, pos_bs, 
 
     m = measure(pos_sweeps, f"i386 positions sweep x{POSITION_SWEEPS}", warmup=1, samples=3,
                 device=device)
-    say("times", what="sustained i386 positions sweep (positions_all, batch 16, after optimize_for)",
+    say("times", what="sustained i386 positions sweep (positions_all, default batches, after optimize_for)",
         card=card, sweeps=POSITION_SWEEPS, ms_per_sweep=m.estimate * 1e3 / POSITION_SWEEPS,
         low_ms=m.low * 1e3 / POSITION_SWEEPS, high_ms=m.high * 1e3 / POSITION_SWEEPS,
         note="each sweep reads its answers back, so each synchronises")
-    batches = [(i386_dh.flat, g.values_dev[i0:i0 + 16], g.masks_dev[i0:i0 + 16],
-                g.ends_dev(hay_len)[i0:i0 + 16], 0, min(16, g.n - i0))
-               for g in pos_bs.groups for i0 in range(0, g.n, 16)]
-    bitmap = vs_plain(scan_kernel.match_bitmap, scan_kernel.match_bitmap_plain, batches,
-                      f"match-bitmap kernel vs plain, one i386 positions sweep ({len(batches)} batches of <= 16 rows)")
+    # The bitmap and compaction launches of one positions sweep, on its
+    # launch plan (torch_backend.position_batches).
+    cap = torch_backend.SPARSE_POSITIONS_CAP
+    batches = [(i386_dh.flat, g.values_dev[i0:i1], g.masks_dev[i0:i1], g.ends_dev(hay_len)[i0:i1], 0, i1 - i0)
+               for g in pos_bs.groups
+               for i0, i1 in torch_backend.position_batches(g.n, i386_dh.flat.numel(), g.t, cap)]
+    bitmap = vs_plain(scan_kernel.match_bitmap_counted, scan_kernel.match_bitmap_counted_plain, batches,
+                      f"match-bitmap kernel vs plain, one i386 positions sweep ({len(batches)} launch batches)",
+                      rows=[b[5] for b in batches])
+    compact_calls = [scan_kernel.match_bitmap_counted(*b) + (cap,) for b in batches]
+    compact = vs_plain(scan_kernel.compact_positions, scan_kernel.compact_positions_plain, compact_calls,
+                       f"compaction kernel vs plain, one i386 positions sweep (cap {cap})",
+                       note="each call: the row totals, the first ranks, the SENTINEL fill and the kernel")
 
     # The find and count kernels per width group, next to the first
     # design's times, and the count kernel against the first design in turns.
@@ -760,14 +818,16 @@ def phase_times(torch, device, card, i386_dh, bs, big_dh, count_bs, ps, pos_bs, 
         print(f"  t={t}: " + "  ".join(f"{name} {r['ms_per_sweep']:.4f}/{r['ns_per_row_1024_positions']:.4f}"
                                       for name, r in row.items()))
     times = {"batched_find": find, "memchr_find": (mem_ms, mem_plain_ms),
-             "batched_count": count, "pair_block": pair, "match_bitmap": bitmap, "probe": probe_ms}
+             "batched_count": count, "pair_block": pair, "match_bitmap": bitmap,
+             "compact_positions": compact, "probe": probe_ms}
 
     # Launches per sweep: one run of each kernel's sweep, counted.
     per_sweep = {}
     sweeps_of = {
         "batched_find": (scan_kernel.batched_find, lambda: bs.find_all_device(i386_dh)),
         "batched_count": (scan_kernel.batched_count, lambda: count_bs.count_all_device(i386_dh)),
-        "match_bitmap": (scan_kernel.match_bitmap, lambda: pos_bs.positions_all(i386_dh)),
+        "match_bitmap": (scan_kernel.match_bitmap_counted, lambda: pos_bs.positions_all(i386_dh)),
+        "compact_positions": (scan_kernel.compact_positions, lambda: pos_bs.positions_all(i386_dh)),
         "memchr_find": (scan_kernel.memchr_find, lambda: scan_kernel.memchr_find(big_dh.flat, 255, big_end)),
         "pair_block": (pairwise.pair_block, ps.count_matches_device),
         "probe": (kp.probe, lambda: kp.probe("count", flat, v, m_, e, n_real=n)),
@@ -777,20 +837,26 @@ def phase_times(torch, device, card, i386_dh, bs, big_dh, count_bs, ps, pos_bs, 
         run()
         per_sweep[name] = wrapper.launches - before
     torch.cuda.synchronize()
-    bounds = sweep_bounds(torch, i386_dh, bs, pos_bs, big_end, ps, probe_setups[2])
+    bounds = sweep_bounds(torch, i386_dh, bs, pos_bs, big_end, ps, probe_setups[2], compact_calls)
     say("bounds", card=card, means="least ms for the run's work: max(INT32 ops / 16.7 T op/s, "
         "bytes / 3.35 TB/s), one op per position tested", bounds=bounds, launches_per_sweep=per_sweep)
     return times, bounds, per_sweep
 
 
-def sweep_bounds(torch, i386_dh, bs, pos_bs, big_end, ps, probe_setup) -> dict:
+def sweep_bounds(torch, i386_dh, bs, pos_bs, big_end, ps, probe_setup, compact_calls) -> dict:
     """{kernel: (bound ms, "operations" or "bytes")} for the work each
     timed kernel did in this run: one 32-bit operation per position these
     inputs need tested (find: up to each row's first match; count, bitmap
     and the ablation's count: every position below each row's limit; pair:
     up to each pair's first match or its last position; memchr: every byte
-    scanned), and every input read and output written once."""
-    from sliceslice_tpu_torch.ops.scan_kernel import bitmap_words
+    scanned; compaction: one per bitmap word it must read and one per
+    offset it writes), and every input read and output written once (the
+    bitmap: the corpus once per launch batch, tables, ends, its words and
+    item counts; the compaction: the words of the items it must read —
+    those holding a match whose rank within its row is below the cap —,
+    every item's count and first rank, and the N x cap offsets)."""
+    from sliceslice_tpu_torch.ops import torch_backend
+    from sliceslice_tpu_torch.ops.scan_kernel import BITMAP_CHUNK, bitmap_words
     from sliceslice_tpu_torch.ops.scan_math import position_limit
     from sliceslice_tpu_torch.utils.profiling import bound_ms
 
@@ -810,9 +876,20 @@ def sweep_bounds(torch, i386_dh, bs, pos_bs, big_end, ps, probe_setup) -> dict:
         find_ops += int(np.where(f >= 0, np.minimum(f + 1, lim), lim).sum())
         count_ops += int(lim.sum())
         scan_bytes += numel + 4 * g.n_pad * (2 * g.t + 2)  # corpus, tables, ends, out
+    cap = torch_backend.SPARSE_POSITIONS_CAP
     for g, lim in rows(pos_bs):
-        batches = -(-g.n // 16)
-        bitmap_bytes += batches * numel + 4 * g.n * (2 * g.t + 1 + bitmap_words(numel, g.t))
+        batches = len(torch_backend.position_batches(g.n, numel, g.t, cap))
+        n_chunks = -(-position_limit(numel, g.t) // BITMAP_CHUNK)
+        bitmap_bytes += batches * numel + 4 * g.n * (2 * g.t + 1 + bitmap_words(numel, g.t) + n_chunks)
+    compact_ops = compact_bytes = 0
+    for words, counts, chunk, cap in compact_calls:
+        first = torch.cumsum(counts, dim=0) - counts
+        live = (counts > 0) & (first < cap)
+        per_item = (words.shape[1] - chunk // 32 * torch.arange(counts.shape[0], device=counts.device))
+        read = int((live * per_item.clamp(max=chunk // 32)[:, None]).sum())
+        written = int(torch.minimum(counts.sum(dim=0), torch.tensor(cap, device=counts.device)).sum())
+        compact_ops += read + written
+        compact_bytes += 4 * read + 8 * counts.numel() + 4 * words.shape[0] * cap
     first = ps.first_matrix()
     ln = np.array([len(w) for w in ps.needles], np.int64)
     tested = np.where(first >= 0, first + 1, np.maximum(ln[None, :] - ln[:, None] + 1, 0))
@@ -824,6 +901,7 @@ def sweep_bounds(torch, i386_dh, bs, pos_bs, big_end, ps, probe_setup) -> dict:
         "batched_find": bound_ms(find_ops, scan_bytes),
         "batched_count": bound_ms(count_ops, scan_bytes),
         "match_bitmap": bound_ms(count_ops, bitmap_bytes),
+        "compact_positions": bound_ms(compact_ops, compact_bytes),
         "memchr_find": bound_ms(big_end, big_end),
         "pair_block": bound_ms(int(tested.sum()), pair_bytes),
         "probe": bound_ms(int(probe_lim.sum()), flat.numel() + 4 * (v.numel() + m.numel() + 2 * n)),
@@ -846,7 +924,8 @@ def main() -> int:
     check(len(words) == 4585 and len(hay) == 857425, "unexpected corpus files")
     wrappers = {"batched_find": scan_kernel.batched_find, "memchr_find": scan_kernel.memchr_find,
                 "batched_count": scan_kernel.batched_count, "pair_block": pairwise.pair_block,
-                "match_bitmap": scan_kernel.match_bitmap, "probe": kernel_probe.probe}
+                "match_bitmap": scan_kernel.match_bitmap_counted,
+                "compact_positions": scan_kernel.compact_positions, "probe": kernel_probe.probe}
     launches = {}
 
     def path(names, *phases):
@@ -868,7 +947,7 @@ def main() -> int:
         (phase_big, (torch, device)))
     ((count_bs, i386_total, big_counts),) = path(
         ("batched_count",), (phase_count, (torch, device, hay, words, i386_dh, big)))
-    (pos_bs,) = path(("match_bitmap",), (phase_positions, (
+    (pos_bs,) = path(("match_bitmap", "compact_positions"), (phase_positions, (
         torch, device, hay, words, i386_dh, big, i386_total, big_counts)))
     (ps,) = path(("pair_block",), (phase_pairwise, (torch, device, words)))
     ((errs["probe"], probe_setups),) = path(("probe",), (phase_probe, (torch, device, hay)))
@@ -883,15 +962,18 @@ def main() -> int:
         ("pair_block", PAIR_SOURCE, "sliceslice_tpu/ops/pairwise.py:103"),
         ("probe", PROBE_SOURCE, "scripts/kernel_probe.py:64"),
         ("match_bitmap", FIND_SOURCE, "sliceslice_tpu/ops/xla_backend.py:140 (XLA, not Pallas)"),
+        ("compact_positions", POSITIONS_SOURCE, "sliceslice_tpu/ops/xla_backend.py:195 (XLA, not Pallas)"),
     ]
     # No single PyTorch call computes any of these functions (a first
     # match, an overlapping count, a match bitmap, a first byte, a pair
-    # matrix of first matches), so library_ms is null throughout.
+    # matrix of first matches, the first `cap` set bits of each bitmap row),
+    # so library_ms is null throughout.
+    no_library = "no single PyTorch call computes this function"
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errs[name], "ms": times[name][0],
          "plain_ms": times[name][1], "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         "launches_per_sweep": per_sweep[name], "library_ms": None}
+         "launches_per_sweep": per_sweep[name], "library_ms": None, "library_note": no_library}
         for name, source, replaces in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,42 +2,45 @@
 // paths, behind a plain C interface loaded with ctypes
 // (sliceslice_tpu_torch/ops/cuda_lib.py).
 //
-// ssf_batched_find replaces the Pallas find kernel
+// ssf_queue, mode kFindMode, replaces the Pallas find kernel
 // sliceslice_tpu/ops/scan_kernel.py::_raw_batched_call (wrapped there by
-// batched_find_cols).  For each needle row n < n_real it returns the
+// batched_find_cols).  For each needle row n < rows it returns the
 // smallest position p with p + base < ends[n] such that, for every probe
 // slot i < t,
 //     (win32(p + 4i) & masks[n, i]) == values[n, i]
 // where win32(q) is the little-endian 4-byte window at byte q, as p + base
 // (int32), or SENTINEL when there is none.
 //
-// ssf_batched_count replaces the Pallas count kernel
+// ssf_queue, mode kCountMode, replaces the Pallas count kernel
 // sliceslice_tpu/ops/scan_kernel.py::_raw_count_call (wrapped there by
-// batched_count_cols): for each row n < n_real, the number of positions p
+// batched_count_cols): for each row n < rows, the number of positions p
 // with p + base < ends[n] that satisfy every slot (overlapping matches).
+//
+// ssf_queue, mode kBitmapMode, replaces the plain-XLA match bitmap of the
+// positions path, sliceslice_tpu/ops/xla_backend.py::_match_bitmap_cols_impl
+// (and its batched vmap): for each row n < rows, bit b of word w of
+// bits[n] is set iff position p = 32w + b satisfies every slot with p +
+// base < ends[n].  The bitmap is linear, where the TPU's is laid out by
+// lane.  In the same pass it writes each queue item's match count, which
+// the compaction kernel (positions.cu) turns into ranks.
 //
 // ssf_memchr_find replaces sliceslice_tpu/ops/scan_kernel.py::_memchr_call
 // (wrapped by memchr_find_cols): the first p with p + base < end at which
 // one byte value occurs, as p + base, or SENTINEL.
 //
-// ssf_match_bitmap replaces the plain-XLA match bitmap of the positions
-// path, sliceslice_tpu/ops/xla_backend.py::_match_bitmap_cols_impl (and its
-// batched vmap): for each row n < n_real, bit b of word w of out[n] is set
-// iff position p = 32w + b satisfies every slot with p + base < ends[n].
-// The bitmap is linear, where the TPU's is laid out by lane.
-//
-// What bounds find and count on the H100.  Their work is integer: one
-// funnel shift, AND and compare per position per slot tested, and almost
-// every position fails at its first slot.  The positions these inputs need
-// tested are, per row, its first match + 1 for find and its whole limit for
-// count; at one 32-bit operation each against the INT32 rate (132 SMs x 64
-// lanes x 1.98 GHz = 16.7 T op/s) that is the bound, far above the bytes
-// (the corpus, tables and outputs once each at 3.35 TB/s).  What kept the
-// first design (one block per (row, span), 4 positions per thread per
-// step) far from it was not the compares but, per the ablation kernel
-// (probe.cu, PERF.md §5), the loads, their 64-bit address math and the
-// table reads from shared memory, and, for find, the serial walk of a row
-// whose first match lies late: one block walked it tile by tile.  The
+// What bounds find, count and the bitmap on the H100.  Their work is
+// integer: one funnel shift, AND and compare per position per slot tested,
+// and almost every position fails at its first slot.  The positions these
+// inputs need tested are, per row, its first match + 1 for find and its
+// whole limit for count and the bitmap; at one 32-bit operation each
+// against the INT32 rate (132 SMs x 64 lanes x 1.98 GHz = 16.7 T op/s)
+// that is the bound, above the bytes (the corpus, tables and outputs once
+// each at 3.35 TB/s; for the bitmap its words too, one bit per position).
+// What kept the first design (one block per (row, span), 4 positions per
+// thread per step) far from it was not the compares but, per the ablation
+// kernel (probe.cu, PERF.md §5), the loads, their 64-bit address math and
+// the table reads from shared memory, and, for find, the serial walk of a
+// row whose first match lies late: one block walked it tile by tile.  The
 // design answers that:
 //   * the wide step: 256 threads each evaluate 16 consecutive positions
 //     from one 16-byte load plus one word per slot (probe_wide in
@@ -59,9 +62,13 @@
 //   * count: the same queue with no skip; each thread sums its positions'
 //     popcounts in a register and the block adds its sum once per item
 //     (block_add).  Integer sums and minima in any order are exact;
-//   * match bitmap (not redesigned): one block per (row, span), probe_word
-//     walked as the count loop once was, with one 4-byte store per 32
-//     positions that hold a match.
+//   * bitmap: count's walk, where each pair of neighbouring lanes holds the
+//     two 16-bit halves of one linear word (their 32 positions start at a
+//     multiple of 32, since chunks are whole wide tiles); one
+//     __shfl_xor_sync merges them and the even lane stores the word when it
+//     is nonzero (the wrapper zeroes the bitmap).  A word never straddles
+//     two items, so no store races another.  The item's popcount goes to
+//     item_counts[item] by block_add, one block per item.
 // The kernels allocate nothing (the wrapper zeroes the queue counter) and
 // never synchronise; each entry point returns cudaGetLastError() so the
 // caller sees a refused launch.
@@ -76,13 +83,18 @@ namespace {
 constexpr int kMemchrTile = kThreads * 16;   // bytes per memchr step
 constexpr int kCheckEvery = 8;               // steps between cross-span checks
 
+// What a queue kernel does with its items (ssf_queue's `mode`; the
+// wrapper, ops/scan_kernel.py, passes the same numbers).
+enum Mode { kFindMode = 0, kCountMode = 1, kBitmapMode = 2 };
+
 __device__ __forceinline__ int read_best(const int32_t* p) {
   return *reinterpret_cast<const volatile int32_t*>(p);
 }
 
-// One item of the chunk-major queue: positions [start, stop) of row `row`.
+// One item of the chunk-major queue: positions [start, stop) of row `row`,
+// item number idx.
 struct Item {
-  int row, start, stop;
+  int row, start, stop, idx;
 };
 
 // Thread 0 only: the next item of the queue with positions to scan, or row
@@ -97,7 +109,7 @@ __device__ __forceinline__ Item next_item(int* queue, int n_items, int rows, int
                                           int n_pos, const int32_t* out) {
   for (;;) {
     const int i = atomicAdd(queue, 1);
-    if (i >= n_items) return Item{-1, 0, 0};
+    if (i >= n_items) return Item{-1, 0, 0, 0};
     const int c = i / rows;
     const int row = i - c * rows;
     const int start = c * chunk;
@@ -105,7 +117,7 @@ __device__ __forceinline__ Item next_item(int* queue, int n_items, int rows, int
                               static_cast<long long>(n_pos));
     if (start >= lim) continue;
     if (out != nullptr && static_cast<long long>(read_best(out + row)) - base <= start) continue;
-    return Item{row, start, lim - start > chunk ? start + chunk : static_cast<int>(lim)};
+    return Item{row, start, lim - start > chunk ? start + chunk : static_cast<int>(lim), i};
   }
 }
 
@@ -162,18 +174,43 @@ __device__ __forceinline__ unsigned count_item(const uint32_t* __restrict__ hay,
   return count;
 }
 
-// find (kFind) or count over the chunk-major queue: the block takes items
+// The bitmap words of one item, stored into the row's bitmap `bits_row`,
+// and the item's matches as this thread's share of its count.  Lanes 2k and
+// 2k + 1 hold positions 32m .. 32m + 15 and 32m + 16 .. 32m + 31 (item
+// starts are multiples of kWideTile); the walk is block-uniform, so every
+// lane reaches the shuffle.
+template <int T>
+__device__ __forceinline__ unsigned bitmap_item(const uint32_t* __restrict__ hay, int n_words,
+                                                Item it, const uint32_t* val,
+                                                const uint32_t* msk, int t,
+                                                uint32_t* __restrict__ bits_row) {
+  const int len = it.stop - it.start;
+  unsigned count = 0u;
+  for (int rel0 = 0; rel0 < len; rel0 += kWideTile) {
+    const int rel = rel0 + 16 * static_cast<int>(threadIdx.x);
+    const unsigned alive =
+        rel < len ? probe_wide<T>(hay, n_words, it.start + rel, it.stop, val, msk, t) : 0u;
+    const unsigned word = alive | (__shfl_xor_sync(0xffffffffu, alive, 1) << 16);
+    if ((threadIdx.x & 1) == 0 && word != 0u) bits_row[(it.start + rel) >> 5] = word;
+    count += __popc(alive);
+  }
+  return count;
+}
+
+// find, count or bitmap over the chunk-major queue: the block takes items
 // until the queue is empty.  Thread 0 draws each live item (next_item) and
 // the block reads it from shared memory after one barrier; a barrier at
 // the end of each item keeps the shared item, first match and table from
-// being rewritten while a thread still reads them.
-template <bool kFind, int T>
+// being rewritten while a thread still reads them.  `out` is the find or
+// count output per row, or the bitmap's item counts per item; `bits` and
+// `row_words` are the bitmap's (unused by find and count).
+template <Mode kMode, int T>
 __device__ __forceinline__ void queue_loop(const uint32_t* __restrict__ hay, int n_words,
                                            int n_pos, const uint32_t* __restrict__ values,
                                            const uint32_t* __restrict__ masks,
                                            const int32_t* __restrict__ ends, int32_t* out,
                                            int rows, int t, int base, int chunk, int n_items,
-                                           int* queue) {
+                                           int* queue, uint32_t* bits, long long row_words) {
   __shared__ uint32_t s_val[T > 0 ? 1 : kMaxT];
   __shared__ uint32_t s_msk[T > 0 ? 1 : kMaxT];
   __shared__ Item s_item;
@@ -184,7 +221,7 @@ __device__ __forceinline__ void queue_loop(const uint32_t* __restrict__ hay, int
   for (;;) {
     if (threadIdx.x == 0) {
       s_item = next_item(queue, n_items, rows, chunk, ends, base, n_pos,
-                         kFind ? out : nullptr);
+                         kMode == kFindMode ? out : nullptr);
       s_first = kSentinel;
     }
     __syncthreads();
@@ -193,10 +230,13 @@ __device__ __forceinline__ void queue_loop(const uint32_t* __restrict__ hay, int
     item_table<T>(values, masks, it.row, t, val, msk, s_val, s_msk);
     const uint32_t* tv = T > 0 ? val : s_val;
     const uint32_t* tm = T > 0 ? msk : s_msk;
-    if constexpr (kFind) {
+    if constexpr (kMode == kFindMode) {
       find_item<T>(hay, n_words, it, tv, tm, t, base, &s_first, out + it.row);
-    } else {
+    } else if constexpr (kMode == kCountMode) {
       block_add(count_item<T>(hay, n_words, it, tv, tm, t), out + it.row, s_warp);
+    } else {
+      uint32_t* bits_row = bits + static_cast<long long>(it.row) * row_words;
+      block_add(bitmap_item<T>(hay, n_words, it, tv, tm, t, bits_row), out + it.idx, s_warp);
     }
     __syncthreads();
   }
@@ -212,48 +252,18 @@ __device__ __forceinline__ void queue_loop(const uint32_t* __restrict__ hay, int
 
 template <int T>
 __global__ void __launch_bounds__(kThreads) batched_find_kernel(SSF_QUEUE_PARAMS) {
-  queue_loop<true, T>(SSF_QUEUE_ARGS);
+  queue_loop<kFindMode, T>(SSF_QUEUE_ARGS, nullptr, 0);
 }
 
 template <int T>
 __global__ void __launch_bounds__(kThreads) count_kernel(SSF_QUEUE_PARAMS) {
-  queue_loop<false, T>(SSF_QUEUE_ARGS);
+  queue_loop<kCountMode, T>(SSF_QUEUE_ARGS, nullptr, 0);
 }
 
-// One row's match bitmap over one span: each thread's 4 surviving
-// positions become a nibble, and the 8 nibbles of a lane group (32
-// consecutive positions, since lane l owns positions 4l .. 4l+3 of its
-// warp's 128) are merged by three XOR shuffles into one linear word, which
-// lane 8g writes.  Only words holding a match are written: the wrapper
-// zeroes the output, and a 32-position word never straddles two spans
-// (spans are multiples of 1024), so no store races another.
+template <int T>
 __global__ void __launch_bounds__(kThreads)
-match_bitmap_kernel(const uint32_t* __restrict__ hay, long long n_pos,
-                    const uint32_t* __restrict__ values,
-                    const uint32_t* __restrict__ masks,
-                    const int32_t* __restrict__ ends, uint32_t* out, int t,
-                    long long base, long long span, long long row_words) {
-  __shared__ uint32_t s_val[kMaxT];
-  __shared__ uint32_t s_msk[kMaxT];
-
-  const int row = blockIdx.x;  // the grid holds rows < n_real only
-  long long start, stop;
-  if (!row_span(ends, row, n_pos, base, span, &start, &stop)) return;
-  load_table(values, masks, row, t, s_val, s_msk);
-  __syncthreads();
-
-  uint32_t* bits_row = out + static_cast<long long>(row) * row_words;
-  const int sub = threadIdx.x & 7;  // this lane's nibble in its word
-  // The walk is block-uniform, so every lane reaches every shuffle.
-  for (long long tile = start; tile < stop; tile += kFindTile) {
-    const long long p0 = tile + 4LL * threadIdx.x;
-    unsigned bits = p0 < stop ? probe_word(hay, p0, stop, s_val, s_msk, t) : 0u;
-    bits <<= 4 * sub;
-    bits |= __shfl_xor_sync(0xffffffffu, bits, 1);
-    bits |= __shfl_xor_sync(0xffffffffu, bits, 2);
-    bits |= __shfl_xor_sync(0xffffffffu, bits, 4);
-    if (sub == 0 && bits != 0u) bits_row[p0 >> 5] = bits;
-  }
+match_bitmap_kernel(SSF_QUEUE_PARAMS, uint32_t* bits, long long row_words) {
+  queue_loop<kBitmapMode, T>(SSF_QUEUE_ARGS, bits, row_words);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -300,32 +310,52 @@ memchr_kernel(const uint4* __restrict__ hay, long long lim, uint32_t byte,
   }
 }
 
-// The width-T instantiation of the find (kFind) or count kernel: T = t
-// for tables of up to kMaxRegT slots (held in registers), else 0.
-template <bool kFind, int T>
-void* queue_fn() {
-  return kFind ? reinterpret_cast<void*>(batched_find_kernel<T>)
-               : reinterpret_cast<void*>(count_kernel<T>);
-}
-
-template <bool kFind>
-void* queue_kernel_for(int t) {
-  switch (t) {
-    case 1: return queue_fn<kFind, 1>();
-    case 2: return queue_fn<kFind, 2>();
-    case 3: return queue_fn<kFind, 3>();
-    case 4: return queue_fn<kFind, 4>();
+// The width-T instantiation of a queue kernel: T = t for tables of up to
+// kMaxRegT slots (held in registers), else 0.
+template <int T>
+void* queue_fn(int mode) {
+  switch (mode) {
+    case kFindMode: return reinterpret_cast<void*>(batched_find_kernel<T>);
+    case kCountMode: return reinterpret_cast<void*>(count_kernel<T>);
+    case kBitmapMode: return reinterpret_cast<void*>(match_bitmap_kernel<T>);
   }
-  return queue_fn<kFind, 0>();
+  return nullptr;
 }
 
-template <bool kFind>
-int launch_queue(const void* hay, int n_words, int n_pos, const void* values,
-                 const void* masks, const void* ends, void* out, int rows, int t, int base,
-                 int chunk, int n_items, int grid, void* queue, void* stream) {
+void* queue_kernel_for(int mode, int t) {
+  switch (t) {
+    case 1: return queue_fn<1>(mode);
+    case 2: return queue_fn<2>(mode);
+    case 3: return queue_fn<3>(mode);
+    case 4: return queue_fn<4>(mode);
+  }
+  return queue_fn<0>(mode);
+}
+
+}  // namespace
+
+extern "C" {
+
+// One launch of a queue kernel (mode: 0 find, 1 count, 2 bitmap).
+// hay: n_words 32-bit words of corpus bytes (16-byte aligned).  n_pos: the
+// positions whose t windows lie inside hay, 4 * (n_words - t).  values,
+// masks: uint32[rows.., t], pre-masked.  ends: int32[rows..].  out: find,
+// int32[rows..] holding SENTINEL on entry; count, int32[rows..] holding 0;
+// bitmap, the item counts int32[n_items] holding 0.  chunk: positions per
+// item, a multiple of 4,096; n_items: rows * ceil(n_pos / chunk); grid:
+// blocks, at most the resident ones (ssf_queue_blocks x SMs); queue: one
+// int32 holding 0 on entry.  bits, row_words (bitmap only; find and count
+// ignore them): uint32[rows.., row_words] with row_words >= ceil(n_pos /
+// 32), holding 0 on entry.
+int ssf_queue(int mode, const void* hay, int n_words, int n_pos, const void* values,
+              const void* masks, const void* ends, void* out, int rows, int t, int base,
+              int chunk, int n_items, int grid, void* queue, void* bits, long long row_words,
+              void* stream) {
+  if (mode < kFindMode || mode > kBitmapMode) return static_cast<int>(cudaErrorInvalidValue);
   if (rows <= 0 || n_pos <= 0 || n_items <= 0) return static_cast<int>(cudaGetLastError());
   if (t < 1 || t > kMaxT || chunk <= 0 || chunk % kWideTile || grid <= 0 ||
-      n_pos > 4LL * (n_words - t)) {
+      n_pos > 4LL * (n_words - t) ||
+      (mode == kBitmapMode && (bits == nullptr || row_words * 32 < n_pos))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const uint32_t* h = static_cast<const uint32_t*>(hay);
@@ -334,64 +364,24 @@ int launch_queue(const void* hay, int n_words, int n_pos, const void* values,
   const int32_t* e = static_cast<const int32_t*>(ends);
   int32_t* o = static_cast<int32_t*>(out);
   int* q = static_cast<int*>(queue);
-  void* args[] = {&h, &n_words, &n_pos, &v, &m, &e, &o, &rows, &t, &base, &chunk, &n_items, &q};
+  uint32_t* b = static_cast<uint32_t*>(bits);
+  // The find and count kernels take the first 13 arguments.
+  void* args[] = {&h, &n_words, &n_pos, &v, &m, &e, &o, &rows, &t, &base, &chunk, &n_items, &q,
+                  &b, &row_words};
   const cudaError_t err =
-      cudaLaunchKernel(queue_kernel_for<kFind>(t), dim3(static_cast<unsigned>(grid)),
+      cudaLaunchKernel(queue_kernel_for(mode, t), dim3(static_cast<unsigned>(grid)),
                        dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" {
-
-// hay: n_words 32-bit words of corpus bytes (16-byte aligned).  n_pos: the
-// positions whose t windows lie inside hay, 4 * (n_words - t).  values,
-// masks: uint32[rows.., t], pre-masked.  ends, out: int32[rows..]; out must
-// hold SENTINEL on entry.  chunk: positions per item, a multiple of 4,096;
-// n_items: rows * ceil(n_pos / chunk); grid: blocks, at most the resident
-// ones (ssf_queue_blocks x SMs); queue: one int32 holding 0 on entry.
-int ssf_batched_find(const void* hay, int n_words, int n_pos, const void* values,
-                     const void* masks, const void* ends, void* out, int rows, int t,
-                     int base, int chunk, int n_items, int grid, void* queue, void* stream) {
-  return launch_queue<true>(hay, n_words, n_pos, values, masks, ends, out, rows, t, base,
-                            chunk, n_items, grid, queue, stream);
-}
-
-// The same operands as ssf_batched_find; out must hold 0 on entry.
-int ssf_batched_count(const void* hay, int n_words, int n_pos, const void* values,
-                      const void* masks, const void* ends, void* out, int rows, int t,
-                      int base, int chunk, int n_items, int grid, void* queue, void* stream) {
-  return launch_queue<false>(hay, n_words, n_pos, values, masks, ends, out, rows, t, base,
-                             chunk, n_items, grid, queue, stream);
-}
-
-// Blocks of the find (find != 0) or count kernel for width-t tables that
-// one SM holds at once, into *per_sm.
-int ssf_queue_blocks(int find, int t, void* per_sm) {
-  if (t < 1 || t > kMaxT) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      static_cast<int*>(per_sm), find ? queue_kernel_for<true>(t) : queue_kernel_for<false>(t),
-      kThreads, 0));
-}
-
-// The same operands as ssf_batched_find; out: uint32[n_real.., row_words]
-// with row_words >= ceil(n_pos / 32), holding 0 on entry.
-int ssf_match_bitmap(const void* hay, long long n_pos, const void* values,
-                     const void* masks, const void* ends, void* out,
-                     int n_real, int t, long long base, long long span,
-                     int n_spans, long long row_words, void* stream) {
-  if (n_real <= 0 || n_pos <= 0) return static_cast<int>(cudaGetLastError());
-  if (t < 1 || t > kMaxT || row_words * 32 < n_pos) {
+// Blocks of the mode's width-t queue kernel that one SM holds at once,
+// into *per_sm.
+int ssf_queue_blocks(int mode, int t, void* per_sm) {
+  if (t < 1 || t > kMaxT || mode < kFindMode || mode > kBitmapMode) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(static_cast<unsigned>(n_real), static_cast<unsigned>(n_spans));
-  match_bitmap_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(hay), n_pos,
-      static_cast<const uint32_t*>(values), static_cast<const uint32_t*>(masks),
-      static_cast<const int32_t*>(ends), static_cast<uint32_t*>(out), t, base,
-      span, row_words);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      static_cast<int*>(per_sm), queue_kernel_for(mode, t), kThreads, 0));
 }
 
 // hay: 16-byte aligned corpus bytes; lim: bytes to scan (end - base, at

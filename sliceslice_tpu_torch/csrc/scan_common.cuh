@@ -8,11 +8,11 @@
 // where win32(q) is the little-endian 4-byte window at byte q, built from
 // two aligned words by __funnelshift_r:
 //   * probe_word: 4 positions per thread from one aligned word and one more
-//     word per slot (the match-bitmap kernel and the ablation kernel's
-//     variants other than `wide`);
+//     word per slot (the ablation kernel's variants other than `wide`, and
+//     probe_wide's last group before the buffer's end);
 //   * probe_wide: 16 positions per thread from one 16-byte load plus one
-//     word, then one more word per slot (the find and count kernels and the
-//     ablation kernel's `wide`).  Per position it spends a quarter of
+//     word, then one more word per slot (the find, count and match-bitmap
+//     kernels and the ablation kernel's `wide`).  Per position it spends a quarter of
 //     probe_word's loads and address math, which the ablation (PERF.md §5)
 //     found to be half of the old loop's time.  Its offsets are 32-bit: a
 //     layout is below 2^31 bytes.

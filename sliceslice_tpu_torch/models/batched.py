@@ -267,17 +267,19 @@ class BatchedSearcher:
     def positions_all(
         self,
         hay: HaystackLike,
-        batch: int = 16,
+        batch: Optional[int] = None,
         sparse_cap: int = torch_backend.SPARSE_POSITIONS_CAP,
     ) -> List[np.ndarray]:
         """ALL (overlapping) match offsets per needle, in input order — the
         batched ``find_iter`` capability, in the JAX package's two tiers:
-        ``batch`` rows of a width group at a time, one match bitmap each on
-        the layout's device; a row with at most ``sparse_cap`` matches
-        reads back its offsets (``sparse_cap`` words), a denser one its
-        bitmap (corpus/8 bytes) for a host decode.  A flat layout on the
-        card is re-laid there; one elsewhere is scanned on the host, as in
-        the JAX package."""
+        per width group, as many rows at a time as the positions budget
+        holds (at most ``batch`` when given; ``torch_backend.
+        position_batches``), one bitmap launch and one compaction launch
+        each on the layout's device; a row with at most ``sparse_cap``
+        matches reads back its offsets, a denser one its bitmap (corpus/8
+        bytes) for a host decode.  A flat layout on the card is re-laid
+        there; one elsewhere is scanned on the host, as in the JAX
+        package."""
         dh = self._full_scan_layout(hay)
         if not dh.tiled:
             data = dh.host_bytes
@@ -288,13 +290,13 @@ class BatchedSearcher:
         for g in self.groups:
             g.sync_host()  # indices in the device tables' row order
             ends = g.ends_dev(dh.length)
-            for i0 in range(0, g.n, batch):
-                i1 = min(i0 + batch, g.n)
+            batches = torch_backend.position_batches(g.n, dh.flat.numel(), g.t, sparse_cap, batch)
+            for i0, i1 in batches:
                 res = torch_backend.two_tier_positions(
                     dh.flat, g.values_dev[i0:i1], g.masks_dev[i0:i1], ends[i0:i1], sparse_cap
                 )
-                for j, p in enumerate(res):
-                    out[g.indices[i0 + j]] = p
+                for j, p in zip(g.indices[i0:i1].tolist(), res):
+                    out[j] = p
         return out  # type: ignore[return-value]
 
     def optimize_for(

@@ -1,22 +1,22 @@
 """Portable torch-ops searcher — the counterpart of the JAX package's
 ``XlaSearcher``: the same probe algorithm as plain tensor code on any
 device, with no kernel.  The differential path the kernels are held
-against.  Its count and its positions' match bitmap run as plain torch
-ops on the layout's device, so a layout on the card is never counted or
-scanned on the host."""
+against.  Its count and its positions (the match bitmap and its
+compaction) run as plain torch ops on the layout's device, so a layout on
+the card is never counted or scanned on the host."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from ..needle import probe_program
-from ..ops import scan_kernel, torch_backend
+from ..ops import torch_backend
 from ..ops.layout import DeviceHaystack
 from ..searcher import SearcherBase
 
 
 class TorchSearcher(SearcherBase):
-    _bitmap = staticmethod(scan_kernel.match_bitmap_plain)
+    _plain_positions = True
 
     def __init__(self, needle, position=None, *, device="cuda"):
         super().__init__(needle, position, device=device)

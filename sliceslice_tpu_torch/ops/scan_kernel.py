@@ -1,25 +1,26 @@
 """Kernel wrappers of the find, count and positions paths:
-``batched_find``, ``batched_count``, ``match_bitmap`` and ``memchr_find``.
+``batched_find``, ``batched_count``, ``match_bitmap_counted`` (and
+``match_bitmap``), ``compact_positions`` and ``memchr_find``.
 
-Each wrapper launches its hand-written CUDA kernel (``csrc/find.cu``) for a
-haystack on a CUDA device and runs its plain PyTorch version, defined
-beside it with the same signature, for a haystack on the CPU.  Any other
-device raises; nothing falls back from the card to the CPU.  Each wrapper
-counts its kernel launches in a plain integer attribute, ``launches``.
+Each wrapper launches its hand-written CUDA kernel (``csrc/find.cu``,
+``csrc/positions.cu``) for a tensor on a CUDA device and runs its plain
+PyTorch version, defined beside it with the same signature, for a tensor
+on the CPU.  Any other device raises; nothing falls back from the card to
+the CPU.  Each wrapper counts its kernel launches in a plain integer
+attribute, ``launches``.
 
 ``batched_find`` replaces ``sliceslice_tpu/ops/scan_kernel.py``'s
 ``batched_find_cols`` over the Pallas find kernel, ``batched_count`` its
 ``batched_count_cols`` over the Pallas count kernel, ``memchr_find`` its
-``memchr_find_cols``, and ``match_bitmap`` the plain-XLA
-``xla_backend.match_bitmap_batched`` of the positions path (linear here).
-The find and count kernels take work items (row, chunk of positions) from
-a queue in chunk-major order (:func:`plan_queue`); the bitmap kernel runs
-one block per (row, span) (:func:`plan_spans`).  The haystack is the flat
+``memchr_find_cols``, ``match_bitmap_counted`` the plain-XLA
+``xla_backend.match_bitmap_batched`` of the positions path (linear here)
+and ``compact_positions`` its ``compact_positions_batched``.  The find,
+count and bitmap kernels take work items (row, chunk of positions) from a
+queue in chunk-major order (:func:`plan_queue`).  The haystack is the flat
 layout of :mod:`.layout`: positions are byte offsets into it, and its zero
-halo must cover
-``needed_halo_for_t(t)`` bytes past the last valid position.  Positions
-whose probe windows would run past the buffer are never evaluated, by
-either version.
+halo must cover ``needed_halo_for_t(t)`` bytes past the last valid
+position.  Positions whose probe windows would run past the buffer are
+never evaluated, by either version.
 """
 
 from __future__ import annotations
@@ -34,7 +35,14 @@ import torch
 from .. import config
 from ..config import SENTINEL
 from . import cuda_lib
-from .scan_math import first_offsets, match_bits, match_counts, position_limit, table_bits
+from .scan_math import (
+    first_offsets,
+    match_bits,
+    match_counts,
+    popcount32,
+    position_limit,
+    table_bits,
+)
 
 #: Probe-table widths up to this are exact width groups in
 #: ``BatchedSearcher``; wider tables are bucketed (the JAX unroll limit).
@@ -42,10 +50,10 @@ PROBE_UNROLL = 8
 #: Widest probe table the find and count kernels take (``MAX_NEEDLE_LEN / 4``).
 MAX_T = 512
 
-#: Positions the match-bitmap and ablation kernels evaluate per block step
-#: (4 per thread), positions the find and count kernels evaluate per block
-#: step (16 per thread), bytes the memchr kernel reads per block step
-#: (csrc/scan_common.cuh kFindTile / kWideTile, csrc/find.cu kMemchrTile).
+#: Positions the ablation kernel evaluates per block step (4 per thread),
+#: positions the queue kernels evaluate per block step (16 per thread),
+#: bytes the memchr kernel reads per block step (csrc/scan_common.cuh
+#: kFindTile / kWideTile, csrc/find.cu kMemchrTile).
 FIND_TILE = 1024
 WIDE_TILE = 4096
 MEMCHR_TILE = 4096
@@ -58,12 +66,17 @@ BLOCKS_PER_SM = 16
 #: of WIDE_TILE: of 16 K, 32 K and 64 K, the smallest that loses no more
 #: than the spread on the i386 sweep (PERF.md).  Count's items never
 #: overshoot, so it gains from fewer, longer ones; find's overshoot each
-#: row's first match.
+#: row's first match.  The bitmap walks every position as count does, so
+#: it takes count's chunk; its items are also the compaction's.
 FIND_CHUNK = 1 << 15
 COUNT_CHUNK = 1 << 16
-#: Widest table the find and count kernels hold in registers
-#: (csrc/scan_common.cuh kMaxRegT); wider ones share one instantiation.
+BITMAP_CHUNK = COUNT_CHUNK
+#: Widest table the queue kernels hold in registers (csrc/scan_common.cuh
+#: kMaxRegT); wider ones share one instantiation.
 MAX_REG_T = 4
+#: The queue kernels' modes (csrc/find.cu ``Mode``) and their chunks.
+FIND, COUNT, BITMAP = 0, 1, 2
+_CHUNKS = {FIND: FIND_CHUNK, COUNT: COUNT_CHUNK, BITMAP: BITMAP_CHUNK}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -95,7 +108,7 @@ def plan_spans(n_pos: int, rows: int, tile: int, sms: int) -> tuple[int, int]:
 
 
 class QueuePlan(NamedTuple):
-    """One launch of the find or count kernel (csrc/find.cu): a persistent
+    """One launch of a queue kernel (csrc/find.cu): a persistent
     grid of ``grid`` blocks takes ``n_items`` items from a zeroed int32
     counter; item ``i`` is positions ``[c * chunk, (c + 1) * chunk)`` of row
     ``i % rows``, with ``c = i // rows``, cut at the row's limit
@@ -125,12 +138,13 @@ def plan_queue(nbytes: int, t: int, rows: int, resident: int, chunk: int) -> Que
 
 
 @functools.lru_cache(maxsize=32)
-def _resident_blocks(index: int, find: bool, t_class: int) -> int:
-    """Blocks of the find or count kernel's width-``t_class`` instantiation
-    that CUDA device ``index`` holds at once (blocks per SM times SMs)."""
+def _resident_blocks(index: int, mode: int, t_class: int) -> int:
+    """Blocks of the ``mode`` queue kernel's width-``t_class``
+    instantiation that CUDA device ``index`` holds at once (blocks per SM
+    times SMs)."""
     per_sm = ctypes.c_int(0)
     with torch.cuda.device(index):
-        err = cuda_lib.load().ssf_queue_blocks(int(find), t_class, ctypes.byref(per_sm))
+        err = cuda_lib.load().ssf_queue_blocks(mode, t_class, ctypes.byref(per_sm))
     cuda_lib.check(err, "ssf_queue_blocks")
     return per_sm.value * _sm_count(index)
 
@@ -185,53 +199,33 @@ def _operands(hay, values, masks, ends, base):
     return base, values, masks, ends
 
 
-def _launch_queue(find: bool, hay, values, masks, ends, out, base: int, n_real: int) -> bool:
-    """One launch of the find (``find``) or count kernel over rows below
-    ``n_real`` on its work queue (:func:`plan_queue`), writing into
-    ``out``; False when there is nothing to scan."""
+def _queue_plan(mode: int, hay, t: int, rows: int) -> QueuePlan:
+    """The work queue of one ``mode`` launch over ``rows`` rows, for the
+    card that holds ``hay``."""
+    resident = _resident_blocks(hay.device.index, mode, min(t, MAX_REG_T + 1))
+    return plan_queue(hay.numel(), t, rows, resident, _CHUNKS[mode])
+
+
+def _launch_queue(mode: int, plan: QueuePlan, hay, values, masks, ends, out, base: int,
+                  n_real: int, bits=None) -> bool:
+    """One launch of the ``mode`` queue kernel over rows below ``n_real``
+    on ``plan``, writing into ``out`` (and, for the bitmap, ``bits``);
+    False when there is nothing to scan."""
     values, masks, ends = values.contiguous(), masks.contiguous(), ends.contiguous()
     _cuda_ready(hay, values, masks, ends)
-    t = values.shape[1]
-    if n_real == 0:
-        return False
-    index = hay.device.index
-    plan = plan_queue(hay.numel(), t, n_real, _resident_blocks(index, find, min(t, MAX_REG_T + 1)),
-                      FIND_CHUNK if find else COUNT_CHUNK)
-    if plan.n_items == 0:
+    if n_real == 0 or plan.n_items == 0:
         return False
     queue = torch.zeros((1,), dtype=torch.int32, device=hay.device)
-    entry = "ssf_batched_find" if find else "ssf_batched_count"
     with torch.cuda.device(hay.device):
-        err = getattr(cuda_lib.load(), entry)(
-            hay.data_ptr(), plan.n_words, plan.n_pos, values.data_ptr(), masks.data_ptr(),
-            ends.data_ptr(), out.data_ptr(), n_real, t, base, plan.chunk, plan.n_items,
-            plan.grid, queue.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        err = cuda_lib.load().ssf_queue(
+            mode, hay.data_ptr(), plan.n_words, plan.n_pos, values.data_ptr(), masks.data_ptr(),
+            ends.data_ptr(), out.data_ptr(), n_real, values.shape[1], base, plan.chunk,
+            plan.n_items, plan.grid, queue.data_ptr(), 0 if bits is None else bits.data_ptr(),
+            0 if bits is None else bits.shape[1], torch.cuda.current_stream().cuda_stream,
         )
-    cuda_lib.check(err, entry)
+    cuda_lib.check(err, "ssf_queue")
     return True
 
-
-def _launch_spans(entry: str, hay, values, masks, ends, out, base: int, n_real: int, *extra) -> bool:
-    """One launch of the match-bitmap kernel (``entry``), one block per
-    (row, span) over rows below ``n_real``, writing into ``out``, with the
-    entry's ``extra`` arguments before the stream; False when there is
-    nothing to scan."""
-    values, masks, ends = values.contiguous(), masks.contiguous(), ends.contiguous()
-    _cuda_ready(hay, values, masks, ends)
-    t = values.shape[1]
-    n_pos = position_limit(hay.numel(), t)
-    if n_real == 0 or n_pos == 0:
-        return False
-    lib = cuda_lib.load()
-    with torch.cuda.device(hay.device):
-        span, n_spans = plan_spans(n_pos, n_real, FIND_TILE, _sm_count(torch.cuda.current_device()))
-        err = getattr(lib, entry)(
-            hay.data_ptr(), n_pos, values.data_ptr(), masks.data_ptr(),
-            ends.data_ptr(), out.data_ptr(), n_real, t, base, span, n_spans, *extra,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    cuda_lib.check(err, entry)
-    return True
 
 
 def batched_find_plain(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor:
@@ -266,9 +260,11 @@ def batched_find(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor:
         return batched_find_plain(hay, values, masks, ends, base, n_real)
     if device.type != "cuda":
         raise ValueError(f"no find kernel for device {device}")
-    n = values.shape[0]
+    n, t = values.shape
+    n_real = _n_real(n_real, n)
     out = torch.full((n,), SENTINEL, dtype=torch.int32, device=device)
-    if _launch_queue(True, hay, values, masks, ends, out, base, _n_real(n_real, n)):
+    plan = _queue_plan(FIND, hay, t, n_real)
+    if _launch_queue(FIND, plan, hay, values, masks, ends, out, base, n_real):
         batched_find.launches += 1
     return out
 
@@ -306,9 +302,11 @@ def batched_count(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor
         return batched_count_plain(hay, values, masks, ends, base, n_real)
     if device.type != "cuda":
         raise ValueError(f"no count kernel for device {device}")
-    n = values.shape[0]
+    n, t = values.shape
+    n_real = _n_real(n_real, n)
     out = torch.zeros((n,), dtype=torch.int32, device=device)
-    if _launch_queue(False, hay, values, masks, ends, out, base, _n_real(n_real, n)):
+    plan = _queue_plan(COUNT, hay, t, n_real)
+    if _launch_queue(COUNT, plan, hay, values, masks, ends, out, base, n_real):
         batched_count.launches += 1
     return out
 
@@ -318,8 +316,9 @@ batched_count.launches = 0
 
 def bitmap_words(nbytes: int, t: int) -> int:
     """Words per row of :func:`match_bitmap`'s output over an ``nbytes``
-    haystack and width-``t`` tables: one bit per evaluated position."""
-    return -(-position_limit(nbytes, t) // 32)
+    haystack and width-``t`` tables: one bit per evaluated position, in
+    whole 16-byte groups (the compaction kernel reads 4 words at a time)."""
+    return _round_up(-(-position_limit(nbytes, t) // 32), 4)
 
 
 def match_bitmap_plain(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor:
@@ -345,22 +344,122 @@ def match_bitmap(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor:
     32w + b`` satisfies every slot and ``p + base < ends[n]``: positions
     are layout offsets, ``base`` moves only the end bound.  Rows at or past
     ``n_real`` are never scanned and stay 0.  As for counts, ``ends`` must
-    exclude positions past ``length - k + 1``."""
+    exclude positions past ``length - k + 1``.  The bitmaps of
+    :func:`match_bitmap_counted`, whose launches it counts."""
+    return match_bitmap_counted(hay, values, masks, ends, base, n_real)[0]
+
+
+def item_counts_of(words: torch.Tensor, chunk: int, n_chunks: int) -> torch.Tensor:
+    """int32[n_chunks, N]: the set bits of each row of the linear bitmaps
+    ``words`` in each chunk of ``chunk`` positions (a multiple of 128)."""
+    n, w = words.shape
+    cw = chunk // 32
+    pc = torch.nn.functional.pad(popcount32(words), (0, n_chunks * cw - w))
+    return pc.view(n, n_chunks, cw).sum(dim=2, dtype=torch.int32).T.contiguous()
+
+
+def match_bitmap_counted_plain(hay, values, masks, ends, base=0, n_real=None):
+    """Plain PyTorch version of :func:`match_bitmap_counted` (same
+    signature and answers)."""
+    n, t = values.shape
+    words = match_bitmap_plain(hay, values, masks, ends, base, n_real)
+    plan = plan_queue(hay.numel(), t, _n_real(n_real, n), 1, BITMAP_CHUNK)
+    return words, item_counts_of(words, plan.chunk, plan.n_chunks), plan.chunk
+
+
+def match_bitmap_counted(hay, values, masks, ends, base=0, n_real=None):
+    """:func:`match_bitmap`'s bitmaps and the match count of each of the
+    bitmap kernel's queue items, from one launch: ``(words int32[N, W],
+    item_counts int32[n_chunks, N], chunk)``, where ``item_counts[c, n]``
+    is the number of set bits of row ``n`` at positions ``[c * chunk, (c +
+    1) * chunk)``.  A row's total is the sum over ``c``; the exclusive
+    cumsum over ``c`` ranks each item's first match within its row, which
+    is what :func:`compact_positions` needs."""
     base, values, masks, ends = _operands(hay, values, masks, ends, base)
     device = hay.device
     if device.type == "cpu":
-        return match_bitmap_plain(hay, values, masks, ends, base, n_real)
+        return match_bitmap_counted_plain(hay, values, masks, ends, base, n_real)
     if device.type != "cuda":
         raise ValueError(f"no match-bitmap kernel for device {device}")
     n, t = values.shape
-    words = bitmap_words(hay.numel(), t)
-    out = torch.zeros((n, words), dtype=torch.int32, device=device)
-    if _launch_spans("ssf_match_bitmap", hay, values, masks, ends, out, base, _n_real(n_real, n), words):
-        match_bitmap.launches += 1
-    return out
+    n_real = _n_real(n_real, n)
+    plan = _queue_plan(BITMAP, hay, t, n_real)
+    words = torch.zeros((n, bitmap_words(hay.numel(), t)), dtype=torch.int32, device=device)
+    counts = torch.zeros((plan.n_chunks, n_real), dtype=torch.int32, device=device)
+    if _launch_queue(BITMAP, plan, hay, values, masks, ends, counts, base, n_real, words):
+        match_bitmap_counted.launches += 1
+    if n_real < n:
+        counts = torch.nn.functional.pad(counts, (0, n - n_real))
+    return words, counts, plan.chunk
 
 
-match_bitmap.launches = 0
+match_bitmap_counted.launches = 0
+
+
+def compact_positions_plain(words, item_counts, chunk, cap):
+    """Plain PyTorch version of :func:`compact_positions` (same signature
+    and answers).  It reads only ``words``: counts are popcounts, and only
+    the words up to a row's ``cap``-th match are expanded (nonzero words,
+    then bits), so a dense row costs no more than a sparse one."""
+    n = words.shape[0]
+    cap = int(cap)
+    device = words.device
+    pc = popcount32(words)
+    counts = pc.sum(dim=1, dtype=torch.int32)
+    before = torch.cumsum(pc, dim=1, dtype=torch.int32) - pc  # matches in earlier words
+    r, w = torch.nonzero((words != 0) & (before < cap), as_tuple=True)
+    shifts = torch.arange(32, dtype=torch.int64, device=device)
+    bits = ((words[r, w].to(torch.int64)[:, None] >> shifts) & 1).to(torch.int32)
+    rank = before[r, w][:, None] + torch.cumsum(bits, dim=1, dtype=torch.int32) - bits
+    k, b = torch.nonzero((bits != 0) & (rank < cap), as_tuple=True)
+    offsets = torch.full((n, cap), SENTINEL, dtype=torch.int32, device=device)
+    offsets[r[k], rank[k, b]] = (32 * w[k] + b).to(torch.int32)
+    return counts, offsets
+
+
+def compact_positions(words, item_counts, chunk, cap):
+    """``(counts int32[N], offsets int32[N, cap])`` of linear match bitmaps
+    (the JAX ``compact_positions_batched`` contract): each row's match
+    count and its ``cap`` earliest offsets, ascending, SENTINEL past the
+    count, on the bitmaps' device.  ``words``, ``item_counts`` and
+    ``chunk`` are :func:`match_bitmap_counted`'s; the kernel takes each
+    row's count from ``item_counts`` and each item's first rank from their
+    exclusive cumsum over chunks."""
+    cap = int(cap)
+    if cap < 0:
+        raise ValueError(f"cap={cap} is negative")
+    device = words.device
+    if device.type == "cpu":
+        return compact_positions_plain(words, item_counts, chunk, cap)
+    if device.type != "cuda":
+        raise ValueError(f"no compaction kernel for device {device}")
+    n, row_words = words.shape
+    if (words.dtype != torch.int32 or item_counts.dtype != torch.int32 or item_counts.dim() != 2
+            or item_counts.shape[1] != n or row_words % 4 or chunk % WIDE_TILE
+            or item_counts.device != device):
+        raise ValueError("compact_positions takes match_bitmap_counted's words, item counts and chunk")
+    words, item_counts = words.contiguous(), item_counts.contiguous()
+    if words.data_ptr() % 16:
+        raise ValueError("bitmap buffer must be 16-byte aligned")
+    counts = item_counts.sum(dim=0, dtype=torch.int32)
+    first = torch.cumsum(item_counts, dim=0, dtype=torch.int32) - item_counts
+    offsets = torch.full((n, cap), SENTINEL, dtype=torch.int32, device=device)
+    n_items = item_counts.numel()
+    if n_items == 0 or cap == 0:
+        return counts, offsets
+    grid = min(n_items, BLOCKS_PER_SM * _sm_count(device.index))
+    with torch.cuda.device(device):
+        err = cuda_lib.load().ssf_compact_positions(
+            words.data_ptr(), row_words, n, n_items, chunk, item_counts.data_ptr(),
+            first.data_ptr(), cap, offsets.data_ptr(), grid,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    cuda_lib.check(err, "ssf_compact_positions")
+    compact_positions.launches += 1
+    return counts, offsets
+
+
+compact_positions.launches = 0
 
 
 def memchr_find_plain(hay, byte, end, base=0) -> torch.Tensor:

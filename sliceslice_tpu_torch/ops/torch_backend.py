@@ -5,14 +5,15 @@ short-haystack rung (on any device), the differential path behind
 ``TorchSearcher``, whose count (:func:`count_cols`) keeps a layout on the
 card from being counted on the host, and the two-tier positions protocol.
 These were plain XLA in the JAX package, so they stay plain tensor code
-here, but for the match bitmap under the positions, which is a kernel
-(``scan_kernel.match_bitmap``); the hand-written kernels live in
+here, but for the match bitmap and its compaction under the positions,
+which are kernels (``scan_kernel.match_bitmap_counted`` and
+``scan_kernel.compact_positions``); the hand-written kernels live in
 :mod:`.scan_kernel`.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,7 +24,6 @@ from .scan_math import (
     first_offsets,
     match_counts,
     packed_windows,
-    popcount32,
     position_limit,
     table_bits,
 )
@@ -97,46 +97,41 @@ def count_cols(flat, values, masks, end) -> torch.Tensor:
 #
 # The JAX package's two tiers: rows with at most ``cap`` matches read back
 # their ``cap`` earliest offsets, denser rows their packed bitmap for a host
-# decode.  Here both tiers come from one bitmap per row, made by the match
-# bitmap kernel on the card (its plain version on the CPU): the compact
-# offsets are cut from it with torch ops on its device.
+# decode.  Here both tiers come from one bitmap per row: the match-bitmap
+# kernel writes it with each queue item's match count, and the compaction
+# kernel cuts the compact offsets from it (their plain versions on the
+# CPU).  One launch of each per batch of rows, as many rows as
+# :data:`POSITIONS_BUDGET_BYTES` allows.
 
 #: Default sparse-positions budget of every two-tier positions path.
 SPARSE_POSITIONS_CAP = 4096
+#: Device bytes one launch batch of the positions protocol may hold: its
+#: rows' bitmaps, item counts and compact offsets.
+POSITIONS_BUDGET_BYTES = 1 << 30
 
 
-def match_bitmap_batched(flat, values, masks, ends, bitmap: Callable = scan_kernel.match_bitmap):
+def position_batches(rows: int, nbytes: int, t: int, cap: int,
+                     batch: Optional[int] = None) -> List[Tuple[int, int]]:
+    """Row ranges ``[i0, i1)`` of the launch batches of ``rows`` width-``t``
+    rows over an ``nbytes`` layout: as many rows per batch as
+    :data:`POSITIONS_BUDGET_BYTES` holds (each row's bitmap, item counts
+    and ``cap`` offsets), at most ``batch`` when given, at least one."""
+    words = scan_kernel.bitmap_words(nbytes, t)
+    chunks = -(-position_limit(nbytes, t) // scan_kernel.BITMAP_CHUNK)
+    per = max(1, POSITIONS_BUDGET_BYTES // (4 * (words + chunks + max(int(cap), 0))))
+    if batch is not None:
+        per = min(per, max(1, int(batch)))
+    return [(i0, min(i0 + per, rows)) for i0 in range(0, rows, per)]
+
+
+def match_bitmap_batched(flat, values, masks, ends):
     """Linear match bitmaps of N probe programs over a kernel layout:
     int32[N, W] uint32 bit patterns, bit ``b`` of word ``w`` set iff a
     valid match starts at ``32w + b`` (``pos < ends[n]`` applied; the JAX
-    ``match_bitmap_batched``, whose TPU layout is by lane).  ``bitmap`` is
-    the wrapper that makes them (``scan_kernel.match_bitmap_plain`` keeps
-    even a CUDA layout off the kernel).  N * corpus/8 bytes: callers chunk
-    N."""
+    ``match_bitmap_batched``, whose TPU layout is by lane).  N * corpus/8
+    bytes: callers batch N (:func:`position_batches`)."""
     _, values, masks, ends = scan_kernel._operands(flat, values, masks, ends, 0)
-    return bitmap(flat, values, masks, ends)
-
-
-def compact_from_bitmap(words: torch.Tensor, cap: int):
-    """``(counts int32[N], offsets int32[N, cap])`` of linear bitmaps: each
-    row's match count and its ``cap`` earliest offsets, ascending,
-    SENTINEL-filled past the count, on the bitmap's device.  Only the words
-    up to a row's ``cap``-th match are expanded (nonzero words, then
-    bits), so a dense row costs no more than a sparse one; the two
-    ``nonzero`` calls are the only host syncs."""
-    n = words.shape[0]
-    device = words.device
-    pc = popcount32(words)
-    counts = pc.sum(dim=1, dtype=torch.int32)
-    before = torch.cumsum(pc, dim=1, dtype=torch.int32) - pc  # matches in earlier words
-    r, w = torch.nonzero((words != 0) & (before < cap), as_tuple=True)
-    shifts = torch.arange(32, dtype=torch.int64, device=device)
-    bits = ((words[r, w].to(torch.int64)[:, None] >> shifts) & 1).to(torch.int32)
-    rank = before[r, w][:, None] + torch.cumsum(bits, dim=1, dtype=torch.int32) - bits
-    k, b = torch.nonzero((bits != 0) & (rank < cap), as_tuple=True)
-    offsets = torch.full((n, cap), SENTINEL, dtype=torch.int32, device=device)
-    offsets[r[k], rank[k, b]] = (32 * w[k] + b).to(torch.int32)
-    return counts, offsets
+    return scan_kernel.match_bitmap(flat, values, masks, ends)
 
 
 def compact_positions_batched(flat, values, masks, ends, cap: int):
@@ -144,30 +139,49 @@ def compact_positions_batched(flat, values, masks, ends, cap: int):
     int32[N], offsets int32[N, cap])`` ascending, SENTINEL-filled.  Rows
     with at most ``cap`` matches get all of them; denser rows their ``cap``
     earliest, and the caller falls back to the bitmap for them."""
-    return compact_from_bitmap(match_bitmap_batched(flat, values, masks, ends), int(cap))
+    words, item_counts, chunk = scan_kernel.match_bitmap_counted(flat, values, masks, ends)
+    return scan_kernel.compact_positions(words, item_counts, chunk, int(cap))
 
 
-def two_tier_positions(flat, values, masks, ends, cap: int,
-                       bitmap: Callable = scan_kernel.match_bitmap) -> List[np.ndarray]:
-    """The two-tier all-positions protocol over one batch: one bitmap per
-    row on the layout's device; rows with at most ``cap`` matches take
-    their compact offsets (``cap`` words of readback each), denser rows
-    their bitmap (corpus/8 bytes each), decoded on the host.  Returns int64
-    ascending offset arrays, one per row."""
-    words = match_bitmap_batched(flat, values, masks, ends, bitmap)
-    counts, offsets = compact_from_bitmap(words, int(cap))
-    # One readback of the counts and every row's compact offsets; the
-    # dense rows' bitmaps follow in a second.
-    both = torch.cat([counts[:, None], offsets], dim=1).cpu().numpy()
-    out: List[Optional[np.ndarray]] = [
-        row[1 : 1 + row[0]].astype(np.int64) if row[0] <= cap else None for row in both
-    ]
-    dense = [j for j, row in enumerate(both) if row[0] > cap]
-    if dense:
-        rows = words[torch.tensor(dense, device=words.device)].cpu().numpy()
+def two_tier_positions(flat, values, masks, ends, cap: int, plain: bool = False) -> List[np.ndarray]:
+    """The two-tier all-positions protocol over one launch batch: one
+    bitmap launch and one compaction launch on the layout's device (their
+    plain versions there when ``plain``); rows with at most ``cap`` matches
+    take their compact offsets, denser rows their bitmap (corpus/8 bytes
+    each), decoded on the host.  Three readbacks at most: the counts, the
+    sparse rows' used offsets packed on the device, and the dense rows'
+    bitmaps in one gathered copy.  Returns int64 ascending offset arrays,
+    one per row."""
+    _, values, masks, ends = scan_kernel._operands(flat, values, masks, ends, 0)
+    cap = int(cap)
+    if plain:
+        words, item_counts, chunk = scan_kernel.match_bitmap_counted_plain(flat, values, masks, ends)
+        counts, offsets = scan_kernel.compact_positions_plain(words, item_counts, chunk, cap)
+    else:
+        words, item_counts, chunk = scan_kernel.match_bitmap_counted(flat, values, masks, ends)
+        counts, offsets = scan_kernel.compact_positions(words, item_counts, chunk, cap)
+    n, device = words.shape[0], words.device
+    cnt = counts.cpu().numpy()
+    lens = np.where(cnt <= cap, cnt, 0).astype(np.int64)
+    total = int(lens.sum())
+    packed = np.zeros((0,), np.int64)
+    if total:
+        # The sparse rows' used slots, row after row: slot j of the packed
+        # run of row r is offsets[r, j], flat index r * cap + j.
+        lens_dev = torch.from_numpy(lens).to(device)
+        starts = torch.cumsum(lens_dev, 0) - lens_dev
+        row0 = torch.arange(n, dtype=torch.int64, device=device) * cap - starts
+        idx = torch.repeat_interleave(row0, lens_dev, output_size=total)
+        idx += torch.arange(total, dtype=torch.int64, device=device)
+        packed = offsets.view(-1)[idx].cpu().numpy().astype(np.int64)
+    stops = np.cumsum(lens).tolist()
+    out = [packed[a:b] for a, b in zip([0] + stops[:-1], stops)]
+    dense = np.flatnonzero(cnt > cap)
+    if dense.size:
+        rows = words[torch.from_numpy(dense).to(device)].cpu().numpy()
         for j, row in zip(dense, rows):
             out[j] = decode_match_bitmap(row)
-    return out  # type: ignore[return-value]
+    return out
 
 
 def decode_match_bitmap(words: np.ndarray) -> np.ndarray:

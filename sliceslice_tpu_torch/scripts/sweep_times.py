@@ -1,6 +1,7 @@
-"""Times of the find and count kernels over the i386 sweep, per width group.
+"""Times of the find, count and positions sweeps over i386.
 
     python3 sliceslice_tpu_torch/scripts/sweep_times.py [--tree DIR] [--chunks 16384,32768,65536]
+    python3 sliceslice_tpu_torch/scripts/sweep_times.py --positions [--tree DIR]
 
 All 4,585 words of ``data/words.txt`` over ``data/i386.txt`` on the first
 CUDA card, after ``optimize_for``, as the smoke's sweeps run them: per
@@ -15,6 +16,15 @@ checkouts one after the other on the same card.  ``--chunks`` times the find and
 count kernels with both work-queue chunks set to each value in turn (a
 checkout whose kernels have no queue ignores it).  Prints the card's name and power limit, then one JSON line
 per chunk.  It checks every find answer against ``bytes.find`` first.
+
+``--positions`` times the positions sweep instead: ``positions_all`` of
+the same words after ``optimize_for`` (each call reads its answers back),
+``--reps`` calls between two CUDA events, 5 samples, after checking every
+answer against the host positions scan; then a torch.profiler trace of 4
+calls (device µs per call, the card's idle share, device events per call,
+and the device µs per call of the match-bitmap and compaction kernels),
+and a cProfile run of 4 calls (the host functions with the most own time,
+ms per call; cProfile slows the host's Python).  One JSON line.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ import argparse
 import json
 import os
 import sys
+from typing import Optional
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -59,11 +70,13 @@ def sweep_times(torch, bs, dh, device, reps: int = 32, samples: int = 5) -> dict
     return out
 
 
-def trace_share(torch, fn, reps: int = 8) -> dict:
+def trace_share(torch, fn, reps: int = 8, groups: Optional[dict] = None) -> dict:
     """One torch.profiler trace of ``reps`` calls of ``fn``: per call, the
     device time of its kernels (overlaps merged), the span from the first
     kernel's start to the last one's end, the card's idle share of that
-    span, and the device µs per kernel name."""
+    span, the device events, the device µs per kernel name, and for each
+    ``groups`` entry (label: substring of kernel names) the device µs of
+    the kernels whose names hold it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -83,8 +96,57 @@ def trace_share(torch, fn, reps: int = 8) -> dict:
         end = max(end, b)
         by_name[name] = by_name.get(name, 0.0) + (b - a) / reps
     span = end - spans[0][0]
+    grouped = {label: sum(us for name, us in by_name.items() if part in name)
+               for label, part in (groups or {}).items()}
     return {"device_us": busy / reps, "span_us": span / reps, "idle_share": 1 - busy / span,
+            "device_events": len(spans) / reps, "grouped_us": grouped,
             "kernels_us": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])}
+
+
+def positions_times(torch, bs, hay: bytes, dh, device, reps: int = 4, samples: int = 5) -> dict:
+    """The sustained positions sweep (``reps`` ``positions_all`` calls
+    between two CUDA events; low, median, high ms per call) and a trace of
+    it, after checking every answer against the host positions scan."""
+    import numpy as np
+
+    from sliceslice_tpu_torch.searcher import _host_positions
+    from sliceslice_tpu_torch.utils.profiling import measure
+
+    got = bs.positions_all(dh)
+    bad = sum(not np.array_equal(g, _host_positions(hay, w)) for g, w in zip(got, bs.needles))
+    if bad:
+        raise SystemExit(f"positions of {bad} words differ from the host scan")
+    m = measure(lambda: [bs.positions_all(dh) for _ in range(reps)], "positions sweep", warmup=1,
+                samples=samples, device=device)
+    trace = trace_share(torch, lambda: bs.positions_all(dh), reps=4,
+                        groups={"match_bitmap": "match_bitmap_kernel", "compaction": "compact_kernel"})
+    return {"sweep_ms": [x * 1e3 / reps for x in (m.low, m.estimate, m.high)],
+            "matches": sum(len(p) for p in got), "trace": trace,
+            "host_ms": host_profile(torch, lambda: bs.positions_all(dh))}
+
+
+def host_profile(torch, fn, reps: int = 4, top: int = 10) -> dict:
+    """{"total": ms, "file:line:function": own ms, ...} per call of
+    ``fn`` under cProfile (host clock), the ``top`` functions by own
+    time."""
+    import cProfile
+    import pstats
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    out = {"total": (time.perf_counter() - t0) * 1e3 / reps}
+    stats = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][2])[:top]
+    for (path, line, name), (_, _, own, _, _) in stats:
+        out[f"{os.path.basename(path)}:{line}:{name}"] = own * 1e3 / reps
+    return out
 
 
 def one_row_times(torch, hay: bytes, dh, device, reps: int = 32, samples: int = 5) -> dict:
@@ -115,6 +177,7 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(HERE)))
     ap.add_argument("--chunks", default="")
     ap.add_argument("--reps", type=int, default=32)
+    ap.add_argument("--positions", action="store_true")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -135,6 +198,12 @@ def main(argv=None) -> int:
     if not np.array_equal(bs.find_all(dh), exp):
         raise SystemExit("find answers differ from bytes.find")
     bs.optimize_for(dh)
+    if args.positions:
+        reps = min(args.reps, 4)
+        row = {"tree": tree, "groups": {g.t: g.n for g in bs.groups},
+               "positions": positions_times(torch, bs, hay, dh, device, reps)}
+        print(json.dumps(row), flush=True)
+        return 0
     queued = hasattr(scan_kernel, "FIND_CHUNK")
     chunks = [int(c) for c in args.chunks.split(",") if c] if queued else []
     for chunk in chunks or [None]:

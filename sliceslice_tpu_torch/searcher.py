@@ -28,7 +28,7 @@ import torch
 
 from .config import SENTINEL
 from .needle import Needle, NeedleLike, needed_halo, probe_program
-from .ops import scan_kernel, torch_backend
+from .ops import torch_backend
 from .ops.layout import SHORT_HAY_BYTES, DeviceHaystack, preprocess, resolve_device
 
 HaystackLike = Union[bytes, bytearray, memoryview, np.ndarray, str, DeviceHaystack]
@@ -156,9 +156,10 @@ class SearcherBase:
     def positions(self, hay: HaystackLike) -> np.ndarray:
         """ALL (overlapping) match offsets, ascending (int64[M]) — the
         ``find_iter`` capability of memchr-class libraries.  Device path:
-        one match bitmap per needle (the match-bitmap kernel on the card),
-        read back as the ``SPARSE_POSITIONS_CAP`` earliest offsets when the
-        needle has no more, else whole and decoded on the host.  Host bytes
+        one match bitmap per needle and its compaction (the match-bitmap
+        and compaction kernels on the card), read back as the
+        ``SPARSE_POSITIONS_CAP`` earliest offsets when the needle has no
+        more, else the bitmap, whole and decoded on the host.  Host bytes
         of at most ``SHORT_HAY_BYTES`` are scanned on the host, as are a
         flat layout and a trivially short haystack off the card; a flat
         layout on the card is re-laid there (``kernel_layout``)."""
@@ -184,15 +185,16 @@ class SearcherBase:
         """Iterator over all (overlapping) match offsets, ascending."""
         return iter(self.positions(hay).tolist())
 
-    #: The wrapper that makes a match bitmap for :meth:`positions`.
-    _bitmap = staticmethod(scan_kernel.match_bitmap)
+    #: Whether :meth:`positions` runs the bitmap and compaction kernels'
+    #: plain versions (on the layout's device) instead of the kernels.
+    _plain_positions = False
 
     def _positions_device(self, dh: DeviceHaystack) -> np.ndarray:
         values, masks = probe_program(self.needle.data)
         end = np.asarray([dh.length - self.needle.size + 1], np.int32)
         return torch_backend.two_tier_positions(
             dh.flat, np.asarray([values], np.uint32), np.asarray([masks], np.uint32), end,
-            torch_backend.SPARSE_POSITIONS_CAP, self._bitmap,
+            torch_backend.SPARSE_POSITIONS_CAP, plain=self._plain_positions,
         )[0]
 
     def _trivial_count(self, data: Optional[bytes], k: int) -> int:

@@ -88,9 +88,36 @@ def _queue_cases(hay: bytes, t: int):
             hay[: k]]
 
 
+#: Compaction caps the card tests run: inside a word, inside an item, the
+#: default.
+CAPS = (1, 7, 64, 4096)
+
+
+def _check_positions_kernels(dh, v, m, e, base=0, n_real=None):
+    """The bitmap kernel (words, item counts, chunk) and the compaction
+    kernel at every cap against their plain versions on one table, each
+    launch counted; two bitmap launches give the same answers.  Returns the
+    kernel's words and row totals."""
+    before = scan_kernel.match_bitmap_counted.launches
+    words, counts, chunk = scan_kernel.match_bitmap_counted(dh.flat, v, m, e, base=base, n_real=n_real)
+    assert scan_kernel.match_bitmap_counted.launches == before + 1
+    again = scan_kernel.match_bitmap_counted(dh.flat, v, m, e, base=base, n_real=n_real)
+    plain = scan_kernel.match_bitmap_counted_plain(dh.flat, v, m, e, base=base, n_real=n_real)
+    for other in (again, plain):
+        assert torch.equal(words, other[0]) and torch.equal(counts, other[1]) and chunk == other[2]
+    for cap in CAPS:
+        before = scan_kernel.compact_positions.launches
+        got = scan_kernel.compact_positions(words, counts, chunk, cap)
+        assert scan_kernel.compact_positions.launches == before + 1
+        ref = scan_kernel.compact_positions_plain(words, counts, chunk, cap)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), cap
+    return words, counts.sum(dim=0, dtype=torch.int32)
+
+
 def _check_queue_kernels(cuda, hay, dh, needles, t, ends, base=0, n_real=None):
-    """Find and count kernels against their plain versions and the host
-    oracles on one table; two launches give the same answers."""
+    """Find, count, bitmap and compaction kernels against their plain
+    versions and the host oracles on one table; two launches give the same
+    answers, and the bitmap's row totals are the counts."""
     vals, msks, lens = build_probe_table(needles, t_max=t)
     v, m = table_bits(vals, cuda), table_bits(msks, cuda)
     e = torch.from_numpy(np.asarray(ends, np.int64).astype(np.int32)).to(cuda)
@@ -100,6 +127,8 @@ def _check_queue_kernels(cuda, hay, dh, needles, t, ends, base=0, n_real=None):
     cnt = scan_kernel.batched_count(dh.flat, v, m, e, base=base, n_real=n_real)
     assert torch.equal(cnt, scan_kernel.batched_count(dh.flat, v, m, e, base=base, n_real=n_real))
     assert torch.equal(cnt, scan_kernel.batched_count_plain(dh.flat, v, m, e, base=base, n_real=n_real))
+    _, totals = _check_positions_kernels(dh, v, m, e, base, n_real)
+    assert torch.equal(totals, cnt)
     return got.cpu().tolist(), cnt.cpu().tolist()
 
 
@@ -341,6 +370,9 @@ def test_pair_kernel_refuses_bad_operands(cuda):
 
 @pytest.mark.parametrize("t", [1, 2, 3, 5, 16])
 def test_match_bitmap_kernel_equals_plain(cuda, t):
+    """The bitmap and compaction kernels against their plain versions and
+    the host positions: present, absent, last-position, zero-tail and dense
+    needles, base > 0 and n_real < n, every cap."""
     rng = np.random.default_rng(200 + t)
     hay = _hay(t, 300_000)
     dh = preprocess(hay, kh=needed_halo_for_t(t), device=cuda)
@@ -356,10 +388,8 @@ def test_match_bitmap_kernel_equals_plain(cuda, t):
     for base, n_real in ((0, n), (4096, n - 6)):
         e = torch.from_numpy(np.where(ends > 0, ends + base, 0).astype(np.int32)).to(cuda)
         v, m = table_bits(vals, cuda), table_bits(msks, cuda)
-        before = scan_kernel.match_bitmap.launches
-        got = scan_kernel.match_bitmap(dh.flat, v, m, e, base=base, n_real=n_real)
-        assert scan_kernel.match_bitmap.launches == before + 1
-        assert torch.equal(got, scan_kernel.match_bitmap_plain(dh.flat, v, m, e, base=base, n_real=n_real))
+        got, _ = _check_positions_kernels(dh, v, m, e, base, n_real)
+        assert torch.equal(got, scan_kernel.match_bitmap(dh.flat, v, m, e, base=base, n_real=n_real))
         words = got.cpu().numpy()
         for i, nd in enumerate(needles):
             exp = _host_positions(hay, nd) if i < n_real else np.zeros(0, np.int64)
@@ -409,31 +439,42 @@ def test_probe_kernel_refuses_bad_variants(cuda):
         kernel_probe.probe("full", dh.flat, values, masks, ends)
 
 
+def _launches():
+    return scan_kernel.match_bitmap_counted.launches, scan_kernel.compact_positions.launches
+
+
 def test_positions_on_card(cuda):
     """Positions of card layouts: i386 words before and after
-    optimize_for, both tiers, every DynamicSearcher arm, and a flat layout
-    kept without host bytes, scanned by the bitmap kernel on the card."""
+    optimize_for, both tiers, one bitmap and one compaction launch per
+    width group (all 4,585 words, one launch batch each), every
+    DynamicSearcher arm, and a flat layout kept without host bytes,
+    scanned by the kernels on the card."""
     hay = open(os.path.join(DATA, "i386.txt"), "rb").read()
     words = [w for w in open(os.path.join(DATA, "words.txt"), "rb").read().split(b"\n") if w]
     sample = words[::29] + [b"e", b"", hay[-3:] + b"\0"]
     dh = preprocess(hay, kh=24, device=cuda)
     bs = BatchedSearcher(sample, device=cuda)
     exp = [_host_positions(hay, w).tolist() for w in sample]
-    before = scan_kernel.match_bitmap.launches
+    b0, c0 = _launches()
     assert [p.tolist() for p in bs.positions_all(dh)] == exp
-    assert scan_kernel.match_bitmap.launches > before
+    assert _launches() == (b0 + len(bs.groups), c0 + len(bs.groups))
     bs.optimize_for(dh)
     assert [p.tolist() for p in bs.positions_all(dh, batch=7, sparse_cap=64)] == exp
+    full = BatchedSearcher(words, device=cuda)
+    b0, c0 = _launches()
+    got = full.positions_all(dh)
+    assert _launches() == (b0 + len(full.groups), c0 + len(full.groups)) and len(full.groups) == 6
+    assert [len(p) for p in got] == full.count_all(dh).tolist()
     for nd in (b"", b"e", b"the", hay[-9:], b"Protected Mode", hay[-2:] + b"\0"):
         assert DynamicSearcher(nd, device=cuda).positions(dh).tolist() == _host_positions(hay, nd).tolist()
     small = _hay(11, 3000)
     flat = preprocess(small, keep_host=False, device=cuda)
     assert not flat.tiled
     for nd in (small[100:103], b"a", small[-5:], small[-2:] + b"\0", b"\x7f\x7f"):
-        before = scan_kernel.match_bitmap.launches
+        b0, c0 = _launches()
         assert DynamicSearcher(nd, device=cuda).positions(flat).tolist() == _host_positions(small, nd).tolist()
-        assert scan_kernel.match_bitmap.launches == before + 1
+        assert _launches() == (b0 + 1, c0 + 1)
         assert TorchSearcher(nd, device=cuda).positions(flat).tolist() == _host_positions(small, nd).tolist()
-        assert scan_kernel.match_bitmap.launches == before + 1
+        assert _launches() == (b0 + 1, c0 + 1)
     got = BatchedSearcher([b"a", small[7:12]], device=cuda).positions_all(flat)
     assert [p.tolist() for p in got] == [_host_positions(small, nd).tolist() for nd in (b"a", small[7:12])]

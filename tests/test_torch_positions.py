@@ -255,7 +255,7 @@ def test_plain_match_bitmap_matches_jax(t, rng):
     tdh = preprocess(hay, kh=needed_halo_for_t(t), force_cols=True, device=CPU)
     jwords = np.asarray(jxb.match_bitmap_batched(jdh.require_cols(), values, masks, ends, jdh.s))
     n = len(needles)
-    before = tsk.match_bitmap.launches
+    before = tsk.match_bitmap_counted.launches
     for base, n_real in ((0, None), (4096, n - 3)):
         e = np.where(ends > 0, ends + base, 0).astype(np.int32)
         got = tsk.match_bitmap(tdh.flat, values, masks, e, base=base, n_real=n_real)
@@ -264,7 +264,7 @@ def test_plain_match_bitmap_matches_jax(t, rng):
         for j in range(n):
             exp = jxb.decode_match_bitmap(jwords[j], jdh.s).tolist() if j < real else []
             assert torch_backend.decode_match_bitmap(got[j].numpy()).tolist() == exp, (t, base, j)
-    assert tsk.match_bitmap.launches == before
+    assert tsk.match_bitmap_counted.launches == before
 
 
 def test_positions_searchers_and_layouts(i386_small):

@@ -1,0 +1,227 @@
+"""The redesigned positions path against the JAX package on the CPU: the
+bitmap wrapper's counted form (``match_bitmap_counted``: words, per-item
+match counts and the chunk), the compaction wrapper
+(``compact_positions``), the launch-batch plan of ``positions_all`` and the
+two-tier protocol around them.  The port runs its plain versions here; the
+JAX package its plain-XLA ``match_bitmap_batched`` and
+``compact_positions_batched``.  Every comparison is exact.  The CUDA
+kernels themselves are held against these plain versions on the card by
+tests/test_torch_gpu.py and chip_smoke.py."""
+
+import numpy as np
+import pytest
+import torch
+
+import sliceslice_tpu as jst
+import sliceslice_tpu.ops.xla_backend as jxb
+import sliceslice_tpu_torch.ops.scan_kernel as tsk
+from sliceslice_tpu_torch import BatchedSearcher, preprocess
+from sliceslice_tpu_torch.config import SENTINEL
+from sliceslice_tpu_torch.needle import build_probe_table, needed_halo_for_t
+from sliceslice_tpu_torch.ops import torch_backend
+from sliceslice_tpu_torch.searcher import _host_positions
+
+#: The CPU tests run the kernels' plain versions: the port's entry points
+#: take the card unless asked for the CPU.
+CPU = "cpu"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _corpus(rng, n: int) -> bytes:
+    """A 4-letter body (short needles recur, so some rows are dense) and a
+    tail of unique bytes (a tail needle's only match is the last valid
+    position)."""
+    body = rng.integers(97, 101, n - 64, dtype=np.uint8)
+    return np.concatenate([body, rng.permutation(np.arange(192, 256, dtype=np.uint8))]).tobytes()
+
+
+def _needles(hay: bytes, rng, t: int) -> list:
+    """Needles of the lengths of one width-t table: present, at the last
+    valid position, ending in a zero byte (it also matches in the layout's
+    zero halo past the corpus) and a dense run of one letter."""
+    out = []
+    for k in range(max(1, 4 * (t - 1) + 1), 4 * t + 1):
+        start = int(rng.integers(0, len(hay) - 64 - k))
+        out += [hay[start : start + k], hay[-k:], hay[len(hay) - k + 1 :] + b"\0", b"a" * k]
+    return out
+
+
+@pytest.mark.parametrize("t", list(range(1, 9)) + [16])
+def test_plain_bitmap_counted_matches_jax(t, rng):
+    """Words, per-item counts and chunk of the plain bitmap against JAX's
+    bitmap (decoded) and compact counts on identical tables: three items a
+    row, ``base > 0``, rows past ``n_real`` and ends that cut a
+    16-position group (7 positions short, or past the corpus)."""
+    hay = _corpus(rng, 2 * tsk.BITMAP_CHUNK + 9_000)
+    needles = _needles(hay, rng, t)
+    values, masks, lengths = build_probe_table(needles, t_max=t)
+    n = len(needles)
+    ends = np.maximum(len(hay) - lengths + 1, 0)
+    ends[1::3] = np.maximum(ends[1::3] - 7, 0)
+    ends[2::5] += 5
+    ends = ends.astype(np.int32)
+    jdh = jst.preprocess(hay, kh=needed_halo_for_t(t), force_cols=True)
+    tdh = preprocess(hay, kh=needed_halo_for_t(t), force_cols=True, device=CPU)
+    cols = jdh.require_cols()
+    jwords = np.asarray(jxb.match_bitmap_batched(cols, values, masks, ends, jdh.s))
+    jcounts = np.asarray(jxb.compact_positions_batched(cols, values, masks, ends, jdh.s, 64)[0])
+    before = tsk.match_bitmap_counted.launches
+    for base, n_real in ((0, None), (4096, n - 5)):
+        e = np.where(ends > 0, ends + base, 0).astype(np.int32)
+        words, counts, chunk = tsk.match_bitmap_counted(tdh.flat, values, masks, e, base=base, n_real=n_real)
+        real = n if n_real is None else n_real
+        n_chunks = -(-tsk.position_limit(tdh.flat.numel(), t) // chunk)
+        assert chunk == tsk.BITMAP_CHUNK and n_chunks == 3
+        assert words.shape == (n, tsk.bitmap_words(tdh.flat.numel(), t)) and words.dtype == torch.int32
+        assert counts.shape == (n_chunks, n) and counts.dtype == torch.int32
+        for j in range(n):
+            exp = jxb.decode_match_bitmap(jwords[j], jdh.s) if j < real else np.zeros(0, np.int64)
+            got = torch_backend.decode_match_bitmap(words[j].numpy())
+            assert got.tolist() == exp.tolist(), (t, base, j)
+            per_item = np.bincount(exp // chunk, minlength=n_chunks)
+            assert counts[:, j].tolist() == per_item.tolist(), (t, base, j)
+            assert int(counts[:, j].sum()) == (int(jcounts[j]) if j < real else 0), (t, base, j)
+    assert tsk.match_bitmap_counted.launches == before
+
+
+@pytest.mark.parametrize("cap", [1, 7, 64, 4096])
+def test_plain_compaction_matches_jax(cap, rng):
+    """The compaction wrapper on the CPU against JAX
+    ``compact_positions_batched``, counts and offsets, with caps that end
+    inside a word and inside an item: a dense row (a quarter of all
+    positions), a row planted every 18,000 bytes (its matches spread over
+    four items), an absent row, a zero-tail row and an empty-end row."""
+    hay = bytearray(_corpus(rng, 3 * tsk.BITMAP_CHUNK + 5_000))
+    for p in range(1_000, len(hay) - 100, 18_000):
+        hay[p : p + 6] = b"\xf0PLNT\xf1"
+    hay = bytes(hay)
+    needles = [b"a", b"\xf0PLNT\xf1", b"\xfe\xfd", hay[-3:] + b"\0", b"ab", b"abc"]
+    values, masks, lengths = build_probe_table(needles, t_max=2)
+    ends = np.maximum(len(hay) - lengths + 1, 0).astype(np.int32)
+    ends[-1] = 0
+    jdh = jst.preprocess(hay, kh=needed_halo_for_t(2), force_cols=True)
+    tdh = preprocess(hay, kh=needed_halo_for_t(2), force_cols=True, device=CPU)
+    jcnt, jpos = (np.asarray(x) for x in
+                  jxb.compact_positions_batched(jdh.require_cols(), values, masks, ends, jdh.s, cap))
+    words, item_counts, chunk = tsk.match_bitmap_counted(tdh.flat, values, masks, ends)
+    before = tsk.compact_positions.launches
+    counts, offsets = tsk.compact_positions(words, item_counts, chunk, cap)
+    assert tsk.compact_positions.launches == before
+    assert counts.dtype == offsets.dtype == torch.int32 and offsets.shape == (len(needles), cap)
+    assert counts.tolist() == jcnt.tolist()
+    assert offsets.tolist() == jpos.tolist()
+    assert torch.equal(offsets, torch_backend.compact_positions_batched(tdh.flat, values, masks, ends, cap)[1])
+    for j, nd in enumerate(needles[:-1]):
+        exp = _host_positions(hay, nd)
+        assert int(counts[j]) == exp.size
+        take = min(cap, exp.size)
+        assert offsets[j, :take].tolist() == exp[:take].tolist()
+        assert (offsets[j, take:] == SENTINEL).all()
+    dense = _host_positions(hay, b"a")
+    planted = _host_positions(hay, b"\xf0PLNT\xf1")
+    assert planted.size > 7 and len(set(planted[:8] // chunk)) > 1
+    # The cap-th match of the dense row shares its word and its item with
+    # the next match: the compaction stops inside both.
+    assert dense[cap - 1] // 32 == dense[cap] // 32 and dense[cap - 1] // chunk == dense[cap] // chunk
+    if cap == 7:  # the planted row's cap-th match lies inside its second item
+        assert planted[cap - 1] // chunk == planted[cap] // chunk == 1
+
+
+def test_compaction_item_counts_steer_ranks(rng):
+    """The plain compaction reads only the words: counts and offsets do not
+    depend on the item counts handed beside them, while the kernel takes
+    its ranks from them (held equal to popcounts on the card)."""
+    hay = _corpus(rng, tsk.BITMAP_CHUNK + 4_000)
+    tdh = preprocess(hay, kh=16, force_cols=True, device=CPU)
+    values, masks, lengths = build_probe_table([b"ab", b"ba", b"\xfe\xfe"])
+    ends = (len(hay) - lengths + 1).astype(np.int32)
+    words, item_counts, chunk = tsk.match_bitmap_counted(tdh.flat, values, masks, ends)
+    assert torch.equal(item_counts, tsk.item_counts_of(words, chunk, item_counts.shape[0]))
+    c1, o1 = tsk.compact_positions_plain(words, item_counts, chunk, 100)
+    c2, o2 = tsk.compact_positions_plain(words, torch.zeros_like(item_counts), chunk, 100)
+    assert torch.equal(c1, c2) and torch.equal(o1, o2)
+    assert torch.equal(c1, item_counts.sum(dim=0, dtype=torch.int32))
+
+
+def test_position_batches_plan(words):
+    """The launch-batch plan as a pure function: i386's 4,585 words take one
+    batch per width group; 40 rows over a 256 MiB corpus (40 x 32 MiB of
+    bitmap) take two; ``batch`` caps the rows per batch when given; every
+    plan covers its rows once, in order, one row at least per batch."""
+    with open("data/i386.txt", "rb") as f:
+        hay = f.read()
+    dh = preprocess(hay, kh=24, device=CPU)
+    bs = BatchedSearcher(words, device=CPU)
+    cap = torch_backend.SPARSE_POSITIONS_CAP
+    plans = [torch_backend.position_batches(g.n, dh.flat.numel(), g.t, cap) for g in bs.groups]
+    assert [len(p) for p in plans] == [1] * len(bs.groups) and sum(g.n for g in bs.groups) == 4585
+    assert [p[0] for p in plans] == [(0, g.n) for g in bs.groups]
+    big = (256 << 20) + 64
+    plan = torch_backend.position_batches(40, big, 16, cap)
+    assert len(plan) == 2
+    for rows, batch in ((4585, 5), (2206, 7), (40, 8), (3, 8), (1, None), (0, None)):
+        plan = torch_backend.position_batches(rows, dh.flat.numel(), 2, cap, batch)
+        assert [i for r in plan for i in range(*r)] == list(range(rows))
+        assert all(0 < i1 - i0 <= (batch or rows) for i0, i1 in plan)
+    assert torch_backend.position_batches(3, 1 << 34, 1, cap) == [(0, 1), (1, 2), (2, 3)]
+    per_row = 4 * (tsk.bitmap_words(big, 16) + cap + -(-tsk.position_limit(big, 16) // tsk.BITMAP_CHUNK))
+    assert all((i1 - i0) * per_row <= torch_backend.POSITIONS_BUDGET_BYTES for i0, i1 in plan)
+
+
+def test_positions_all_default_batch_matches_jax(i386_small, words):
+    """``positions_all`` with the default batch (the budget: one launch
+    batch per width group here) against JAX ``positions_all`` and the host
+    scan, with a sparse cap that sends the common words to the dense
+    tier."""
+    nds = [w for w in words[:60] if w] + [b"e", b"th", b"", b"\xff\xfe\xfd", i386_small[-5:]]
+    jdh = jst.preprocess(i386_small, kh=24)
+    tdh = preprocess(i386_small, kh=24, device=CPU)
+    bs = BatchedSearcher(nds, device=CPU)
+    for cap in (torch_backend.SPARSE_POSITIONS_CAP, 16):
+        ref = jst.BatchedSearcher(nds).positions_all(jdh, sparse_cap=cap)
+        got = bs.positions_all(tdh, sparse_cap=cap)
+        assert len(got) == len(nds)
+        for nd, g, r in zip(nds, got, ref):
+            assert g.dtype == np.int64
+            assert g.tolist() == r.tolist() == _host_positions(i386_small, nd).tolist(), nd
+    assert any(len(_host_positions(i386_small, nd)) > 16 for nd in nds)
+
+
+@pytest.mark.parametrize("cap", [0, 1, 3, 4096])
+def test_two_tier_positions_tiers(cap, rng):
+    """The protocol over one batch on the CPU, with the plain versions and
+    without: every row equal to the host scan whichever tier it takes
+    (none, some or all rows over the cap), rows with no match empty."""
+    hay = _corpus(rng, 30_000)
+    needles = [b"ab", hay[100:108], b"\xfe\xfd", hay[-4:], b"abcd"]
+    values, masks, lengths = build_probe_table(needles)
+    ends = (len(hay) - lengths + 1).astype(np.int32)
+    tdh = preprocess(hay, kh=16, force_cols=True, device=CPU)
+    for plain in (False, True):
+        got = torch_backend.two_tier_positions(tdh.flat, values, masks, ends, cap, plain=plain)
+        assert [g.tolist() for g in got] == [_host_positions(hay, nd).tolist() for nd in needles]
+        assert all(g.dtype == np.int64 for g in got)
+    assert torch_backend.two_tier_positions(tdh.flat, values[:0], masks[:0], ends[:0], cap) == []
+
+
+def test_compaction_wrapper_refuses_other_devices():
+    """No compaction kernel for a tensor off the CPU and the card; a
+    negative cap is refused before any device is touched."""
+    meta = torch.empty((2, 8), dtype=torch.int32, device="meta")
+    counts = torch.empty((1, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no compaction kernel"):
+        tsk.compact_positions(meta, counts, tsk.BITMAP_CHUNK, 4)
+    with pytest.raises(ValueError, match="negative"):
+        tsk.compact_positions(torch.zeros((2, 8), dtype=torch.int32), counts, tsk.BITMAP_CHUNK, -1)
+    values, masks, _ = build_probe_table([b"abc"])
+    with pytest.raises(ValueError, match="no match-bitmap kernel"):
+        tsk.match_bitmap_counted(torch.empty(1024, dtype=torch.uint8, device="meta"), values, masks,
+                                 np.asarray([5], np.int32))
