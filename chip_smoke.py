@@ -10,7 +10,12 @@ kernels also on their work queue's hard cases: t = 1..8, 16, 32, 512, a
 match only in a row's last chunk, absent rows, one-row launches over 1 MiB
 and 256 MiB, ends inside a 16-position group and at the buffer's last
 words, ``base > 0``, ``n_real < n``, repeated launches, compaction caps 1,
-7, 64 and 4096), and drives the port's main paths against host oracles:
+7, 64 and 4096; the pair-block kernel on the hard cases of
+``sliceslice_tpu_torch/scripts/pair_cases.py``: tiles in both directions,
+lengths on the plan's buckets, needles equal to their words, empty and
+1-byte needles, rows and tables longer than the kernel's unrolled loads,
+unsorted lists, skipped blocks, padded rows, two launches alike), and
+drives the port's main paths against host oracles:
 
 * find: ``preprocess`` -> ``BatchedSearcher.find_all`` over all 4,585
   words of data/words.txt in the 857,425-byte data/i386.txt, then
@@ -26,15 +31,18 @@ words, ``base > 0``, ``n_real < n``, repeated launches, compaction caps 1,
   kept without host bytes, and the 256 MiB corpus's needles, against the
   host positions oracle;
 * the all-pairs sweep: ``PairwiseSearcher`` over the length-sorted words,
-  all 21,022,225 pairs, against ``bytes.find``;
+  all 21,022,225 pairs, against ``bytes.find``; 32 ``count_matches_device``
+  calls must make 32 launches and no plan upload;
 * the ablation harness: every variant of the probe kernel at t = 1, 2, 3
   over the JAX harness's tables (4,585 rows over i386), against its plain
-  version and the count and find kernels;
+  version and the count and find kernels, and the counting variants over
+  the real words' tables against the count kernel;
 
 then times the sweeps, each kernel (the find and count kernels per width
-group, and the count kernel against the ablation harness's ``count``
-variant, the first count loop on its one-block-per-(row, span) plan, in
-turns) and the ablation table with CUDA events.  Every phase prints one
+group; the pair kernel's device time in both modes; the count kernel, the
+harness's ``count`` variant, which must come within 5% of it, its ``word``
+variant, the first count loop, and its ``prefilter`` and ``nomask`` variants
+over the real words' tables, in turns) and the ablation table with CUDA events.  Every phase prints one
 line and its seconds; any failure raises and exits non-zero.  The
 next-to-last lines are a JSON object describing the kernels (times, bound
 and what sets it, launches per sweep) and the card's name and power
@@ -59,10 +67,16 @@ PROBE_SOURCE = "sliceslice_tpu_torch/csrc/probe.cu"
 POSITIONS_SOURCE = "sliceslice_tpu_torch/csrc/positions.cu"
 BIG_BYTES = 256 * 1024 * 1024
 SWEEPS = 32
+#: Launches per timed sample of an ablation variant (12 variants at three
+#: widths: the table is the longest of the timed phases).
+ABLATION_SWEEPS = 8
 #: positions_all sweeps per timed sample (each reads its answers back).
 POSITION_SWEEPS = 4
 #: Probe-table widths the ablation harness runs.
 PROBE_TS = (1, 2, 3)
+#: How far the ablation harness's `count` variant may lie from the count
+#: kernel it is built from, as a share of the kernel's time, in turns.
+HARNESS_TOLERANCE = 0.05
 #: Compaction caps held against the plain version: inside a word, inside
 #: an item, the default.
 CAPS = (1, 7, 64, 4096)
@@ -219,6 +233,20 @@ def _random_words(rng, count: int, max_len: int):
             for _ in range(count)] + [b""]
 
 
+def _pair_checks(torch, pairwise, args, exp, what) -> int:
+    """The pair kernel in both modes, two launches each, against its plain
+    version and the ``bytes.find`` answers ``exp``; returns the largest
+    difference from the plain version."""
+    plain, cnt_plain = pairwise.pair_block_plain(*args), pairwise.pair_block_plain(*args, count=True)
+    check(np.array_equal(plain.cpu().numpy(), exp), f"pair plain version != bytes.find ({what})")
+    got, again = pairwise.pair_block(*args), pairwise.pair_block(*args)
+    cnt, cnt_again = pairwise.pair_block(*args, count=True), pairwise.pair_block(*args, count=True)
+    check(torch.equal(got, again) and int(cnt) == int(cnt_again), f"pair kernel: two launches differ ({what})")
+    check(torch.equal(got, plain) and int(cnt) == int(cnt_plain), f"pair kernel != plain ({what})")
+    check(int(cnt) == int((exp >= 0).sum()), f"pair kernel count != bytes.find ({what})")
+    return max(_err(got, plain), abs(int(cnt) - int(cnt_plain)))
+
+
 def phase_kernels(torch, device):
     """Find, count, match-bitmap, compaction, memchr and pair-block kernels
     against their plain versions (and the host oracles) on the card."""
@@ -227,6 +255,7 @@ def phase_kernels(torch, device):
     from sliceslice_tpu_torch.needle import build_probe_table, needed_halo_for_t
     from sliceslice_tpu_torch.ops import pairwise, scan_kernel, torch_backend
     from sliceslice_tpu_torch.ops.scan_math import table_bits
+    from sliceslice_tpu_torch.scripts import pair_cases
     from sliceslice_tpu_torch.searcher import _host_positions
 
     rng = np.random.default_rng(1234)
@@ -317,21 +346,23 @@ def phase_kernels(torch, device):
         ps = PairwiseSearcher(ws, block=block, device=device)
         pk, lh, _, _ = ps._pack_hay(hs)
         args = (ps._values, ps._masks, ps._ln, pk, lh, ps._plan(hs), block)
-        got, plain = pairwise.pair_block(*args), pairwise.pair_block_plain(*args)
-        cnt, cnt_plain = pairwise.pair_block(*args, count=True), pairwise.pair_block_plain(*args, count=True)
-        pair_err = max(pair_err, int((got - plain).abs().max()), abs(int(cnt) - int(cnt_plain)))
-        check(torch.equal(got, plain) and int(cnt) == int(cnt_plain), f"pair kernel != plain, block {block}")
         hs = ws if hs is None else hs
         exp = np.array([[h.find(nd) for h in hs] for nd in ws], dtype=np.int32)
-        check(np.array_equal(got.cpu().numpy(), exp), f"pair kernel != bytes.find, block {block}")
-        check(int(cnt) == int((exp >= 0).sum()), f"pair kernel count != bytes.find, block {block}")
+        pair_err = max(pair_err, _pair_checks(torch, pairwise, args, exp, f"block {block}"))
+        pairs += exp.size
+    # The kernel's hard cases.
+    hard = pair_cases.cases()
+    for case in hard:
+        args, exp = pair_cases.operands(case, device)
+        pair_err = max(pair_err, _pair_checks(torch, pairwise, args, exp, case.name))
         pairs += exp.size
     say("kernels", find_rows=rows, find_widths=widths, find_max_abs_err=find_err,
         queue_case_tables=queue_cases,
         count_rows=rows, count_max_abs_err=count_err, bitmap_rows=rows,
         bitmap_max_abs_err=bitmap_err, compaction_caps=list(CAPS), compaction_max_abs_err=compact_err,
         memchr_cases=cases, memchr_max_abs_err=memchr_err,
-        pair_pairs=pairs, pair_max_abs_err=pair_err, equal=True)
+        pair_pairs=pairs, pair_hard_cases=[c.name for c in hard],
+        pair_max_abs_err=pair_err, equal=True)
     return {"batched_find": find_err, "memchr_find": memchr_err,
             "batched_count": count_err, "pair_block": pair_err, "match_bitmap": bitmap_err,
             "compact_positions": compact_err}
@@ -593,11 +624,13 @@ def phase_positions(torch, device, hay, words, i386_dh, big, i386_total, big_cou
     return bs
 
 
-def phase_probe(torch, device, hay):
+def phase_probe(torch, device, hay, i386_dh, count_bs):
     """Every variant of the ablation kernel at t = 1, 2, 3 over the JAX
     harness's tables (4,585 rows over i386): equal to its plain version,
     the answer-preserving ones to the count and find kernels, the planted
-    rows (t=2) at their bytes.find offsets."""
+    rows (t=2) at their bytes.find offsets.  Then the counting variants over
+    the real words' tables (every width group): equal to the count kernel,
+    so the prefilter's candidates lose no match."""
     from sliceslice_tpu_torch import overlapping_count, preprocess
     from sliceslice_tpu_torch.config import SENTINEL
     from sliceslice_tpu_torch.needle import needed_halo_for_t
@@ -632,9 +665,19 @@ def phase_probe(torch, device, hay):
                       f"planted row {row} not at its bytes.find offset")
                 plants.append((row, int(first[row]), int(count[row])))
         setups[t] = (dh.flat, v, m, e, n)
+    real = 0
+    for g in count_bs.groups:
+        call = (i386_dh.flat, g.values_dev, g.masks_dev, g.ends_dev(i386_dh.length), 0, g.n)
+        count = scan_kernel.batched_count(*call)
+        for variant in kp.COUNTING:
+            got = kp.probe(variant, *call)
+            err = max(err, _err(got, count))
+            check(torch.equal(got, count), f"probe {variant} != batched_count on the real words, t={g.t}")
+        real += g.n
     say("probe", rows=n, widths=list(PROBE_TS), variants=list(kp.VARIANTS), max_abs_err=err,
         equal_to_plain=True, counting_equal_batched_count=True, first_equal_batched_find=True,
-        planted_rows_first_count=plants)
+        planted_rows_first_count=plants, real_word_rows=real,
+        real_word_widths=[g.t for g in count_bs.groups])
     return err, setups
 
 
@@ -642,6 +685,7 @@ def phase_pairwise(torch, device, words):
     """All 21,022,225 pairs of the length-sorted words, as bench.py sorts
     them, against bytes.find."""
     from sliceslice_tpu_torch import PairwiseSearcher
+    from sliceslice_tpu_torch.ops import pairwise
 
     ws = sorted(words, key=len)
     t0 = time.perf_counter()
@@ -656,9 +700,18 @@ def phase_pairwise(torch, device, words):
     check(np.array_equal(contains, exp >= 0), "pair sweep: contains differs")
     total = int(ps.count_matches_device())
     check(total == int(contains.sum()), "pair sweep: count_matches_device != contains.sum()")
+    # The cached launch plan: a repeated sweep is one launch, no upload.
+    launches, uploads = pairwise.pair_block.launches, pairwise.pair_block.uploads
+    totals = [ps.count_matches_device() for _ in range(SWEEPS)]
+    check(pairwise.pair_block.launches == launches + SWEEPS,
+          f"{SWEEPS} count_matches_device calls made {pairwise.pair_block.launches - launches} launches")
+    check(pairwise.pair_block.uploads == uploads,
+          f"{SWEEPS} count_matches_device calls uploaded {pairwise.pair_block.uploads - uploads} plans")
+    check({int(x) for x in totals} == {total}, "pair sweep: repeated counts differ")
     plan = ps._plan(None)
     say("pairwise", words=len(ws), pairs=exp.size, matches=total,
         plan_blocks=len(plan), skipped_blocks=sum(1 for e in plan if e[2] == 0),
+        repeated_sweeps=SWEEPS, repeated_launches=SWEEPS, repeated_plan_uploads=0,
         host_oracle_s=round(oracle_s, 3), parity=True)
     return ps
 
@@ -735,14 +788,31 @@ def phase_times(torch, device, card, i386_dh, bs, big_dh, count_bs, ps, pos_bs, 
         sweeps=SWEEPS, pairs=n_pairs, ms_per_sweep=m.estimate * 1e3 / SWEEPS,
         low_ms=m.low * 1e3 / SWEEPS, high_ms=m.high * 1e3 / SWEEPS,
         pairs_per_s=n_pairs * SWEEPS / m.estimate)
+    # The pair kernel alone: launches queued behind a spin kernel, so the
+    # card runs them back to back (device time, each with its small fills);
+    # then the wrapper's call on the cached launch plan, as the sweep makes
+    # it, and pair_block with a host plan, checked and uploaded per call.
+    from sliceslice_tpu_torch.scripts import sweep_times
+
     pk, lh, _, _ = ps._pack_hay(None)
     args = (ps._values, ps._masks, ps._ln, pk, lh, ps._plan(None), ps.block)
-    matrix = measure(lambda: pairwise.pair_block(*args), "pair kernel, matrix mode", warmup=1,
+    pair_device = {
+        "count_mode": sweep_times.device_ms(torch, ps.count_matches_device, SWEEPS),
+        "matrix_mode": sweep_times.device_ms(
+            torch, lambda: pairwise.run_launch(ps._launch_plan(None)), SWEEPS)}
+    say("times", what="pair kernel device time, one all-pairs sweep (ms: low, median, high; "
+        f"{SWEEPS} launches behind a spin kernel between two CUDA events)", card=card,
+        pairs=n_pairs, **pair_device)
+    launch = ps._launch_plan(None)
+    matrix = measure(lambda: pairwise.run_launch(launch), "pair kernel, matrix mode", warmup=1,
                      samples=5, device=device)
-    pair = vs_plain(lambda *a: pairwise.pair_block(*a, count=True),
-                    lambda *a: pairwise.pair_block_plain(*a, count=True), [args],
-                    "pair kernel vs plain, count mode, one all-pairs sweep",
-                    matrix_mode_kernel_ms=matrix.estimate * 1e3)
+    direct = measure(lambda: pairwise.pair_block(*args, count=True), "pair_block, host plan", warmup=1,
+                     samples=5, device=device)
+    pair = vs_plain(lambda lp: pairwise.run_launch(lp, count=True),
+                    lambda lp: pairwise._pair_blocks_plain(*lp.operands, lp.live.tolist(), lp.block, True),
+                    [(launch,)], "pair kernel vs plain, count mode, one all-pairs sweep on its cached launch plan",
+                    matrix_mode_kernel_ms=matrix.estimate * 1e3,
+                    pair_block_with_a_host_plan_ms=direct.estimate * 1e3)
 
     def pos_sweeps():
         for _ in range(POSITION_SWEEPS):
@@ -769,9 +839,10 @@ def phase_times(torch, device, card, i386_dh, bs, big_dh, count_bs, ps, pos_bs, 
                        note="each call: the row totals, the first ranks, the SENTINEL fill and the kernel")
 
     # The find and count kernels per width group, next to the first
-    # design's times, and the count kernel against the first design in turns.
-    from sliceslice_tpu_torch.scripts import sweep_times
-
+    # design's times; then, over the real words' tables in turns: the first
+    # count loop (the harness's `word`), the count kernel, the harness's
+    # `count` (the same loop: it must come within 5% of the kernel), its
+    # `prefilter` and its `nomask`.
     groups = sweep_times.group_times(torch, bs, i386_dh, device)
     say("times", what="find and count kernels per width group, i386 (µs per launch: low, median, high)",
         card=card, rows={g.t: g.n for g in bs.groups},
@@ -779,18 +850,26 @@ def phase_times(torch, device, card, i386_dh, bs, big_dh, count_bs, ps, pos_bs, 
         count_us={t: [round(x * 1e3, 1) for x in v] for t, v in groups["count"].items()},
         first_design_us=FIRST_DESIGN_GROUP_US)
     calls = group_calls(count_bs)
+    runners = {"count kernel": scan_kernel.batched_count,
+               **{f"harness {v}": (lambda *c, v=v: kp.probe(v, *c))
+                  for v in ("word", "count", "prefilter", "nomask")}}
+    order = ("harness word", "count kernel", "harness count", "harness prefilter", "harness nomask")
     turns = []
-    for name in ("first design", "queue", "queue", "first design"):
-        fn = scan_kernel.batched_count if name == "queue" else (lambda *c: kp.probe("count", *c))
-        m = measure(lambda: [fn(*c) for c in calls], f"count {name}", warmup=1, samples=5,
-                    device=device)
+    for name in order + order[::-1]:
+        fn = runners[name]
+        m = measure(lambda: [fn(*c) for c in calls], name, warmup=1, samples=5, device=device)
         turns.append([name, m.estimate * 1e3])
-    old_ms = (turns[0][1] + turns[3][1]) / 2
-    new_ms = (turns[1][1] + turns[2][1]) / 2
-    say("times", what="count kernels of one i386 sweep: the ablation harness's count variant "
-        "(the first count loop, one block per (row, span)) and the queue kernel, in turns",
-        card=card, turns_ms=turns, first_design_ms=old_ms, queue_ms=new_ms,
-        speedup=old_ms / new_ms)
+    turn_ms = {name: sum(ms for n_, ms in turns if n_ == name) / 2 for name in order}
+    say("times", what="count loops over one i386 sweep of the real words (all width groups), in turns: "
+        "the first design (harness word), the count kernel, the harness's count (the same loop), "
+        "its prefilter and its nomask", card=card, turns_ms=turns, ms=turn_ms,
+        harness_count_over_kernel=turn_ms["harness count"] / turn_ms["count kernel"],
+        prefilter_over_kernel=turn_ms["harness prefilter"] / turn_ms["count kernel"],
+        nomask_over_kernel=turn_ms["harness nomask"] / turn_ms["count kernel"],
+        first_design_over_kernel=turn_ms["harness word"] / turn_ms["count kernel"])
+    check(abs(turn_ms["harness count"] / turn_ms["count kernel"] - 1) <= HARNESS_TOLERANCE,
+          f"the harness's count variant ({turn_ms['harness count']:.4f} ms) is not within "
+          f"{HARNESS_TOLERANCE:.0%} of the count kernel ({turn_ms['count kernel']:.4f} ms)")
 
     # The ablation table: K launches of each variant, one sync.
     table = {}
@@ -798,15 +877,15 @@ def phase_times(torch, device, card, i386_dh, bs, big_dh, count_bs, ps, pos_bs, 
         row = {}
         for variant in kp.VARIANTS:
             def launches(variant=variant):
-                for _ in range(SWEEPS):
+                for _ in range(ABLATION_SWEEPS):
                     kp.probe(variant, flat, v, m_, e, n_real=n)
 
             k = measure(launches, f"probe {variant} t={t}", warmup=1, samples=3, device=device)
-            per = k.estimate / SWEEPS
+            per = k.estimate / ABLATION_SWEEPS
             row[variant] = {"ms_per_sweep": per * 1e3,
                             "ns_per_row_1024_positions": per * 1e9 / (n * hay_len / 1024)}
         table[t] = row
-        say("probe_times", card=card, t=t, rows=n, sweeps=SWEEPS, variants=row)
+        say("probe_times", card=card, t=t, rows=n, sweeps=ABLATION_SWEEPS, variants=row)
     flat, v, m_, e, n = probe_setups[2]
     probe_plain = measure(lambda: kp.probe_plain("count", flat, v, m_, e, n_real=n),
                           "probe count plain t=2", warmup=1, samples=3, device=device)
@@ -950,7 +1029,8 @@ def main() -> int:
     (pos_bs,) = path(("match_bitmap", "compact_positions"), (phase_positions, (
         torch, device, hay, words, i386_dh, big, i386_total, big_counts)))
     (ps,) = path(("pair_block",), (phase_pairwise, (torch, device, words)))
-    ((errs["probe"], probe_setups),) = path(("probe",), (phase_probe, (torch, device, hay)))
+    ((errs["probe"], probe_setups),) = path(
+        ("probe",), (phase_probe, (torch, device, hay, i386_dh, count_bs)))
 
     timed(phase_queue_big, torch, device, big)
     times, bounds, per_sweep = timed(phase_times, torch, device, card, i386_dh, bs, big[0], count_bs,

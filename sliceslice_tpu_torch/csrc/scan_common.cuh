@@ -8,18 +8,20 @@
 // where win32(q) is the little-endian 4-byte window at byte q, built from
 // two aligned words by __funnelshift_r:
 //   * probe_word: 4 positions per thread from one aligned word and one more
-//     word per slot (the ablation kernel's variants other than `wide`, and
-//     probe_wide's last group before the buffer's end);
+//     word per slot (the first design's loop, kept as the ablation kernel's
+//     `word` variant, and probe_wide's last group before the buffer's end);
 //   * probe_wide: 16 positions per thread from one 16-byte load plus one
 //     word, then one more word per slot (the find, count and match-bitmap
-//     kernels and the ablation kernel's `wide`).  Per position it spends a quarter of
-//     probe_word's loads and address math, which the ablation (PERF.md §5)
-//     found to be half of the old loop's time.  Its offsets are 32-bit: a
-//     layout is below 2^31 bytes.
+//     kernels and the ablation kernel's other variants).  Per position it
+//     spends a quarter of probe_word's loads and address math, which the
+//     ablation of the first design (PERF.md §5) found to be half of that
+//     loop's time.  Its offsets are 32-bit: a layout is below 2^31 bytes.
 // Both stop a position at its first failing slot and stop the slot walk once
-// every position has failed.  T > 0 fixes the width at compile time (t is
-// then ignored), so that a table of T <= kMaxRegT slots held in registers
-// stays there instead of being read from shared memory once per word.
+// every position has failed.  probe_wide's slot walk is probe_slots; its
+// Slot parameter selects the ablation kernel's variants of a slot.  T > 0
+// fixes the width at compile time (t is then ignored), so that a table of
+// T <= kMaxRegT slots held in registers stays there instead of being read
+// from shared memory once per word.
 
 #pragma once
 
@@ -69,11 +71,39 @@ __device__ __forceinline__ unsigned live_bits(long long rem, int width) {
   return rem >= width ? (1u << width) - 1u : (rem > 0 ? (1u << rem) - 1u : 0u);
 }
 
+// How probe_wide evaluates a slot: as the kernels do (kSlotPlain), or as
+// one of the ablation kernel's variants: no AND on a slot whose mask is all
+// ones (kSlotNomask), or every slot of every position evaluated with
+// selects, with no early exit across slots (kSlotBranchless).
+enum Slot : int { kSlotPlain = 0, kSlotNomask = 1, kSlotBranchless = 2 };
+
 // One slot of probe_wide: the 16 windows of w[0..4] (positions 4k + r of
 // the group read w[k], w[k+1]) against one masked value.
+template <int S = kSlotPlain>
 __device__ __forceinline__ void probe_slot16(const uint32_t* w, uint32_t m, uint32_t v,
                                              unsigned* alive) {
+  if constexpr (S == kSlotBranchless) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const unsigned miss = (__funnelshift_r(w[k], w[k + 1], 8 * r) & m) != v;
+        *alive &= ~(miss << (4 * k + r));
+      }
+    }
+    return;
+  }
   if (m == 0u) return;  // a mask-0 slot is trivially true
+  if (S == kSlotNomask && m == 0xffffffffu) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (__funnelshift_r(w[k], w[k + 1], 8 * r) != v) *alive &= ~(1u << (4 * k + r));
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
 #pragma unroll
@@ -83,13 +113,45 @@ __device__ __forceinline__ void probe_slot16(const uint32_t* w, uint32_t m, uint
   }
 }
 
+// probe_wide's slot walk over a group whose words w[0..4] are loaded and
+// whose candidate positions are `alive`: slot i > 0 reads one more word,
+// hay[j + i + 4].  The caller has checked j + width + 4 <= n_words.
+template <int T = 0, int S = kSlotPlain>
+__device__ __forceinline__ unsigned probe_slots(const uint32_t* __restrict__ hay, int j,
+                                                uint32_t* w, unsigned alive,
+                                                const uint32_t* val, const uint32_t* msk,
+                                                int t) {
+  constexpr bool kExit = S != kSlotBranchless;
+  if constexpr (T > 0) {
+#pragma unroll
+    for (int i = 0; i < T; ++i) {
+      if (i > 0) {
+        if (kExit && !alive) break;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) w[k] = w[k + 1];
+        w[4] = __ldg(hay + j + i + 4);
+      }
+      probe_slot16<S>(w, msk[i], val[i], &alive);
+    }
+  } else {
+    for (int i = 0;;) {
+      probe_slot16<S>(w, msk[i], val[i], &alive);
+      if (++i >= t || (kExit && !alive)) break;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) w[k] = w[k + 1];
+      w[4] = __ldg(hay + j + i + 4);
+    }
+  }
+  return alive;
+}
+
 // The probe program at the positions p0 .. p0+15 (p0 16-byte aligned, p0 <
 // stop) that lie below stop: bit b is set when position p0 + b satisfies
 // every slot.  Slot i reads the words p0/4 + i .. p0/4 + i + 4; a group
 // whose last slot would read past the buffer's n_words words takes
 // probe_word's per-word loads instead, which read no further than the
 // positions below stop need (stop <= 4 * (n_words - width)).
-template <int T = 0>
+template <int T = 0, int S = kSlotPlain>
 __device__ __forceinline__ unsigned probe_wide(const uint32_t* __restrict__ hay, int n_words,
                                                int p0, int stop, const uint32_t* val,
                                                const uint32_t* msk, int t) {
@@ -103,30 +165,10 @@ __device__ __forceinline__ unsigned probe_wide(const uint32_t* __restrict__ hay,
     }
     return alive;
   }
-  unsigned alive = live_bits(stop - p0, 16);
+  const unsigned alive = live_bits(stop - p0, 16);
   const uint4 q = __ldg(reinterpret_cast<const uint4*>(hay + j));
   uint32_t w[5] = {q.x, q.y, q.z, q.w, __ldg(hay + j + 4)};
-  if constexpr (T > 0) {
-#pragma unroll
-    for (int i = 0; i < T; ++i) {
-      if (i > 0) {
-        if (!alive) break;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) w[k] = w[k + 1];
-        w[4] = __ldg(hay + j + i + 4);
-      }
-      probe_slot16(w, msk[i], val[i], &alive);
-    }
-  } else {
-    for (int i = 0;;) {
-      probe_slot16(w, msk[i], val[i], &alive);
-      if (++i >= width || !alive) break;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) w[k] = w[k + 1];
-      w[4] = __ldg(hay + j + i + 4);
-    }
-  }
-  return alive;
+  return probe_slots<T, S>(hay, j, w, alive, val, msk, width);
 }
 
 // The positions [start, stop) of the block (row, blockIdx.y): span

@@ -40,8 +40,10 @@ _SIGNATURES = {
     "ssf_queue_blocks": (_I, [_I, _I, _P]),
     "ssf_memchr_find": (_I, [_P, _LL, _I, _LL, _LL, _I, _P, _P]),
     "ssf_compact_positions": (_I, [_P, _LL, _I, _I, _I, _P, _P, _I, _P, _I, _P]),
-    "ssf_probe": (_I, [_I, _I, _P, _LL, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _P]),
-    "ssf_pair_block": (_I, [_P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P]),
+    "ssf_probe": (_I, [_I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]),
+    "ssf_probe_blocks": (_I, [_I, _I, _I, _P]),
+    "ssf_pair_block": (_I, [_P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P]),
+    "ssf_pair_blocks": (_I, [_P]),
     "ssf_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -19,12 +19,17 @@ shortest needle is longer than their longest word (all-false).
 :func:`pair_block` evaluates every non-skipped block of the plan in one
 launch of the hand-written CUDA kernel ``csrc/pairwise.cu`` (replacing the
 Pallas ``_pair_block_call``, one call per block); its plain PyTorch
-version :func:`pair_block_plain` runs for tensors on the CPU.
+version :func:`pair_block_plain` runs for tensors on the CPU.  The checked
+plan and its device table make a :class:`PairLaunch`, which
+:class:`PairwiseSearcher` caches per haystack list: a repeated sweep zeroes
+one counter pair and launches once.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import ctypes
+import functools
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -92,15 +97,15 @@ def _pair_tile(values, masks, ln, wins, lh, tn: int, mi: int) -> torch.Tensor:
     return torch.where(first <= limit, first, mi).to(torch.int32)
 
 
-def pair_block_plain(values, masks, ln, hay, lh, plan, block: int, count: bool = False):
-    """Plain PyTorch version of :func:`pair_block` (same signature and
-    answers)."""
+def _pair_blocks_plain(values, masks, ln, hay, lh, entries, block: int, count: bool):
+    """The checked plan entries ``(i0, j0, tn_b, mi_b)`` (non-skipped) as
+    plain torch ops."""
     n, h = ln.shape[0], lh.shape[0]
     wins = packed_windows(hay)
     device = hay.device
     total = torch.zeros((), dtype=torch.int32, device=device)
     first = None if count else torch.full((n, h), -1, dtype=torch.int32, device=device)
-    for i0, j0, tn_b, mi_b in _plan_array(plan, n, h, values.shape[1], hay.shape[1] // 4).tolist():
+    for i0, j0, tn_b, mi_b in entries:
         f = _pair_tile(
             values[i0 : i0 + block], masks[i0 : i0 + block], ln[i0 : i0 + block],
             wins[j0 : j0 + block], lh[j0 : j0 + block], tn_b, mi_b,
@@ -111,6 +116,95 @@ def pair_block_plain(values, masks, ln, hay, lh, plan, block: int, count: bool =
         else:
             first[i0 : i0 + f.shape[0], j0 : j0 + f.shape[1]] = torch.where(hit, f, -1)
     return total if count else first
+
+
+def pair_block_plain(values, masks, ln, hay, lh, plan, block: int, count: bool = False):
+    """Plain PyTorch version of :func:`pair_block` (same signature and
+    answers)."""
+    entries = _plan_array(plan, ln.shape[0], lh.shape[0], values.shape[1], hay.shape[1] // 4)
+    return _pair_blocks_plain(values, masks, ln, hay, lh, entries.tolist(), block, count)
+
+
+class PairLaunch(NamedTuple):
+    """One sweep's launch plan, checked once and kept on the operands'
+    device, so that a repeated sweep is one zeroed counter and one launch.
+
+    ``operands``: contiguous ``(values, masks, ln, hay, lh)``; ``live``: the
+    plan's non-skipped entries, checked, on the host (int32 (E, 4));
+    ``table``: their copy on the device, which the kernel walks."""
+
+    operands: tuple
+    block: int
+    live: np.ndarray
+    table: torch.Tensor
+
+
+def plan_launch(values, masks, ln, hay, lh, plan, block: int) -> PairLaunch:
+    """Check :func:`pair_block`'s operands and plan and put the plan's table
+    on their device.  ``pair_block.uploads`` counts the tables sent to a
+    card."""
+    device = hay.device
+    for name, x, dim in (("values", values, 2), ("masks", masks, 2), ("ln", ln, 1), ("lh", lh, 1)):
+        _check_int32(name, x, dim)
+    if hay.dtype != torch.uint8 or hay.dim() != 2 or hay.shape[1] % 4:
+        raise ValueError("hay must be a 2-D uint8 tensor of rows a multiple of 4 bytes long")
+    n, tn = values.shape
+    h = lh.shape[0]
+    if masks.shape != values.shape or ln.shape[0] != n or hay.shape[0] != h or tn < 1:
+        raise ValueError("values, masks and ln must describe the same needles, hay and lh the same words")
+    if block < 1:
+        raise ValueError(f"block must be positive, got {block}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no pair-block kernel for device {device}")
+    live = _plan_array(plan, n, h, tn, hay.shape[1] // 4)
+    operands = tuple(x.contiguous() for x in (values, masks, ln, hay, lh))
+    if any(x.device != device for x in operands):
+        raise ValueError("kernel operands must be on one device")
+    if device.type == "cuda" and operands[3].data_ptr() % 4:
+        raise ValueError("hay must be 4-byte aligned")
+    if device.type == "cuda":
+        pair_block.uploads += 1
+    return PairLaunch(operands, block, live, torch.from_numpy(live).to(device))
+
+
+@functools.lru_cache(maxsize=16)
+def _resident_blocks(index: int) -> int:
+    """Blocks of the pair kernel that CUDA device ``index`` holds at once
+    (blocks per SM times SMs)."""
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = cuda_lib.load().ssf_pair_blocks(ctypes.byref(per_sm))
+    cuda_lib.check(err, "ssf_pair_blocks")
+    return per_sm.value * torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def run_launch(launch: PairLaunch, count: bool = False):
+    """One sweep of a checked launch plan: :func:`pair_block`'s answers.  On
+    a card: one zeroed (total, tile counter) pair, in matrix mode the output
+    filled with -1, one launch."""
+    values, masks, ln, hay, lh = launch.operands
+    block = launch.block
+    device = hay.device
+    if device.type == "cpu":
+        return _pair_blocks_plain(values, masks, ln, hay, lh, launch.live.tolist(), block, count)
+    n, tn = values.shape
+    h = lh.shape[0]
+    state = torch.zeros((2,), dtype=torch.int32, device=device)  # total, tile counter
+    first = None if count else torch.full((n, h), -1, dtype=torch.int32, device=device)
+    entries = launch.live.shape[0]
+    if entries == 0:
+        return state[0] if count else first
+    with torch.cuda.device(device):
+        err = cuda_lib.load().ssf_pair_block(
+            values.data_ptr(), masks.data_ptr(), ln.data_ptr(), n, tn, hay.data_ptr(),
+            lh.data_ptr(), h, hay.shape[1] // 4, launch.table.data_ptr(), entries, block,
+            _resident_blocks(device.index), None if count else first.data_ptr(),
+            state.data_ptr() if count else None, state.data_ptr() + 4,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    cuda_lib.check(err, "ssf_pair_block")
+    pair_block.launches += 1
+    return state[0] if count else first
 
 
 def pair_block(values, masks, ln, hay, lh, plan, block: int, count: bool = False):
@@ -126,50 +220,15 @@ def pair_block(values, masks, ln, hay, lh, plan, block: int, count: bool = False
     Padded needle rows (len ``2**30``) and padded words (len -1) never
     match.  Returns the int32 (N, H) first matrix, -1 where no match or
     outside a planned block, or with ``count`` the 0-d int32 number of
-    matching pairs."""
-    device = hay.device
-    for name, x, dim in (("values", values, 2), ("masks", masks, 2), ("ln", ln, 1), ("lh", lh, 1)):
-        _check_int32(name, x, dim)
-    if hay.dtype != torch.uint8 or hay.dim() != 2 or hay.shape[1] % 4:
-        raise ValueError("hay must be a 2-D uint8 tensor of rows a multiple of 4 bytes long")
-    n, tn = values.shape
-    h = lh.shape[0]
-    if masks.shape != values.shape or ln.shape[0] != n or hay.shape[0] != h or tn < 1:
-        raise ValueError("values, masks and ln must describe the same needles, hay and lh the same words")
-    if block < 1:
-        raise ValueError(f"block must be positive, got {block}")
-    if device.type == "cpu":
-        return pair_block_plain(values, masks, ln, hay, lh, plan, block, count)
-    if device.type != "cuda":
-        raise ValueError(f"no pair-block kernel for device {device}")
-    hw = hay.shape[1] // 4
-    arr = _plan_array(plan, n, h, tn, hw)
-    total = torch.zeros((1,), dtype=torch.int32, device=device)
-    first = None if count else torch.full((n, h), -1, dtype=torch.int32, device=device)
-    if arr.shape[0] == 0:
-        return total[0] if count else first
-    operands = [x.contiguous() for x in (values, masks, ln, hay, lh)]
-    if any(x.device != device for x in operands):
-        raise ValueError("kernel operands must be on one device")
-    if operands[3].data_ptr() % 4:
-        raise ValueError("hay must be 4-byte aligned")
-    plan_dev = torch.from_numpy(arr).to(device)
-    max_words = int((((arr[:, 3] - 1) >> 2) + arr[:, 2] + 1).max())
-    lib = cuda_lib.load()
-    with torch.cuda.device(device):
-        err = lib.ssf_pair_block(
-            *(x.data_ptr() for x in operands[:3]), n, tn,
-            operands[3].data_ptr(), operands[4].data_ptr(), h, hw,
-            plan_dev.data_ptr(), arr.shape[0], block, max_words, int(arr[:, 2].max()),
-            None if count else first.data_ptr(), total.data_ptr() if count else None,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    cuda_lib.check(err, "ssf_pair_block")
-    pair_block.launches += 1
-    return total[0] if count else first
+    matching pairs.  The plan is checked and sent to the device on every
+    call (:func:`plan_launch`); a caller that sweeps one plan repeatedly
+    keeps the :class:`PairLaunch` and calls :func:`run_launch`, as
+    :class:`PairwiseSearcher` does."""
+    return run_launch(plan_launch(values, masks, ln, hay, lh, plan, block), count)
 
 
 pair_block.launches = 0
+pair_block.uploads = 0
 
 
 class PairwiseSearcher:
@@ -271,11 +330,18 @@ class PairwiseSearcher:
                 plan.append((i0, j0, tn_b, self._bucket(max(int(lh_blk.max()), 1))))
         return self._cache_put("plan", haystacks, tuple(plan))
 
-    def _sweep(self, haystacks, count: bool):
+    def _launch_plan(self, haystacks=None) -> PairLaunch:
+        """The sweep's checked plan and its device table, built once per
+        haystack list."""
+        hit = self._cache_get("launch", haystacks)
+        if hit is not None:
+            return hit
         hay, lh, _lh_np, _mi = self._pack_hay(haystacks)
-        return pair_block(
-            self._values, self._masks, self._ln, hay, lh, self._plan(haystacks), self.block, count
-        )
+        launch = plan_launch(self._values, self._masks, self._ln, hay, lh, self._plan(haystacks), self.block)
+        return self._cache_put("launch", haystacks, launch)
+
+    def _sweep(self, haystacks, count: bool):
+        return run_launch(self._launch_plan(haystacks), count)
 
     def _first_device(self, haystacks=None) -> torch.Tensor:
         hit = self._cache_get("mat", haystacks)
@@ -291,7 +357,9 @@ class PairwiseSearcher:
 
     def count_matches_device(self, haystacks=None) -> torch.Tensor:
         """Total match count across all pairs, device-resident (the bench
-        checksum: forces full evaluation, fetches one scalar)."""
+        checksum: forces full evaluation, fetches one scalar).  After the
+        first call for a haystack list: one zeroed counter pair, one
+        launch."""
         return self._sweep(haystacks, count=True)
 
 

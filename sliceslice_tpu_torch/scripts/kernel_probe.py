@@ -2,32 +2,45 @@
 the JAX package's ``scripts/kernel_probe.py``.
 
 The JAX script strips its TPU find kernel one piece at a time to find which
-piece costs time.  This one does the same for the port's first find and
-count loop (``probe_word`` in ``csrc/scan_common.cuh``, one block per (row,
-span)), through one CUDA kernel with one instantiation per variant
-(``csrc/probe.cu``); ``wide`` runs the loop the find and count kernels now
-share (``probe_wide``) on the same plan.  Each variant asks the question of
-one JAX variant:
+piece costs time.  This one does the same for the loop the port's find,
+count and match-bitmap kernels run (``queue_loop`` in ``csrc/queue.cuh``: a
+persistent grid over a chunk-major work queue, ``probe_wide``'s 16
+positions per thread, tables of up to 4 slots in registers), through one
+CUDA source with one kernel instantiation per variant (``csrc/probe.cu``).
+Every variant but ``span`` and ``word`` runs on the count kernel's queue
+(``scan_kernel.plan_queue`` with ``COUNT_CHUNK``); those two keep the first
+design's one-block-per-(row, span) plan (``scan_kernel.plan_spans``).  Each
+variant asks the question of one JAX variant, or one only this loop has:
 
 ============  ==========  ==================================================
-variant       JAX         result (equals)
+variant       JAX         result (equals) and what it strips or changes
 ============  ==========  ==================================================
-count         (baseline)  ``batched_count``
-first         full        ``batched_find`` (probes, per-thread and block
-                          min, ``atomicMin``; no early exit)
+count         (baseline)  ``batched_count``: the count kernel's loop itself
+first         full        ``batched_find`` (the probes, per-thread and block
+                          min, ``atomicMin``; no skip, no early exit)
 nomin         nomin       1 where ``batched_find`` finds the row, else 0
+                          (the probes, an OR, one flag)
 noprobe       noprobe     positions below the row's limit whose 4-byte
-                          window is all ones (probe_word's loads, the
+                          window is all ones (``probe_wide``'s loads, the
                           table replaced by a constant)
 empty         empty       XOR of the word indices below the row's limit
-                          (the walk and address math, no corpus load)
+                          (the queue draw, the barriers and the address
+                          math, no corpus load)
 nomask        premask     ``batched_count`` (no AND on all-ones slots)
 branchless    premsel     ``batched_count`` (selects, no early exit)
-rows          dedup       ``batched_count`` (``rows`` rows per block share
-                          each loaded word)
-regtab        swpipe      ``batched_count`` (table in registers, t <= 4)
-wide          —           ``batched_count`` (the find and count kernels'
-                          loop, 16 positions per thread, on this plan)
+rows          dedup       ``batched_count`` (``rows`` rows of one chunk per
+                          item share each 16-byte load)
+smemtab       swpipe      ``batched_count`` (the inverse question: ``count``
+                          holds tables of up to 4 slots in registers, this
+                          one reads the table from shared memory at any
+                          width, as wider tables are)
+span          —           ``batched_count`` (``probe_wide`` on the span
+                          plan, no queue: what the queue buys)
+word          —           ``batched_count`` (the first design: 4 positions
+                          per thread, shared-memory table, span plan)
+prefilter     —           ``batched_count`` (a ``__vcmpeq4`` test of the
+                          needle's first and last bytes before the slot
+                          walk, which runs only on candidates)
 ============  ==========  ==================================================
 
 :func:`probe` launches the kernel for a CUDA haystack and runs
@@ -37,14 +50,16 @@ script's tables.  Run it as::
     python -m sliceslice_tpu_torch.scripts.kernel_probe [t=K] [r=N] [k=SWEEPS] [n=ROWS] [device=D] [variant ...]
 
 over ``data/i386.txt`` (default t=2, r=4, 32 sweeps, 4,585 rows, variants
-``count first nomin noprobe empty``): per variant, ms per sweep and ns per
-(row, 1,024 positions), on the card (``device=cuda``, the default; it
-raises on a host without one) or, with ``device=cpu``, with the plain
-versions on the CPU (host clock; cut ``n`` there).
+``count first nomin noprobe empty``; ``all`` names every variant): per variant, ms per sweep and ns per (row, 1,024 positions), on
+the card (``device=cuda``, the default; it raises on a host without one)
+or, with ``device=cpu``, with the plain versions on the CPU (host clock;
+cut ``n`` there).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 import struct
 import sys
@@ -60,13 +75,14 @@ from ..ops.scan_math import match_counts, packed_windows, position_limit
 
 #: Variant names, in the order of ``csrc/probe.cu``'s ``Variant`` codes.
 VARIANTS = ("count", "first", "nomin", "noprobe", "empty", "nomask", "branchless",
-            "rows", "regtab", "wide")
+            "rows", "smemtab", "span", "word", "prefilter")
 #: Variants whose result equals ``batched_count``.
-COUNTING = ("count", "nomask", "branchless", "rows", "regtab", "wide")
-#: Rows per block the ``rows`` variant takes.
+COUNTING = ("count", "nomask", "branchless", "rows", "smemtab", "span", "word", "prefilter")
+#: Variants on the first design's plan, one block per (row, span); every
+#: other variant takes items from the count kernel's work queue.
+SPAN_PLAN = ("span", "word")
+#: Rows per queue item the ``rows`` variant takes.
 ROWS = (1, 2, 4, 8)
-#: Widest table the ``regtab`` variant holds in registers.
-REGTAB_MAX_T = 4
 
 #: The JAX script's table plan: rows per block, the final slot's mask
 #: classes (k % 4 = 1, 2, 3, 0) and, for t=2, the rows planted with the
@@ -116,11 +132,9 @@ def planted(hay: bytes, masks: np.ndarray) -> dict:
             if row < masks.shape[0] and off + 8 <= len(hay)}
 
 
-def _check(variant: str, t: int, rows: int) -> None:
+def _check(variant: str, rows: int) -> None:
     if variant not in VARIANTS:
         raise ValueError(f"unknown probe variant {variant!r} (one of {', '.join(VARIANTS)})")
-    if variant == "regtab" and t > REGTAB_MAX_T:
-        raise ValueError(f"regtab holds tables up to t={REGTAB_MAX_T}, got t={t}")
     if variant == "rows" and rows not in ROWS:
         raise ValueError(f"rows takes {ROWS} rows per block, got {rows}")
 
@@ -130,7 +144,7 @@ def probe_plain(variant, hay, values, masks, ends, base=0, n_real=None, rows=4) 
     built on ``ops/scan_math.py``."""
     base, values, masks, ends = scan_kernel._operands(hay, values, masks, ends, base)
     n, t = values.shape
-    _check(variant, t, rows)
+    _check(variant, rows)
     n_real = scan_kernel._n_real(n_real, n)
     if variant == "first":
         return scan_kernel.batched_find_plain(hay, values, masks, ends, base, n_real)
@@ -155,10 +169,21 @@ def probe_plain(variant, hay, values, masks, ends, base=0, n_real=None, rows=4) 
     return out
 
 
+@functools.lru_cache(maxsize=128)
+def _resident_blocks(index: int, code: int, per_item: int, t_class: int) -> int:
+    """Blocks of a queue variant's kernel that CUDA device ``index`` holds
+    at once (blocks per SM times SMs)."""
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = cuda_lib.load().ssf_probe_blocks(code, per_item, t_class, ctypes.byref(per_sm))
+    cuda_lib.check(err, "ssf_probe_blocks")
+    return per_sm.value * scan_kernel._sm_count(index)
+
+
 def probe(variant, hay, values, masks, ends, base=0, n_real=None, rows=4) -> torch.Tensor:
     """int32[N]: one ablation variant of the count loop over the flat
     haystack ``hay``, with the operands of ``scan_kernel.batched_count``;
-    ``rows`` is the rows per block of the ``rows`` variant.  The module
+    ``rows`` is the rows per queue item of the ``rows`` variant.  The module
     docstring gives each variant's result; rows at or past ``n_real`` hold
     what an unscanned row holds (0, SENTINEL for ``first``)."""
     if hay.device.type == "cpu":
@@ -167,7 +192,7 @@ def probe(variant, hay, values, masks, ends, base=0, n_real=None, rows=4) -> tor
         raise ValueError(f"no probe kernel for device {hay.device}")
     base, values, masks, ends = scan_kernel._operands(hay, values, masks, ends, base)
     n, t = values.shape
-    _check(variant, t, rows)
+    _check(variant, rows)
     n_real = scan_kernel._n_real(n_real, n)
     fill = SENTINEL if variant == "first" else 0
     out = torch.full((n,), fill, dtype=torch.int32, device=hay.device)
@@ -176,17 +201,26 @@ def probe(variant, hay, values, masks, ends, base=0, n_real=None, rows=4) -> tor
     n_pos = position_limit(hay.numel(), t)
     if n_real == 0 or n_pos <= 0:
         return out
-    per_block = rows if variant == "rows" else 1
-    tile = scan_kernel.WIDE_TILE if variant == "wide" else scan_kernel.FIND_TILE
-    lib = cuda_lib.load()
+    code = VARIANTS.index(variant)
+    per_item = rows if variant == "rows" else 1
+    index = hay.device.index
+    queue = None
+    if variant in SPAN_PLAN:
+        tile = scan_kernel.WIDE_TILE if variant == "span" else scan_kernel.FIND_TILE
+        step, n_steps = scan_kernel.plan_spans(n_pos, n_real, tile, scan_kernel._sm_count(index))
+        grid = 0
+    else:
+        resident = _resident_blocks(index, code, per_item, min(t, scan_kernel.MAX_REG_T + 1))
+        plan = scan_kernel.plan_queue(hay.numel(), t, -(-n_real // per_item), resident,
+                                      scan_kernel.COUNT_CHUNK)
+        step, n_steps, grid = plan.chunk, plan.n_items, plan.grid
+        queue = torch.zeros((1,), dtype=torch.int32, device=hay.device)
     with torch.cuda.device(hay.device):
-        span, n_spans = scan_kernel.plan_spans(
-            n_pos, -(-n_real // per_block), tile,
-            scan_kernel._sm_count(torch.cuda.current_device()))
-        err = lib.ssf_probe(
-            VARIANTS.index(variant), per_block, hay.data_ptr(), n_pos, values.data_ptr(),
-            masks.data_ptr(), ends.data_ptr(), out.data_ptr(), n_real, t, base, span,
-            n_spans, torch.cuda.current_stream().cuda_stream,
+        err = cuda_lib.load().ssf_probe(
+            code, per_item, hay.data_ptr(), hay.numel() // 4, n_pos, values.data_ptr(),
+            masks.data_ptr(), ends.data_ptr(), out.data_ptr(), n_real, t, base, step, n_steps,
+            grid, None if queue is None else queue.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     cuda_lib.check(err, f"ssf_probe({variant})")
     probe.launches += 1
@@ -212,9 +246,11 @@ def main(argv: Optional[list] = None) -> int:
         else:
             variants.append(a)
     t, rows, sweeps, n = opts["t"], opts["r"], opts["k"], opts["n"]
+    if "all" in variants:
+        variants = list(VARIANTS)
     variants = variants or ["count", "first", "nomin", "noprobe", "empty"]
     for v in variants:
-        _check(v, t, rows)
+        _check(v, rows)
     repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     hay = open(os.path.join(repo, "data", "i386.txt"), "rb").read()
     device = resolve_device(device)

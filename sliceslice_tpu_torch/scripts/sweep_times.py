@@ -2,6 +2,7 @@
 
     python3 sliceslice_tpu_torch/scripts/sweep_times.py [--tree DIR] [--chunks 16384,32768,65536]
     python3 sliceslice_tpu_torch/scripts/sweep_times.py --positions [--tree DIR]
+    python3 sliceslice_tpu_torch/scripts/sweep_times.py --pairs [--tree DIR]
 
 All 4,585 words of ``data/words.txt`` over ``data/i386.txt`` on the first
 CUDA card, after ``optimize_for``, as the smoke's sweeps run them: per
@@ -25,11 +26,23 @@ calls (device µs per call, the card's idle share, device events per call,
 and the device µs per call of the match-bitmap and compaction kernels),
 and a cProfile run of 4 calls (the host functions with the most own time,
 ms per call; cProfile slows the host's Python).  One JSON line.
+
+``--pairs`` times the all-pairs sweep of the length-sorted words instead
+(21,022,225 pairs), after checking the count against ``bytes.find``: the
+wrapper call ``pair_block`` with a host plan in both modes (ms per call,
+and the kernel's device µs from a trace of 8 calls), the sustained
+``count_matches_device`` sweep (``--reps`` calls, one sync), its device
+time (``--reps`` sweeps queued behind a spin kernel between two CUDA
+events, so the host's dispatch is hidden; each sweep carries its small
+fill; a sweep that uploads its plan waits for the card and reads its host
+time instead) and a trace of 8 sweeps (the kernel's device µs, the card's
+idle share).  One JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import sys
@@ -149,6 +162,60 @@ def host_profile(torch, fn, reps: int = 4, top: int = 10) -> dict:
     return out
 
 
+def device_ms(torch, fn, reps: int = 32, samples: int = 5, spin_cycles: int = 20_000_000) -> list:
+    """[low, median, high] ms of device time per call of ``fn``: ``reps``
+    calls are queued behind a spin kernel (``spin_cycles`` of the card's
+    clock, about 10 ms) between two CUDA events, so the card runs them back
+    to back however long the host takes to enqueue them."""
+    out = []
+    fn()
+    for _ in range(samples):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        stop.synchronize()
+        out.append(start.elapsed_time(stop) / reps)
+    out.sort()
+    return [out[0], out[len(out) // 2], out[-1]]
+
+
+def pair_times(torch, words, device, reps: int = 32, samples: int = 5) -> dict:
+    """The all-pairs sweep of the length-sorted ``words``: the wrapper call
+    and the kernel's traced device time in both modes, the sustained
+    ``count_matches_device`` sweep, its device time and a trace of it; the
+    count is checked against ``bytes.find`` first."""
+    from sliceslice_tpu_torch import PairwiseSearcher
+    from sliceslice_tpu_torch.ops import pairwise
+    from sliceslice_tpu_torch.utils.profiling import measure
+
+    ws = sorted(words, key=len)
+    ps = PairwiseSearcher(ws, device=device)
+    total = int(ps.count_matches_device())
+    exp = sum(h.find(n) >= 0 for n in ws for h in ws)
+    if total != exp or int(ps.contains_matrix().sum()) != exp:
+        raise SystemExit(f"pair sweep counts {total} matches, bytes.find {exp}")
+    hay, lh, _, _ = ps._pack_hay(None)
+    args = (ps._values, ps._masks, ps._ln, hay, lh, ps._plan(None), ps.block)
+    out = {"pairs": len(ws) ** 2, "matches": total}
+    pair_kernel = {"pair": "pair_block_kernel"}
+    for mode, count in (("count", True), ("matrix", False)):
+        call = functools.partial(pairwise.pair_block, *args, count=count)
+        m = measure(lambda: [call() for _ in range(reps)], mode, warmup=1, samples=samples,
+                    device=device)
+        out[mode] = {"kernel_us": trace_share(torch, call, groups=pair_kernel)["grouped_us"]["pair"],
+                     "call_ms": [x * 1e3 / reps for x in (m.low, m.estimate, m.high)]}
+    m = measure(lambda: [ps.count_matches_device() for _ in range(reps)], "pair sweep", warmup=1,
+                samples=samples, device=device)
+    out["sweep_ms"] = [x * 1e3 / reps for x in (m.low, m.estimate, m.high)]
+    out["sweep_device_ms"] = device_ms(torch, ps.count_matches_device, reps, samples)
+    out["trace"] = trace_share(torch, ps.count_matches_device, groups=pair_kernel)
+    return out
+
+
 def one_row_times(torch, hay: bytes, dh, device, reps: int = 32, samples: int = 5) -> dict:
     """{needle: {"find": [low, median, high], "count": [...]}}: ms per
     launch of a one-row find and count over ``dh`` (the single-needle
@@ -178,6 +245,7 @@ def main(argv=None) -> int:
     ap.add_argument("--chunks", default="")
     ap.add_argument("--reps", type=int, default=32)
     ap.add_argument("--positions", action="store_true")
+    ap.add_argument("--pairs", action="store_true")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -192,6 +260,9 @@ def main(argv=None) -> int:
     print(card(0), flush=True)
     hay = open(os.path.join(tree, "data", "i386.txt"), "rb").read()
     words = [w for w in open(os.path.join(tree, "data", "words.txt"), "rb").read().split(b"\n") if w]
+    if args.pairs:
+        print(json.dumps({"tree": tree, "pairs": pair_times(torch, words, device, args.reps)}), flush=True)
+        return 0
     dh = preprocess(hay, kh=24, device=device)
     bs = BatchedSearcher(words, device=device)
     exp = np.array([hay.find(w) for w in words])

@@ -29,7 +29,7 @@ from sliceslice_tpu_torch.config import SENTINEL
 from sliceslice_tpu_torch.needle import build_probe_table, needed_halo_for_t
 from sliceslice_tpu_torch.ops import pairwise, scan_kernel, torch_backend
 from sliceslice_tpu_torch.ops.scan_math import table_bits
-from sliceslice_tpu_torch.scripts import kernel_probe
+from sliceslice_tpu_torch.scripts import kernel_probe, pair_cases
 from sliceslice_tpu_torch.searcher import _host_positions
 
 pytestmark = pytest.mark.gpu
@@ -315,8 +315,8 @@ def _words(rng, count, max_len, alpha=(97, 100)):
 @pytest.mark.parametrize("max_len,block,count", [(64, 512, 300), (14, 16, 300), (600, 64, 40)])
 def test_pair_kernel_equals_plain(cuda, max_len, block, count):
     """Random word sets with the empty word: the kernel against its plain
-    version in both modes and against bytes.find; 600-byte words do not fit
-    a tile's shared memory and are read in place."""
+    version in both modes and against bytes.find; 600-byte words are rows of
+    more than 16 32-bit words, past the loads a thread starts together."""
     rng = np.random.default_rng(max_len)
     ws = sorted(_words(rng, count, max_len), key=len)
     hs = _words(rng, 2 * count // 3, max_len + 8)
@@ -331,6 +331,44 @@ def test_pair_kernel_equals_plain(cuda, max_len, block, count):
     assert int(count) == int(pairwise.pair_block_plain(*args, count=True)) == int((got >= 0).sum())
     exp = np.array([[h.find(n) for h in hs] for n in ws], dtype=np.int32)
     assert np.array_equal(got.cpu().numpy(), exp)
+
+
+@pytest.mark.parametrize("name", [c.name for c in pair_cases.cases()])
+def test_pair_kernel_hard_cases(cuda, name):
+    """The pair kernel's hard cases (tiles in both directions, lengths on
+    the plan's buckets, needles equal to their words, empty and 1-byte
+    needles, rows and tables longer than the unrolled loads, unsorted lists,
+    skipped blocks, padded rows): both modes against the plain version and
+    bytes.find, two launches alike."""
+    case = next(c for c in pair_cases.cases() if c.name == name)
+    args, exp = pair_cases.operands(case, cuda)
+    plain = pairwise.pair_block_plain(*args)
+    assert np.array_equal(plain.cpu().numpy(), exp)
+    before = pairwise.pair_block.launches
+    got, again = pairwise.pair_block(*args), pairwise.pair_block(*args)
+    cnt, cnt2 = pairwise.pair_block(*args, count=True), pairwise.pair_block(*args, count=True)
+    assert pairwise.pair_block.launches == before + 4
+    assert torch.equal(got, plain) and torch.equal(got, again)
+    assert int(cnt) == int(cnt2) == int((exp >= 0).sum())
+
+
+def test_pair_launch_plan_is_uploaded_once(cuda):
+    """After the first sweep of a haystack list, count_matches_device is one
+    launch and no plan upload; another list gets its own plan."""
+    rng = np.random.default_rng(5)
+    ws = sorted(pair_cases.random_words(rng, 300, 12), key=len)
+    hs = pair_cases.random_words(rng, 200, 15)
+    ps = PairwiseSearcher(ws, block=64, device=cuda)
+    for hay, words in ((None, ws), (hs, hs)):
+        exp = sum(h.find(n) >= 0 for n in ws for h in words)
+        assert int(ps.count_matches_device(hay)) == exp
+        launches, uploads = pairwise.pair_block.launches, pairwise.pair_block.uploads
+        totals = [ps.count_matches_device(hay) for _ in range(32)]
+        assert pairwise.pair_block.launches == launches + 32
+        assert pairwise.pair_block.uploads == uploads
+        assert {int(x) for x in totals} == {exp}
+        assert np.array_equal(ps.contains_matrix(hay).sum(), exp)
+        assert pairwise.pair_block.uploads == uploads
 
 
 def test_pair_kernel_padded_rows_never_match(cuda):
@@ -427,16 +465,57 @@ def test_probe_kernel_equals_plain(cuda, t):
                 assert int(count[row]) == overlapping_count(hay, nd)
 
 
+@pytest.mark.parametrize("t", [1, 2, 3, 4, 5, 8])
+def test_probe_variants_on_real_needles(cuda, t):
+    """The counting variants on needles that do occur (the harness's own
+    tables never pass slot 0): present, absent, 1-byte, last-position and
+    zero-tail needles, the queue's hard cases, base > 0 and n_real < n; the
+    prefilter's candidates must lose no match."""
+    rng = np.random.default_rng(300 + t)
+    hay = _hay(70 + t, 2 * scan_kernel.COUNT_CHUNK + 777)
+    dh = preprocess(hay, kh=needed_halo_for_t(t), device=cuda)
+    needles = _queue_cases(hay, t)
+    for k in range(max(1, 4 * t - 7), 4 * t + 1):
+        start = int(rng.integers(0, len(hay) - k))
+        needles += [hay[start : start + k], b"\x7f" * k, hay[-k:], hay[len(hay) - k + 1 :] + b"\0",
+                    b"a" * k]
+    needles += [b"a", b"\0", hay[-1:]]
+    vals, msks, lens = build_probe_table(needles, t_max=t)
+    vals, msks = np.pad(vals, ((0, 3), (0, 0))), np.pad(msks, ((0, 3), (0, 0)))
+    ends = np.pad(np.maximum(len(hay) - lens + 1, 0), (0, 3)).astype(np.int32)
+    n = vals.shape[0]
+    v, m = table_bits(vals, cuda), table_bits(msks, cuda)
+    for base, n_real in ((0, n), (4096, n - 5)):
+        e = torch.from_numpy(np.where(ends > 0, ends + base, 0).astype(np.int32)).to(cuda)
+        count = scan_kernel.batched_count(dh.flat, v, m, e, base=base, n_real=n_real)
+        assert count.cpu().tolist()[: len(needles)][: n_real] == [
+            overlapping_count(hay, nd) for nd in needles][: n_real]
+        first = scan_kernel.batched_find(dh.flat, v, m, e, base=base, n_real=n_real)
+        for variant in kernel_probe.VARIANTS:
+            got = kernel_probe.probe(variant, dh.flat, v, m, e, base=base, n_real=n_real)
+            if variant in kernel_probe.COUNTING:
+                assert torch.equal(got, count), (variant, t, base)
+            elif variant == "first":
+                assert torch.equal(got, first), (t, base)
+            plain = kernel_probe.probe_plain(variant, dh.flat, v, m, e, base=base, n_real=n_real)
+            assert torch.equal(got, plain), (variant, t, base)
+        for rows in kernel_probe.ROWS:
+            got = kernel_probe.probe("rows", dh.flat, v, m, e, base=base, n_real=n_real, rows=rows)
+            assert torch.equal(got, count), (rows, t, base)
+
+
 def test_probe_kernel_refuses_bad_variants(cuda):
     dh = preprocess(_hay(4, 10_000), device=cuda)
     values, masks = kernel_probe.make_tables(b"", 5, n=8)
     ends = kernel_probe.table_ends(masks, 10_000)
-    with pytest.raises(ValueError, match="regtab"):
+    with pytest.raises(ValueError, match="unknown"):
         kernel_probe.probe("regtab", dh.flat, values, masks, ends)
     with pytest.raises(ValueError, match="rows"):
         kernel_probe.probe("rows", dh.flat, values, masks, ends, rows=3)
     with pytest.raises(ValueError, match="unknown"):
         kernel_probe.probe("full", dh.flat, values, masks, ends)
+    with pytest.raises(ValueError, match="unknown"):
+        kernel_probe.probe("wide", dh.flat, values, masks, ends)
 
 
 def _launches():

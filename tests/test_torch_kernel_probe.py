@@ -143,10 +143,6 @@ def test_plain_variants_equal_their_columns(rng, t):
     before = kp.probe.launches
     for variant in kp.VARIANTS:
         for rows in (kp.ROWS if variant == "rows" else (4,)):
-            if variant == "regtab" and t > kp.REGTAB_MAX_T:
-                with pytest.raises(ValueError, match="regtab"):
-                    kp.probe(variant, dh.flat, values, masks, ends, n_real=37)
-                continue
             got = kp.probe(variant, dh.flat, values, masks, ends, n_real=37, rows=rows)
             assert got.dtype == torch.int32 and got.shape == (kp.NBLK,)
             assert torch.equal(got, kp.probe_plain(variant, dh.flat, values, masks, ends, n_real=37, rows=rows))
@@ -182,6 +178,46 @@ def test_probe_refuses_what_it_has_no_kernel_for(rng):
         kp.probe("rows", dh.flat, values, masks, ends, rows=3)
     with pytest.raises(ValueError, match="no probe kernel"):
         kp.probe("count", torch.empty(1024, dtype=torch.uint8, device="meta"), values, masks, ends)
+
+
+@pytest.mark.parametrize("variant", ["prefilter", "smemtab", "span", "word", "nomask"])
+@pytest.mark.parametrize("t", [1, 2, 4, 6])
+def test_queue_variants_equal_batched_count(rng, variant, t):
+    """The variants the queue loop added, and ``nomask``, on needles that do occur (real
+    tables, not the harness's never-matching ones): 1-byte needles, needles
+    of every length of the width, one ending in a zero byte, absent ones;
+    base > 0 and n_real < n."""
+    from sliceslice_tpu_torch.needle import build_probe_table
+
+    hay = _corpus(rng)
+    dh = preprocess(hay, kh=needed_halo_for_t(t), device=CPU)
+    needles = [b"a", b"\xff", hay[-1:]]
+    for k in range(max(1, 4 * t - 4), 4 * t + 1):
+        start = int(rng.integers(0, len(hay) - k))
+        needles += [hay[start : start + k], b"\x7f" * k, hay[-k:], hay[len(hay) - k + 1 :] + b"\0"]
+    vals, msks, lens = build_probe_table(needles, t_max=t)
+    ends = np.maximum(len(hay) - lens + 1, 0).astype(np.int32)
+    for base, n_real in ((0, None), (512, len(needles) - 3)):
+        e = np.where(ends > 0, ends + base, 0).astype(np.int32)
+        got = kp.probe(variant, dh.flat, vals, msks, e, base=base, n_real=n_real)
+        assert torch.equal(got, tsk.batched_count(dh.flat, vals, msks, e, base=base, n_real=n_real))
+        live = len(needles) if n_real is None else n_real
+        assert got.tolist()[:live] == [overlapping_count(hay, nd) for nd in needles[:live]]
+        assert not any(got.tolist()[live:])
+
+
+def test_variant_lists_are_consistent():
+    assert len(set(kp.VARIANTS)) == len(kp.VARIANTS) == 12 and not {"wide", "regtab"} & set(kp.VARIANTS)
+    assert set(kp.COUNTING) | {"first", "nomin", "noprobe", "empty"} == set(kp.VARIANTS)
+    assert set(kp.SPAN_PLAN) <= set(kp.COUNTING)
+    for bad in ("wide", "regtab", "full", ""):
+        with pytest.raises(ValueError, match="unknown probe variant"):
+            kp._check(bad, 4)
+    for rows in (0, 3, 16):
+        with pytest.raises(ValueError, match="rows per block"):
+            kp._check("rows", rows)
+    for variant in kp.VARIANTS:
+        kp._check(variant, 4)
 
 
 def _decode_first(out: np.ndarray, s: int) -> list:
@@ -250,12 +286,15 @@ def test_plain_variants_match_the_jax_build(interpret, i386, t):
 
 
 def test_main_runs_on_the_cpu(capsys):
-    assert kp.main(["t=2", "n=8", "k=1", "device=cpu", "count", "empty", "wide"]) == 0
+    assert kp.main(["t=2", "n=8", "k=1", "device=cpu", "count", "empty", "span"]) == 0
     lines = capsys.readouterr().out.splitlines()
     assert lines[0].startswith("CPU, plain versions")
-    assert [ln.split(":")[0].strip() for ln in lines[1:]] == ["count", "empty", "wide"]
+    assert [ln.split(":")[0].strip() for ln in lines[1:]] == ["count", "empty", "span"]
     assert all("ms/sweep" in ln and "ns/(row, 1024 pos)" in ln for ln in lines[1:])
-    with pytest.raises(ValueError, match="regtab"):
+    assert kp.main(["t=5", "n=8", "k=1", "device=cpu", "all"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln.split(":")[0].strip() for ln in lines[1:]] == list(kp.VARIANTS)
+    with pytest.raises(ValueError, match="unknown probe variant"):
         kp.main(["t=5", "device=cpu", "regtab"])
 
 

@@ -4,7 +4,9 @@ tests/test_pairwise.py — plus the pair-block wrapper's plain version
 against the JAX ``_pair_block`` on identical packed words, and needle
 tables carried across by ``sliceslice_tpu_torch.interop``.  Every
 comparison is exact.  The CUDA pair-block kernel itself is held against the
-plain version on the card by tests/test_torch_gpu.py and chip_smoke.py."""
+plain version on the card by tests/test_torch_gpu.py and chip_smoke.py, on
+the hard cases of ``sliceslice_tpu_torch/scripts/pair_cases.py``, which
+run here through the plain version."""
 
 import gc
 import weakref
@@ -18,6 +20,7 @@ import sliceslice_tpu.ops.pairwise as jpw
 import sliceslice_tpu_torch.ops.pairwise as tpw
 from sliceslice_tpu_torch import PairwiseSearcher, interop, pairwise_contains_all
 from sliceslice_tpu_torch.ops.scan_math import table_bits
+from sliceslice_tpu_torch.scripts import pair_cases
 
 #: The CPU tests run the kernels' plain versions: the port's entry points
 #: take the card unless asked for the CPU.
@@ -214,6 +217,84 @@ def test_hay_cache_is_capped_and_identity_keyed(rng):
     same = list(lists[-1])
     assert (ps.first_matrix(same) == ps.first_matrix(lists[-1])).all()
     assert ps._cache_get("mat", same) is not None
+
+
+@pytest.mark.parametrize("name", [c.name for c in pair_cases.cases()])
+def test_pair_hard_cases_match_jax_and_bytes_find(name):
+    """The pair kernel's hard cases through the plain version: equal to
+    ``bytes.find`` (padded rows and words never match) and to the JAX
+    ``PairwiseSearcher`` on the same seeded words, both modes; the plans of
+    the two packages are the same blocks."""
+    case = next(c for c in pair_cases.cases() if c.name == name)
+    args, exp = pair_cases.operands(case, CPU)
+    got = tpw.pair_block(*args)
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), exp)
+    assert int(tpw.pair_block(*args, count=True)) == int((exp >= 0).sum())
+    jps = jpw.PairwiseSearcher(case.needles, block=case.block)
+    assert tuple(args[5]) == jps._plan(case.haystacks)[0]
+    n, h = len(case.needles), exp.shape[1] - case.pad[1]
+    assert np.array_equal(jps.first_matrix(case.haystacks), exp[:n, :h])
+    assert int(jps.count_matches_device(case.haystacks)) == int((exp >= 0).sum())
+    if name == "skipped":
+        assert any(e[2] == 0 for e in args[5]) and any(e[2] > 0 for e in args[5])
+    if name == "padded":
+        assert (exp[n:] == -1).all() and (exp[:, h:] == -1).all()
+
+
+def test_launch_plan_is_cached_per_haystack_list(rng):
+    """A second sweep of one haystack list reuses its checked plan and
+    device table (the plan's non-skipped blocks); a direct ``pair_block``
+    call builds its own."""
+    ws = sorted(random_words(rng, 40), key=len)
+    hs = random_words(rng, 30, max_len=5)
+    ps = PairwiseSearcher(ws, block=8, device=CPU)
+    c_exp, f_exp = oracle_matrix(ws, hs)
+    assert int(ps.count_matches_device(hs)) == int(c_exp.sum())
+    launch = ps._cache_get("launch", hs)
+    assert isinstance(launch, tpw.PairLaunch)
+    plan = ps._plan(hs)
+    live = [list(e) for e in plan if e[2] > 0]
+    assert launch.live.tolist() == live and len(live) < len(plan)
+    assert launch.table.dtype == torch.int32 and launch.table.tolist() == live
+    assert all(x.is_contiguous() for x in launch.operands) and launch.block == 8
+    assert int(ps.count_matches_device(hs)) == int(c_exp.sum())
+    assert (ps.first_matrix(hs) == f_exp).all()
+    assert ps._cache_get("launch", hs) is launch
+    assert ps._launch_plan(None) is ps._launch_plan(None) is not launch
+    assert tpw.pair_block.uploads == 0 and tpw.pair_block.launches == 0  # the CPU sends nothing to a card
+    # Blocks the plan leaves out stay -1, as do skipped ones.
+    pk, lh, _, _ = ps._pack_hay(hs)
+    part = tpw.plan_launch(ps._values, ps._masks, ps._ln, pk, lh, plan[1:], 8)
+    got = tpw.run_launch(part)
+    assert (got[:8, :8] == -1).all() and (got.numpy()[8:] == f_exp[8:]).all()
+    assert int(tpw.run_launch(part, count=True)) == int((got >= 0).sum())
+
+
+def test_launch_plan_does_not_alias_a_recycled_id(rng):
+    """The cache is keyed by id() but holds the list itself: an entry left
+    under another list's id (a freed list's address taken by a new one) is
+    not handed out."""
+    ws = random_words(rng, 20)
+    ps = PairwiseSearcher(ws, device=CPU)
+    hs1, hs2 = random_words(rng, 15), random_words(rng, 25)
+    ps.count_matches_device(hs1)
+    stale = ps._hay_cache[("launch", id(hs1))]
+    for kind in ("launch", "pack", "plan"):
+        ps._hay_cache[(kind, id(hs2))] = ps._hay_cache[(kind, id(hs1))]
+    assert ps._cache_get("launch", hs2) is None
+    assert int(ps.count_matches_device(hs2)) == int(oracle_matrix(ws, hs2)[0].sum())
+    assert ps._cache_get("launch", hs2) is not stale[1]
+    assert ps._cache_get("launch", hs2).operands[4].shape[0] == len(hs2)
+
+
+def test_launch_plans_are_evicted_at_the_cap(rng):
+    ps = PairwiseSearcher(random_words(rng, 10), device=CPU)
+    lists = [random_words(rng, 5) for _ in range(PairwiseSearcher._HAY_CACHE_CAP)]
+    for hs in lists:
+        ps.count_matches_device(hs)
+    assert len(ps._hay_cache) <= PairwiseSearcher._HAY_CACHE_CAP
+    assert ps._cache_get("launch", lists[0]) is None and ps._cache_get("launch", lists[-1]) is not None
+    assert int(ps.count_matches_device(lists[0])) == int(oracle_matrix(ps.needles, lists[0])[0].sum())
 
 
 def test_cache_does_not_pin_instances():

@@ -97,11 +97,21 @@ def test_plain_compaction_matches_jax(cap, rng):
     """The compaction wrapper on the CPU against JAX
     ``compact_positions_batched``, counts and offsets, with caps that end
     inside a word and inside an item: a dense row (a quarter of all
-    positions), a row planted every 18,000 bytes (its matches spread over
-    four items), an absent row, a zero-tail row and an empty-end row."""
+    positions, its cap-th match planted in one bitmap word with the next
+    one), a row planted every 18,000 bytes (its matches spread over four
+    items), an absent row, a zero-tail row and an empty-end row."""
     hay = bytearray(_corpus(rng, 3 * tsk.BITMAP_CHUNK + 5_000))
     for p in range(1_000, len(hay) - 100, 18_000):
         hay[p : p + 6] = b"\xf0PLNT\xf1"
+    # The dense row's cap-th match gets a neighbour in its own bitmap word:
+    # a match in a word's last bit is taken out, so the next one is cap-th.
+    while True:
+        p = int(_host_positions(bytes(hay), b"a")[cap - 1])
+        assert hay[p + 1] in b"abcd"  # not a planted needle
+        if p % 32 < 31:
+            hay[p + 1] = ord("a")
+            break
+        hay[p] = ord("b")
     hay = bytes(hay)
     needles = [b"a", b"\xf0PLNT\xf1", b"\xfe\xfd", hay[-3:] + b"\0", b"ab", b"abc"]
     values, masks, lengths = build_probe_table(needles, t_max=2)
