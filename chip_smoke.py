@@ -10,7 +10,9 @@ kernels also on their work queue's hard cases: t = 1..8, 16, 32, 512, a
 match only in a row's last chunk, absent rows, one-row launches over 1 MiB
 and 256 MiB, ends inside a 16-position group and at the buffer's last
 words, ``base > 0``, ``n_real < n``, repeated launches, compaction caps 1,
-7, 64 and 4096; the pair-block kernel on the hard cases of
+7, 64, 4096 and 16,384, a t = 128 table of chunks of differing lengths
+with mask-0 padded slots and differing ends, the chained bitmap of huge
+needles; the pair-block kernel on the hard cases of
 ``sliceslice_tpu_torch/scripts/pair_cases.py``: tiles in both directions,
 lengths on the plan's buckets, needles equal to their words, empty and
 1-byte needles, rows and tables longer than the kernel's unrolled loads,
@@ -37,12 +39,23 @@ drives the port's main paths against host oracles:
   over the JAX harness's tables (4,585 rows over i386), against its plain
   version and the count and find kernels, and the counting variants over
   the real words' tables against the count kernel;
+* huge needles (over 2,048 bytes): ``DynamicSearcher`` find / count_in /
+  positions of i386 needles of 2,049 to 65,536 bytes and of the 256 MiB
+  corpus's of up to 1 MiB (the host-verify tier), of a period-1 corpus and
+  of 20,000 records sharing one prefix (the chained-bitmap tier), each
+  call on its tier with its launches, and one ``BatchedSearcher`` of all
+  the words and the i386 huge needles;
+* the grep CLI: ``python -m sliceslice_tpu_torch.cli`` with the dynamic,
+  batched, count and positions backends over data/i386.txt, a huge needle
+  among the needles, four processes at once, against bytes.find's lines;
 
 then times the sweeps, each kernel (the find and count kernels per width
 group; the pair kernel's device time in both modes; the count kernel, the
 harness's ``count`` variant, which must come within 5% of it, its ``word``
 variant, the first count loop, and its ``prefilter`` and ``nomask`` variants
-over the real words' tables, in turns) and the ablation table with CUDA events.  Every phase prints one
+over the real words' tables, in turns), the huge-needle tiers per call and
+operation (with the host verify's share and the bitmap kernel at t = 128
+against its bound) and the ablation table with CUDA events.  Every phase prints one
 line and its seconds; any failure raises and exits non-zero.  The
 next-to-last lines are a JSON object describing the kernels (times, bound
 and what sets it, launches per sweep) and the card's name and power
@@ -78,8 +91,8 @@ PROBE_TS = (1, 2, 3)
 #: kernel it is built from, as a share of the kernel's time, in turns.
 HARNESS_TOLERANCE = 0.05
 #: Compaction caps held against the plain version: inside a word, inside
-#: an item, the default.
-CAPS = (1, 7, 64, 4096)
+#: an item, the default, the huge needles' host-verify budget.
+CAPS = (1, 7, 64, 4096, 16384)
 #: Planted only in the last 100 bytes of the 256 MiB corpus.
 LAST_CHUNK_NEEDLE = b"\xfc\xfd\xfe\xfc\xfd\xfe\xfc\xfd\xfe"
 #: The first find and count design's per-width-group kernel times over the
@@ -226,6 +239,55 @@ def _queue_checks(torch, device, hay, flat, needles, t, ends, base=0, n_real=Non
     return out
 
 
+def _chunk_table_checks(torch, device, hay, dh):
+    """The dense huge-needle tier's operands: one t = 128 table of chunks
+    of differing lengths (mask-0 padded slots; present, absent, at the
+    last position, a zero tail, dense), with their own ends and with ends
+    cut inside the corpus.  The find, count, bitmap and compaction kernels
+    (every cap of CAPS) against their plain versions and the host oracles;
+    then the chained bitmap of huge needles, kernel against plain.
+    Returns the bitmap's and the compaction's largest differences."""
+    from sliceslice_tpu_torch import overlapping_count
+    from sliceslice_tpu_torch.config import SENTINEL
+    from sliceslice_tpu_torch.models.huge import CHUNK, HugeNeedleSearcher
+    from sliceslice_tpu_torch.needle import build_probe_table
+    from sliceslice_tpu_torch.ops import chained, torch_backend
+    from sliceslice_tpu_torch.ops.scan_math import table_bits
+    from sliceslice_tpu_torch.searcher import _host_positions
+
+    t = CHUNK // 4
+    chunks = [hay[1000:1512], hay[-512:], hay[5000:5300], hay[-129:], hay[70_000:70_001],
+              b"\x7f" * 512, hay[len(hay) - 39:] + b"\0", b"a" * 7, hay[-512:-64]]
+    own = np.array([len(hay) - len(c) + 1 for c in chunks])
+    vals, msks, _ = build_probe_table(chunks, t_max=t)
+    v, m = table_bits(vals, device), table_bits(msks, device)
+    f, c = _queue_checks(torch, device, hay, dh.flat, chunks, t, own)
+    check(f == [SENTINEL if hay.find(x) < 0 else hay.find(x) for x in chunks]
+          and c == [overlapping_count(hay, x) for x in chunks], "t=128 chunk table != host oracles")
+    bitmap_err = compact_err = 0
+    for ends in (own, own - np.arange(len(chunks)) * 1000 - 7):
+        e = torch.from_numpy(np.maximum(ends, 0).astype(np.int32)).to(device)
+        words, totals, b_err, c_err = _positions_checks(dh.flat, v, m, e)
+        bitmap_err, compact_err = max(bitmap_err, b_err), max(compact_err, c_err)
+        rows = words.cpu().numpy()
+        for i, x in enumerate(chunks):
+            exp = _host_positions(hay, x)
+            check(np.array_equal(torch_backend.decode_match_bitmap(rows[i]), exp[exp < ends[i]]),
+                  f"t=128 bitmap row {i} != host positions")
+    needles = [hay[3000:5600], hay[-4096:], hay[-2600:-1] + b"\0", b"a" * 2100, hay[:2049]]
+    for nd in needles:
+        plan = HugeNeedleSearcher(nd, device=device)._chunk_plan()
+        got = chained.chained_match_bitmap(dh.flat, *plan, dh.length)
+        ref = chained.chained_match_bitmap(dh.flat, *plan, dh.length, plain=True)
+        check(all(_same(a, b) for a, b in zip(got, ref)), f"chained bitmap kernel != plain, k={len(nd)}")
+        exp = _host_positions(hay, nd)
+        check(int(got[0]) == len(exp) and int(got[1]) == (exp[0] if len(exp) else SENTINEL)
+              and np.array_equal(torch_backend.decode_match_bitmap(got[2].cpu().numpy()), exp),
+              f"chained bitmap != host positions, k={len(nd)}")
+        bitmap_err = max(bitmap_err, _err(got[2], ref[2]))
+    return bitmap_err, compact_err
+
+
 def _random_words(rng, count: int, max_len: int):
     """Seeded words of lengths 0..max_len over a 3-letter alphabet (so
     short words occur in long ones), plus the empty word."""
@@ -323,6 +385,9 @@ def phase_kernels(torch, device):
             check(f == [SENTINEL if hay.find(nd) < 0 else hay.find(nd)]
                   and c == [overlapping_count(hay, nd)], f"one-row launch differs at t={t}")
         queue_cases += 7 + len(qn)  # tables, each launched twice per kernel
+    b_err, c_err = _chunk_table_checks(torch, device, hay, dh)
+    bitmap_err, compact_err = max(bitmap_err, b_err), max(compact_err, c_err)
+    queue_cases += 1
     find_err = max_err
     max_err = 0
     cases = 0
@@ -357,7 +422,7 @@ def phase_kernels(torch, device):
         pair_err = max(pair_err, _pair_checks(torch, pairwise, args, exp, case.name))
         pairs += exp.size
     say("kernels", find_rows=rows, find_widths=widths, find_max_abs_err=find_err,
-        queue_case_tables=queue_cases,
+        queue_case_tables=queue_cases, chunk_table_t=128,
         count_rows=rows, count_max_abs_err=count_err, bitmap_rows=rows,
         bitmap_max_abs_err=bitmap_err, compaction_caps=list(CAPS), compaction_max_abs_err=compact_err,
         memchr_cases=cases, memchr_max_abs_err=memchr_err,
@@ -382,7 +447,7 @@ def phase_i386(torch, device, hay, words):
     widths = {g.t: g.n for g in bs.groups}
     say("i386", words=len(words), corpus_bytes=len(hay), groups=widths,
         parity=True, parity_after_optimize_for=True)
-    return dh, bs
+    return dh, bs, exp
 
 
 def phase_dynamic(torch, device, hay):
@@ -476,6 +541,259 @@ def phase_queue_big(torch, device, big):
         equal_to_plain=True, equal_to_host=True)
 
 
+def _flip(nd: bytes) -> bytes:
+    """``nd`` with its middle byte changed: the prefix filter passes where
+    ``nd`` occurs, the verify must reject."""
+    mid = len(nd) // 2
+    return nd[:mid] + bytes([nd[mid] ^ 0x40]) + nd[mid + 1:]
+
+
+def _ascii_slice(hay: bytes, start: int, k: int) -> bytes:
+    """The first ASCII slice of ``k`` bytes with no NUL at or after
+    ``start``: a needle the command line carries as it is."""
+    a = np.frombuffer(hay, np.uint8)
+    bad = np.concatenate([[0], np.cumsum((a >= 128) | (a == 0))])
+    clean = np.flatnonzero(bad[k:] == bad[:-k])  # windows [i, i + k) without such bytes
+    i = int(clean[np.searchsorted(clean, start)])
+    return hay[i:i + k]
+
+
+#: Launches (count, bitmap, compaction) of one huge-needle call per tier:
+#: the prefix count, then the candidates' bitmap and compaction (host) or
+#: the chunks' bitmap (dense).
+TIER_LAUNCHES = {"host": (1, 1, 1), "dense": (1, 1, 0)}
+
+
+def _huge_calls(torch, device, cases, what):
+    """DynamicSearcher find / count_in / positions of each ``(needle,
+    layout, (first, count, positions), tier)`` case, exact, each call on
+    its tier with that tier's launches."""
+    from sliceslice_tpu_torch import DynamicSearcher
+    from sliceslice_tpu_torch.ops import scan_kernel
+
+    def counts():
+        return (scan_kernel.batched_count.launches, scan_kernel.match_bitmap_counted.launches,
+                scan_kernel.compact_positions.launches)
+
+    for nd, dh, (first, count, positions), tier in cases:
+        ds = DynamicSearcher(nd, device=device)
+        got_tier = ds.inner._route(dh, dh.host_bytes)[0]
+        check(got_tier == tier, f"{what} k={len(nd)}: tier {got_tier}, not {tier}")
+        for op, want in (("find", first), ("count_in", count), ("positions", positions)):
+            before = counts()
+            got = getattr(ds, op)(dh)
+            torch.cuda.synchronize()
+            made = tuple(a - b for a, b in zip(counts(), before))
+            same = np.array_equal(got, want) if op == "positions" else got == want
+            check(same, f"{what} k={len(nd)} {op} differs")
+            check(made == TIER_LAUNCHES[tier], f"{what} k={len(nd)} {op}: launches {made}, "
+                  f"not {TIER_LAUNCHES[tier]} of the {tier} tier")
+
+
+def phase_huge(torch, device, card, hay, words, i386_dh, i386_answers, big):
+    """Needles longer than 2,048 bytes on the card, each case exact and on
+    its designed tier with its launches: i386 needles of 2,049 to 65,536
+    bytes and their absent variants (sparse tier; alone and in one
+    BatchedSearcher with all 4,585 words), the 256 MiB corpus's needles of
+    2,049 to 1,048,576 bytes (sparse), a period-1 corpus and a corpus of
+    20,000 records sharing one prefix (dense), its first 16,000 records
+    (sparse, 16,000 candidates).  Then ms per call of each tier and
+    operation, the host verify's share, and the chunk bitmap at t = 128
+    against its bound."""
+    from sliceslice_tpu_torch import BatchedSearcher, DynamicSearcher, preprocess
+    from sliceslice_tpu_torch.models import huge
+    from sliceslice_tpu_torch.needle import needed_halo_for_t
+    from sliceslice_tpu_torch.ops import chained, scan_kernel
+    from sliceslice_tpu_torch.ops.scan_math import position_limit
+    from sliceslice_tpu_torch.searcher import _host_positions, overlapping_count
+    from sliceslice_tpu_torch.utils.profiling import bound_ms, measure
+
+    def answers(h, nd):
+        f = h.find(nd)
+        return (None if f < 0 else f), overlapping_count(h, nd), _host_positions(h, nd)
+
+    # i386, sparse tier.
+    i386 = []
+    for i, k in enumerate((2049, 4096, 16384, 65536)):
+        nd = hay[100_000 + 150_000 * i:100_000 + 150_000 * i + k]
+        i386 += [nd, _flip(nd)]
+    _huge_calls(torch, device, [(nd, i386_dh, answers(hay, nd), "host") for nd in i386], "i386")
+    i386_firsts, i386_counts, i386_positions = i386_answers
+    bs = BatchedSearcher(list(words) + i386, device=device)
+    got = bs.find_all(i386_dh)
+    check(np.array_equal(got, np.concatenate([i386_firsts, [hay.find(nd) for nd in i386]])),
+          "i386 words + huge needles: find_all differs")
+    got = bs.count_all(i386_dh)
+    check(np.array_equal(got, np.concatenate([i386_counts, [overlapping_count(hay, nd) for nd in i386]])),
+          "i386 words + huge needles: count_all differs")
+    got = bs.positions_all(i386_dh)
+    exp = list(i386_positions) + [_host_positions(hay, nd) for nd in i386]
+    check(all(np.array_equal(a, b) for a, b in zip(got, exp)) and len(got) == len(exp),
+          "i386 words + huge needles: positions_all differs")
+
+    # The 256 MiB corpus (random bytes), sparse tier: each slice occurs
+    # once, its absent variant never; the prefixes are checked unique.
+    big_dh, big_hay, _ = big
+    cases = []
+    n = len(big_hay)
+    for off, k in ((n // 20, 2049), (n * 9 // 16, 65_536), (n * 3 // 4, min(1 << 20, n // 8))):
+        nd = big_hay[off:off + k]
+        check(big_hay.find(nd[:64]) == off and big_hay.find(nd[:64], off + 1) < 0,
+              "256 MiB corpus: a huge needle's prefix is not unique")
+        cases += [(nd, big_dh, (off, 1, np.array([off])), "host"),
+                  (_flip(nd), big_dh, (None, 0, np.zeros(0, np.int64)), "host")]
+    _huge_calls(torch, device, cases, "256 MiB corpus")
+
+    # Dense, period 1: 16 runs of 1,048,575 'a' and one 'b'.
+    run = 1 << 20
+    arr = np.full(16 * run, ord("a"), np.uint8)
+    arr[run - 1::run] = ord("b")
+    p1 = preprocess(arr, device=device)
+    k = 8192
+    per_run = run - 1 - k + 1
+    p1_pos = (np.arange(16, dtype=np.int64)[:, None] * run + np.arange(per_run)).reshape(-1)
+    check(len(p1_pos) == 16_646_144, "period-1 expectation")
+    ones = b"a" * k
+    absent1 = b"a" * (k // 2) + b"c" + b"a" * (k // 2 - 1)
+    check(huge.HugeNeedleSearcher(ones, device=device)._chunk_plan()[2] == (0,) * 16,
+          "the period-1 needle does not share one chunk row")
+    _huge_calls(torch, device, [(ones, p1, (0, len(p1_pos), p1_pos), "dense"),
+                                (absent1, p1, (None, 0, np.zeros(0, np.int64)), "dense")], "period 1")
+
+    # Dense, aperiodic: 20,000 records of one 64-byte prefix and 448
+    # seeded bytes; a needle of 8 records from record 12,345.
+    rng = np.random.default_rng(77)
+    rec = rng.integers(0, 256, (20_000, 512), dtype=np.uint8)
+    rec[:, :64] = rng.integers(0, 256, 64, dtype=np.uint8)
+    ap_hay = rec.tobytes()
+    ap = preprocess(ap_hay, device=device)
+    r0 = 12_345 * 512
+    nd_ap = ap_hay[r0:r0 + 4096]
+    check(len(huge.HugeNeedleSearcher(nd_ap, device=device)._chunk_plan()[0]) == 8, "U != 8")
+    check(ap_hay.find(nd_ap) == r0 and ap_hay.find(nd_ap, r0 + 1) < 0 and _flip(nd_ap) not in ap_hay,
+          "aperiodic corpus: the needle is not unique")
+    _huge_calls(torch, device, [(nd_ap, ap, (r0, 1, np.array([r0])), "dense"),
+                                (_flip(nd_ap), ap, (None, 0, np.zeros(0, np.int64)), "dense")], "aperiodic")
+    # Its first 16,000 records: 16,000 candidates, the sparse tier's worst.
+    sp_hay = ap_hay[:16_000 * 512]
+    sp = preprocess(sp_hay, device=device)
+    nd_sp = sp_hay[r0:r0 + 4096]
+    _huge_calls(torch, device, [(nd_sp, sp, (r0, 1, np.array([r0])), "host"),
+                                (_flip(nd_sp), sp, (None, 0, np.zeros(0, np.int64)), "host")],
+                "16,000 candidates")
+
+    # Times: CUDA events around each call (its readbacks synchronise),
+    # median of 3 after one warm call.
+    tiers = {"sparse, i386, k=4,096": (i386[2], i386_dh), "sparse, 16,000 candidates": (nd_sp, sp),
+             "dense, period 1, 16 MiB": (ones, p1), "dense, aperiodic, U=8, 10 MB": (nd_ap, ap)}
+    ms = {}
+    for name, (nd, dh) in tiers.items():
+        ds = DynamicSearcher(nd, device=device)
+        ms[name] = {op: measure(lambda op=op: getattr(ds, op)(dh), f"{name} {op}", warmup=1, samples=3,
+                                device=device).estimate * 1e3
+                    for op in ("find", "count_in", "positions")}
+    # The host verify's share of a sparse call: the verify alone and the
+    # whole count_in, both on the host clock, in turns, medians of 5.
+    verify = {}
+    for name in ("sparse, i386, k=4,096", "sparse, 16,000 candidates"):
+        nd, dh = tiers[name]
+        hs = DynamicSearcher(nd, device=device).inner
+        cands = hs._route(dh, dh.host_bytes)[1]
+        v_s, c_s = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            sum(1 for _ in hs._verified(dh.host_bytes, cands))
+            t1 = time.perf_counter()
+            hs.count_in(dh)
+            torch.cuda.synchronize()
+            v_s.append(t1 - t0)
+            c_s.append(time.perf_counter() - t1)
+        v_ms, c_ms = sorted(v_s)[2] * 1e3, sorted(c_s)[2] * 1e3
+        verify[name] = {"candidates": len(cands), "verify_ms": v_ms, "count_in_ms_host_clock": c_ms,
+                        "share": v_ms / c_ms}
+    # The chunk bitmap at t = 128: one launch over the aperiodic corpus's
+    # 8 unique chunks, kernel and plain version, and its bound.
+    hs = huge.HugeNeedleSearcher(nd_ap, device=device)
+    tables, lens, _, _ = hs._chunk_plan()
+    needed = needed_halo_for_t(huge.CHUNK // 4)
+    dh128 = ap.ensure_halo(needed)
+    values, masks = chained._table(tables)
+    ends = np.maximum(ap.length - np.asarray(lens) + 1, 0).astype(np.int32)
+    _, v, m, e = scan_kernel._operands(dh128.flat, values, masks, ends, 0)
+    kern = measure(lambda: scan_kernel.match_bitmap_counted(dh128.flat, v, m, e), "bitmap t=128",
+                   warmup=1, samples=5, device=device).estimate * 1e3
+    plain = measure(lambda: scan_kernel.match_bitmap_counted_plain(dh128.flat, v, m, e), "bitmap t=128 plain",
+                    warmup=1, samples=3, device=device).estimate * 1e3
+    numel = dh128.flat.numel()
+    lim = np.minimum(ends.astype(np.int64), position_limit(numel, v.shape[1]))
+    words_out = scan_kernel.bitmap_words(numel, v.shape[1])
+    n_chunks = -(-position_limit(numel, v.shape[1]) // scan_kernel.BITMAP_CHUNK)
+    bound = bound_ms(int(lim.sum()), numel + 4 * len(lens) * (2 * v.shape[1] + 1 + words_out + n_chunks))
+    say("huge", card=card, ms_per_call=ms, host_verify=verify,
+        bitmap_t128={"rows": len(lens), "corpus_bytes": ap.length, "kernel_ms": kern, "plain_ms": plain,
+                     "bound_ms": bound[0], "bound_by": bound[1], "halo": needed},
+        i386_needles=[len(nd) for nd in i386], batched_rows=len(bs), big_needles=[len(c[0]) for c in cases],
+        period1_matches=len(p1_pos), parity=True)
+
+
+def phase_cli(hay):
+    """``python -m sliceslice_tpu_torch.cli`` over data/i386.txt with the
+    dynamic, batched, count and positions backends, a huge needle among
+    the needles, in four processes at once; every printed line against
+    lines built from bytes.find."""
+    import subprocess
+
+    from sliceslice_tpu_torch.searcher import _host_positions, overlapping_count
+
+    path = "data/i386.txt"
+    huge = _ascii_slice(hay, 300_000, 4096)
+    huge2 = _ascii_slice(hay, 500_000, 2049)
+    absent = huge2[:1000] + (b"~" if huge2[1000:1001] != b"~" else b"^") + huge2[1001:]
+    short = [b"Protected Mode", b"zebra!", b"the"]
+
+    def find_line(nd):
+        f = hay.find(nd)
+        return f"match at {f}" if f >= 0 else "no match"
+
+    def pos_line(nd):
+        p = _host_positions(hay, nd)
+        more = f" (+{p.size - 100} more)" if p.size > 100 else ""
+        return (",".join(map(str, p[:100].tolist())) if p.size else "no match") + more
+
+    lists = {"batched": [short[0], huge, absent, short[1]], "count": [short[2], huge2, absent],
+             "positions": [short[2], huge, absent]}
+    runs = {"dynamic": ([huge], [f"{path}: {find_line(huge)}"])}
+    for backend, nds in lists.items():
+        line = {"batched": find_line, "count": lambda nd: str(overlapping_count(hay, nd)),
+                "positions": pos_line}[backend]
+        runs[backend] = (nds, [f"{path}: {nd.decode()}: {line(nd)}" for nd in nds])
+    def arg(nds):  # split_needles' escapes for the lists
+        return ",".join(nd.decode().replace("\\", "\\\\").replace(",", "\\,") for nd in nds)
+
+    procs = {b: subprocess.Popen([sys.executable, "-m", "sliceslice_tpu_torch.cli", b,
+                                  arg(nds) if b in lists else nds[0].decode(), path],
+                                 cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for b, (nds, _) in runs.items()}
+    outs = {}
+    try:
+        for b, proc in procs.items():
+            outs[b] = proc.communicate(timeout=300)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for b, (nds, want) in runs.items():
+        out, err = outs[b]
+        rc = procs[b].returncode
+        check(rc == (0 if any(hay.find(nd) >= 0 for nd in nds) else 1),
+              f"cli {b}: exit code {rc}; stderr: {err[-2000:]}")
+        check(out == "".join(line + "\n" for line in want),  # needles hold newlines
+              f"cli {b}: printed lines differ from bytes.find's")
+    say("cli", backends=list(runs), needle_lengths={b: [len(nd) for nd in nds] for b, (nds, _) in runs.items()},
+        lines={b: len(w) for b, (_, w) in runs.items()}, equal_to_bytes_find=True)
+
+
 def phase_count(torch, device, hay, words, i386_dh, big):
     """Counts on the count path: all words over i386 before and after
     optimize_for, DynamicSearcher.count_in on every arm, and the 256 MiB
@@ -537,10 +855,10 @@ def phase_count(torch, device, hay, words, i386_dh, big):
         parity=True, parity_after_optimize_for=True, flat_rung_words=len(flat_words),
         dynamic_lengths=lengths, dynamic_checks=checks,
         big_needles=len(needles), big_total_matches=int(exp_big.sum()))
-    return bs, int(exp.sum()), exp_big
+    return bs, exp, exp_big
 
 
-def phase_positions(torch, device, hay, words, i386_dh, big, i386_total, big_counts):
+def phase_positions(torch, device, hay, words, i386_dh, big, i386_counts, big_counts):
     """Positions on the positions path: all words over i386 before and
     after optimize_for (both tiers), DynamicSearcher.positions on every
     arm, a flat layout on the card kept without host bytes, and the 256 MiB
@@ -569,6 +887,7 @@ def phase_positions(torch, device, hay, words, i386_dh, big, i386_total, big_cou
           f"not one each per width group ({len(bs.groups)})")
     total = sum(len(p) for p in got)
     dense = sum(len(p) > cap for p in got)
+    i386_total = int(i386_counts.sum())
     check(total == i386_total, f"i386 positions total {total} != count total {i386_total}")
     check(0 < dense < len(words), f"i386 positions: {dense} dense rows, no row on one tier")
     bs.optimize_for(i386_dh)
@@ -621,7 +940,7 @@ def phase_positions(torch, device, hay, words, i386_dh, big, i386_total, big_cou
         flat_rung_words=len(flat_words), dynamic_lengths=lengths, dynamic_checks=checks,
         big_needles=len(needles), big_total_matches=int(sizes.sum()),
         big_dense_rows=int((sizes > cap).sum()), host_oracle_s=round(oracle_s, 3))
-    return bs
+    return bs, exp
 
 
 def phase_probe(torch, device, hay, i386_dh, count_bs):
@@ -1007,7 +1326,7 @@ def main() -> int:
                 "compact_positions": scan_kernel.compact_positions, "probe": kernel_probe.probe}
     launches = {}
 
-    def path(names, *phases):
+    def path(names, *phases, into=launches):
         """Drive one main path: its kernels' counts start at 0 just before
         and are read just after."""
         for name in names:
@@ -1015,24 +1334,31 @@ def main() -> int:
         outs = [timed(fn, *args) for fn, args in phases]
         torch.cuda.synchronize()
         for name in names:
-            launches[name] = wrappers[name].launches
-            check(launches[name] > 0, f"{name} was never launched by its main path")
+            into[name] = wrappers[name].launches
+            check(into[name] > 0, f"{name} was never launched by its main path")
         return outs
 
-    (i386_dh, bs), _, big = path(
+    (i386_dh, bs, i386_firsts), _, big = path(
         ("batched_find", "memchr_find"),
         (phase_i386, (torch, device, hay, words)),
         (phase_dynamic, (torch, device, hay)),
         (phase_big, (torch, device)))
-    ((count_bs, i386_total, big_counts),) = path(
+    ((count_bs, i386_counts, big_counts),) = path(
         ("batched_count",), (phase_count, (torch, device, hay, words, i386_dh, big)))
-    (pos_bs,) = path(("match_bitmap", "compact_positions"), (phase_positions, (
-        torch, device, hay, words, i386_dh, big, i386_total, big_counts)))
+    ((pos_bs, i386_positions),) = path(("match_bitmap", "compact_positions"), (phase_positions, (
+        torch, device, hay, words, i386_dh, big, i386_counts, big_counts)))
     (ps,) = path(("pair_block",), (phase_pairwise, (torch, device, words)))
     ((errs["probe"], probe_setups),) = path(
         ("probe",), (phase_probe, (torch, device, hay, i386_dh, count_bs)))
 
     timed(phase_queue_big, torch, device, big)
+    # The huge-needle path (its own counts), then the CLI in processes of
+    # its own.
+    huge_launches = {}
+    path(("batched_count", "match_bitmap", "compact_positions"), (phase_huge, (
+        torch, device, card, hay, words, i386_dh, (i386_firsts, i386_counts, i386_positions), big)),
+        into=huge_launches)
+    timed(phase_cli, hay)
     times, bounds, per_sweep = timed(phase_times, torch, device, card, i386_dh, bs, big[0], count_bs,
                                      ps, pos_bs, probe_setups)
     kernels = [
@@ -1053,7 +1379,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errs[name], "ms": times[name][0],
          "plain_ms": times[name][1], "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         "launches_per_sweep": per_sweep[name], "library_ms": None, "library_note": no_library}
+         "launches_per_sweep": per_sweep[name], "huge_path_launches": huge_launches.get(name),
+         "library_ms": None, "library_note": no_library}
         for name, source, replaces in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

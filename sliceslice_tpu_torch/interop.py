@@ -40,6 +40,7 @@ def batched_searcher(
     bs = BatchedSearcher.__new__(BatchedSearcher)
     bs.needles = [as_bytes(n) for n in needles]
     bs.device = resolve_device(device)
+    bs._huge = []
     bs.groups = [
         _Group(
             np.asarray(idx, np.int64),

@@ -9,7 +9,9 @@ live on the searcher's device, padded to the JAX package's row plan, and
 each sweep launches the find (or count) kernel once per group, then
 scatters the group results back to input order in one indexed assignment.
 The per-needle early exit of find lives inside the kernel; a count scans
-everything, and is exact in any row order.
+everything, and is exact in any row order.  Needles longer than
+``MAX_NEEDLE_LEN`` stay out of the groups: each takes the huge-needle
+filter and verify (models/huge.py), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from ..searcher import (
     overlapping_count,
     resolve_device,
 )
+from .huge import PREFIX_LEN, HugeNeedleSearcher
 
 #: Widths beyond the exact-width limit are bucketed.
 WIDE_T_BUCKETS = (16, 32, 64, 128, 256, 512)
@@ -149,15 +152,16 @@ class BatchedSearcher:
                     raise ValueError(
                         f"invalid position {position} for needle of length {len(nd)}"
                     )
-        for nd in self.needles:
-            if len(nd) > MAX_NEEDLE_LEN:
-                raise NotImplementedError(
-                    f"needles longer than MAX_NEEDLE_LEN={MAX_NEEDLE_LEN} are "
-                    "not ported yet (ROADMAP queue 1, item 12: huge needles)"
-                )
+        # Needles beyond the probe tables' budget take the filter and
+        # verify of models/huge.py; they stay out of the width groups and
+        # of the groups' halo.
+        self._huge: List[tuple] = []
         buckets: dict[int, list[int]] = {}
         for i, nd in enumerate(self.needles):
-            buckets.setdefault(_t_bucket(max(1, num_probes(len(nd)))), []).append(i)
+            if len(nd) > MAX_NEEDLE_LEN:
+                self._huge.append((i, HugeNeedleSearcher(nd, position, device=self.device)))
+            else:
+                buckets.setdefault(_t_bucket(max(1, num_probes(len(nd)))), []).append(i)
         self.groups = [
             _Group.from_needles(
                 np.asarray(idx, np.int64), [self.needles[i] for i in idx], t, self.device
@@ -183,9 +187,16 @@ class BatchedSearcher:
     def __len__(self) -> int:
         return len(self.needles)
 
-    def _layout(self, hay: HaystackLike) -> DeviceHaystack:
-        # The halo must cover the widest group's probe table.
+    def _halo(self) -> int:
+        """Halo the widest group's probe table needs, and the huge
+        needles' prefix filter, so that their scans share one layout."""
         need = needed_halo_for_t(self.max_t)
+        if self._huge:
+            need = max(need, PREFIX_LEN - 1)
+        return need
+
+    def _layout(self, hay: HaystackLike) -> DeviceHaystack:
+        need = self._halo()
         if isinstance(hay, DeviceHaystack):
             if hay.device != self.device:
                 raise ValueError(
@@ -199,14 +210,28 @@ class BatchedSearcher:
         n = len(self.needles)
         if n == 0:
             return np.zeros((0,), np.int64)
-        out = self.find_all_device(hay).cpu().numpy().astype(np.int64)
+        dh = self._layout(hay)  # one layout for the groups and the huge needles
+        out = self.find_all_device(dh, _allow_huge=True).cpu().numpy().astype(np.int64)
         out[out >= SENTINEL] = -1
+        for i, hs in self._huge:
+            f = hs.find(dh)
+            out[i] = -1 if f is None else f
         return out
 
-    def find_all_device(self, hay: HaystackLike) -> torch.Tensor:
+    def _fence_huge(self, what: str, use: str) -> None:
+        if self._huge:
+            raise ValueError(
+                f"{what} cannot evaluate needles longer than "
+                f"MAX_NEEDLE_LEN={MAX_NEEDLE_LEN} (host verify step); use {use}"
+            )
+
+    def find_all_device(self, hay: HaystackLike, _allow_huge: bool = False) -> torch.Tensor:
         """Device-resident int32[N] first offsets (SENTINEL where absent),
         with no host transfer and no synchronisation: the building block
-        for pipelined sweeps."""
+        for pipelined sweeps.  Huge needles have a host verify step, so a
+        batch holding one raises (use :meth:`find_all`)."""
+        if not _allow_huge:
+            self._fence_huge("find_all_device", "find_all")
         dh = self._layout(hay)
         parts = []
         for g in self.groups:
@@ -226,20 +251,23 @@ class BatchedSearcher:
     def search_all(self, hay: HaystackLike) -> np.ndarray:
         return self.find_all(hay) >= 0
 
-    def _full_scan_layout(self, hay: HaystackLike) -> DeviceHaystack:
-        """The layout a count or a positions scan reads.  On the card it is
-        always the kernel layout: a flat rung there is re-laid on the card,
-        so no full scan of the card's bytes runs on the host."""
-        dh = self._layout(hay)
+    def _full_scan_layout(self, dh: DeviceHaystack) -> DeviceHaystack:
+        """The layout a count or a positions scan of :meth:`_layout`'s
+        ``dh`` reads.  On the card it is always the kernel layout: a flat
+        rung there is re-laid on the card, so no full scan of the card's
+        bytes runs on the host."""
         if dh.tiled or dh.device.type != "cuda":
             return dh
-        return dh.kernel_layout(needed_halo_for_t(self.max_t))
+        return dh.kernel_layout(self._halo())
 
-    def count_all_device(self, hay: HaystackLike) -> torch.Tensor:
+    def count_all_device(self, hay: HaystackLike, _allow_huge: bool = False) -> torch.Tensor:
         """Device-resident int32[N] overlapping-occurrence counts: one count
         kernel launch per width group, then the scatter, with no host
-        transfer and no synchronisation."""
-        dh = self._full_scan_layout(hay)
+        transfer and no synchronisation.  A batch holding a huge needle
+        raises (use :meth:`count_all`)."""
+        if not _allow_huge:
+            self._fence_huge("count_all_device", "count_all")
+        dh = self._full_scan_layout(self._layout(hay))
         if not dh.tiled:
             raise ValueError(
                 "count_all requires a tiled layout "
@@ -256,13 +284,19 @@ class BatchedSearcher:
     def count_all(self, hay: HaystackLike) -> np.ndarray:
         """Overlapping occurrence count per needle (int64[N]); a flat
         layout on the CPU counts on the host, as in the JAX package."""
-        dh = self._full_scan_layout(hay)
+        base = self._layout(hay)
+        dh = self._full_scan_layout(base)
         if not dh.tiled:
             data = dh.host_bytes
             if data is None:
                 raise ValueError("counting on a flat DeviceHaystack requires host bytes")
             return np.array([overlapping_count(data, nd) for nd in self.needles], dtype=np.int64)
-        return self.count_all_device(dh).cpu().numpy().astype(np.int64)
+        out = self.count_all_device(dh, _allow_huge=True).cpu().numpy().astype(np.int64)
+        # A huge needle takes the layout before any re-lay: a flat rung on
+        # the card is re-laid with the halo of its dense tier.
+        for i, hs in self._huge:
+            out[i] = hs.count_in(base)
+        return out
 
     def positions_all(
         self,
@@ -280,7 +314,8 @@ class BatchedSearcher:
         bytes) for a host decode.  A flat layout on the card is re-laid
         there; one elsewhere is scanned on the host, as in the JAX
         package."""
-        dh = self._full_scan_layout(hay)
+        base = self._layout(hay)
+        dh = self._full_scan_layout(base)
         if not dh.tiled:
             data = dh.host_bytes
             if data is None:
@@ -297,6 +332,8 @@ class BatchedSearcher:
                 )
                 for j, p in zip(g.indices[i0:i1].tolist(), res):
                     out[j] = p
+        for i, hs in self._huge:
+            out[i] = hs.positions(base)
         return out  # type: ignore[return-value]
 
     def optimize_for(
@@ -313,7 +350,7 @@ class BatchedSearcher:
         no readback (the host copies sync lazily).  Returns self."""
         if firsts is None:
             dh = self._layout(hay)
-            if dh.tiled and self.groups:
+            if dh.tiled and not self._huge and self.groups:
                 self._apply_schedule_device(self.find_all_device(dh))
                 return self
             firsts = self.find_all(hay)

@@ -4,8 +4,9 @@
 Arms: empty needle -> always-true N0 (src/x86.rs:470,500); one byte ->
 MemchrSearcher (src/x86.rs:471-475); 2..=16 -> the specialized kernel
 searchers (src/x86.rs:476-490); otherwise the generic kernel searcher
-(src/x86.rs:491).  Needles longer than ``MAX_NEEDLE_LEN`` are not ported
-yet (ROADMAP queue 1, item 12) and raise ``NotImplementedError``.
+(src/x86.rs:491); needles longer than ``MAX_NEEDLE_LEN`` -> the
+huge-needle filter and verify (models/huge.py), the reference's arbitrary
+needle lengths (src/lib.rs:52-59).
 
 Haystacks of at most :data:`HOST_HAY_BYTES` that arrive as host bytes are
 searched on the host by the native SWAR tier (utils/native.py), and counted
@@ -29,6 +30,7 @@ from ..searcher import (
     resolve_device,
 )
 from .cuda_searcher import searcher_for_size
+from .huge import HugeNeedleSearcher
 from .memchr import MemchrSearcher
 from .naive import naive_find
 
@@ -42,6 +44,8 @@ class DynamicSearcher:
     ):
         device = resolve_device(device)  # raises without a card unless "cpu"
         data = as_bytes(needle)
+        #: the full needle bytes: a huge needle's ``_inner.needle.data``
+        #: holds only its device-filter prefix, so the host rungs read this.
         self._data = data
         k = len(data)
         if k == 0:
@@ -51,10 +55,7 @@ class DynamicSearcher:
         elif k == 1:
             self._inner = MemchrSearcher(data, position, device=device)
         elif k > MAX_NEEDLE_LEN:
-            raise NotImplementedError(
-                f"needles longer than MAX_NEEDLE_LEN={MAX_NEEDLE_LEN} are not "
-                "ported yet (ROADMAP queue 1, item 12: huge needles)"
-            )
+            self._inner = HugeNeedleSearcher(data, position, device=device)
         else:
             self._inner = searcher_for_size(k)(data, position, device=device)
 

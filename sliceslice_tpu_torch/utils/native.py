@@ -1,12 +1,14 @@
-"""ctypes bindings for the native SWAR scanner (csrc/swarscan.cpp at the
-repository root): the host rung of ``DynamicSearcher`` for tiny haystacks,
-and the match-bitmap decoder of the positions path.
+"""ctypes bindings for the native SWAR scanner (the port's own
+``csrc/host/swarscan.cpp`` and ``csrc/host/twoway.cpp``): the host rung of
+``DynamicSearcher`` for tiny haystacks, the match-bitmap decoder of the
+positions path, and the host tiers of huge needles.
 
-A copy of the JAX package's loader (``sliceslice_tpu/utils/native.py``),
-binding the same sources: compiled on first use with the system toolchain
-(g++ -O3 -march=native) into ``csrc/build/`` and loaded with ctypes.  This
-is host C++, not device code.  Everything degrades to the pure-Python
-oracle when no toolchain is available.
+A copy of the JAX package's loader over the port's copy of its sources:
+compiled on first use with the system toolchain (g++ -O3 -march=native)
+into the port's ``csrc/build/`` and loaded with ctypes, so the two packages
+never share a source or a built file.  This is host C++, not device code.
+Everything degrades to the pure-Python oracle when no toolchain is
+available.
 """
 
 from __future__ import annotations
@@ -18,11 +20,8 @@ from typing import Optional
 
 import numpy as np
 
-_CSRC = os.path.join(os.path.dirname(__file__), "..", "..", "csrc")
-_SRCS = [
-    os.path.abspath(os.path.join(_CSRC, "swarscan.cpp")),
-    os.path.abspath(os.path.join(_CSRC, "twoway.cpp")),
-]
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+_SRCS = [os.path.join(_CSRC, "host", "swarscan.cpp"), os.path.join(_CSRC, "host", "twoway.cpp")]
 
 
 def _host_tag() -> str:
@@ -53,7 +52,7 @@ _tried = False
 
 
 def _so_path() -> str:
-    return os.path.abspath(os.path.join(_CSRC, "build", f"libswarscan-{_host_tag()}.so"))
+    return os.path.join(_CSRC, "build", f"libswarscan-{_host_tag()}.so")
 
 
 def _build(so: str) -> Optional[str]:

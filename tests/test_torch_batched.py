@@ -172,8 +172,10 @@ def test_batched_contracts(rng):
         BatchedSearcher([b"abc", b"de"], position=2, device=CPU)
     with pytest.raises(ValueError, match="position"):
         BatchedSearcher([b"abc"], position=-1, device=CPU)
-    with pytest.raises(NotImplementedError, match="queue 1, item 12"):
-        BatchedSearcher([b"a", b"x" * 2049], device=CPU)
+    mixed = BatchedSearcher([b"a", b"x" * 2049], device=CPU)
+    assert [i for i, _ in mixed._huge] == [1] and [g.n for g in mixed.groups] == [1]
+    with pytest.raises(ValueError, match="position"):
+        BatchedSearcher([b"x" * 2049], position=2049, device=CPU)
     meta = BatchedSearcher([b"abc"], device="meta")
     with pytest.raises(ValueError, match="lives on cpu"):
         meta.find_all(preprocess(b"abc" * 4000, device=CPU))

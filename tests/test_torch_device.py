@@ -19,15 +19,23 @@ from sliceslice_tpu_torch import (
     pairwise_contains_all,
     preprocess,
 )
+from sliceslice_tpu_torch import cli
+from sliceslice_tpu_torch.models.huge import HugeNeedleSearcher
 from sliceslice_tpu_torch.needle import build_probe_table
 from sliceslice_tpu_torch.ops.layout import resolve_device
 from sliceslice_tpu_torch.scripts import kernel_probe
+from sliceslice_tpu_torch.utils.io import load_haystack
 
 _TABLE = build_probe_table([b"ab"], t_max=1)
 ENTRY_POINTS = {
     "preprocess": lambda **kw: preprocess(b"abc" * 4000, **kw),
     "DynamicSearcher": lambda **kw: DynamicSearcher(b"ab", **kw),
     "DynamicSearcher-empty": lambda **kw: DynamicSearcher(b"", **kw),
+    "DynamicSearcher-huge": lambda **kw: DynamicSearcher(b"ab" * 1100, **kw),
+    "HugeNeedleSearcher": lambda **kw: HugeNeedleSearcher(b"ab" * 1100, **kw),
+    "load_haystack": lambda **kw: load_haystack("data/words.txt", **kw),
+    "cli.make_searcher": lambda **kw: cli.make_searcher("cuda", b"ab", **kw),
+    "cli.make_searcher-count": lambda **kw: cli.make_searcher("count", b"ab,c", **kw),
     "DynamicSearcher.with_position": lambda **kw: DynamicSearcher.with_position(b"ab", 1, **kw),
     "CudaSearcher": lambda **kw: CudaSearcher(b"abcde", **kw),
     "CudaSearcher.with_position": lambda **kw: CudaSearcher.with_position(b"abcde", 2, **kw),
@@ -69,6 +77,13 @@ def test_resolve_device(no_card):
     for name in ("cuda", "cuda:0", torch.device("cuda", 1)):
         with pytest.raises(ValueError, match="no CUDA device"):
             resolve_device(name)
+
+
+def test_grep_cli_takes_the_card_unless_asked(no_card, capsys):
+    with pytest.raises(ValueError, match="no CUDA device"):
+        cli.main(["count", "ab,c", "data/words.txt"])
+    assert cli.main(["count", "ab,c", "data/words.txt"], device="cpu") == 0
+    assert capsys.readouterr().out.startswith("data/words.txt: ab: ")
 
 
 def test_probe_cli_takes_the_card_unless_asked(no_card, capsys):

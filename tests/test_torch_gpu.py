@@ -557,3 +557,94 @@ def test_positions_on_card(cuda):
         assert _launches() == (b0 + 1, c0 + 1)
     got = BatchedSearcher([b"a", small[7:12]], device=cuda).positions_all(flat)
     assert [p.tolist() for p in got] == [_host_positions(small, nd).tolist() for nd in (b"a", small[7:12])]
+
+
+def test_chunk_bitmap_t128_equals_plain(cuda):
+    """The dense huge-needle tier's bitmap: one t = 128 table of chunks of
+    differing lengths (mask-0 padded slots), with their own ends and with
+    ends cut inside the corpus, against the plain version, the host
+    positions and the compaction at every cap up to 16,384; then the
+    chained bitmap of huge needles against its plain version."""
+    from sliceslice_tpu_torch.models.huge import HugeNeedleSearcher
+    from sliceslice_tpu_torch.ops import chained
+
+    hay = _hay(128, 400_000)
+    dh = preprocess(hay, kh=needed_halo_for_t(128), device=cuda)
+    chunks = [hay[1000:1512], hay[-512:], hay[5000:5300], hay[-129:], hay[70_000:70_001],
+              b"\x7f" * 512, hay[len(hay) - 39 :] + b"\0", b"a" * 7]
+    vals, msks, lens = build_probe_table(chunks, t_max=128)
+    v, m = table_bits(vals, cuda), table_bits(msks, cuda)
+    own = np.maximum(len(hay) - lens.astype(np.int64) + 1, 0)
+    for ends in (own, np.maximum(own - np.arange(len(chunks)) * 5000 - 7, 0)):
+        e = torch.from_numpy(ends.astype(np.int32)).to(cuda)
+        words, _ = _check_positions_kernels(dh, v, m, e)
+        counts, offsets = scan_kernel.compact_positions(*scan_kernel.match_bitmap_counted(dh.flat, v, m, e), 16_384)
+        ref = scan_kernel.compact_positions_plain(*scan_kernel.match_bitmap_counted_plain(dh.flat, v, m, e), 16_384)
+        assert torch.equal(counts, ref[0]) and torch.equal(offsets, ref[1])
+        rows = words.cpu().numpy()
+        for i, nd in enumerate(chunks):
+            exp = _host_positions(hay, nd)
+            assert torch_backend.decode_match_bitmap(rows[i]).tolist() == exp[exp < ends[i]].tolist(), i
+    for nd in (hay[3000:5600], hay[-4096:], hay[-2600:-1] + b"\0", b"a" * 2100):
+        plan = HugeNeedleSearcher(nd, device=cuda)._chunk_plan()
+        got = chained.chained_match_bitmap(dh.flat, *plan, dh.length)
+        ref = chained.chained_match_bitmap(dh.flat, *plan, dh.length, plain=True)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+        exp = _host_positions(hay, nd)
+        assert int(got[0]) == len(exp) and int(got[1]) == (int(exp[0]) if len(exp) else SENTINEL)
+
+
+def _tier_launches():
+    return (scan_kernel.batched_count.launches, scan_kernel.match_bitmap_counted.launches,
+            scan_kernel.compact_positions.launches)
+
+
+def test_huge_tiers_on_card(cuda, monkeypatch):
+    """Huge needles on the card in each tier, exact against the host
+    oracles, each call with its tier's launches: the sparse tier (prefix
+    count, bitmap and compaction, host verify), the dense tier (prefix
+    count, one bitmap launch of the unique chunks), a flat layout on the
+    card kept without host bytes (re-laid there, dense), a batch of words
+    and huge needles, and the device-resident fences."""
+    import sliceslice_tpu_torch.models.huge as huge
+
+    hay = open(os.path.join(DATA, "i386.txt"), "rb").read()
+    dh = preprocess(hay, device=cuda)
+    present = hay[200_000:204_096]
+    absent = present[:2048] + b"\xff" + present[2049:]
+    period = b"a" * 300_000 + b"b" + b"a" * 90_000
+    pdh = preprocess(period, device=cuda)
+    cases = [(present, dh, hay, "host", (1, 1, 1)), (absent, dh, hay, "host", (1, 1, 1)),
+             (b"a" * 4096, pdh, period, "dense", (1, 1, 0)), (b"a" * 3000 + b"c", pdh, period, "dense", (1, 1, 0))]
+    for nd, layout, h, tier, launches in cases:
+        ds = DynamicSearcher(nd, device=cuda)
+        assert ds.inner._route(layout, h)[0] == tier
+        f = h.find(nd)
+        for op, want in (("find", None if f < 0 else f), ("count_in", overlapping_count(h, nd)),
+                         ("positions", _host_positions(h, nd).tolist())):
+            before = _tier_launches()
+            got = getattr(ds, op)(layout)
+            assert (got.tolist() if op == "positions" else got) == want, (len(nd), op)
+            assert tuple(a - b for a, b in zip(_tier_launches(), before)) == launches, (len(nd), op)
+    monkeypatch.setattr(huge, "HOST_VERIFY_MAX", 0)  # force the dense tier on aperiodic text
+    assert DynamicSearcher(present, device=cuda).positions(dh).tolist() == _host_positions(hay, present).tolist()
+    monkeypatch.undo()
+    small = hay[10_000:16_000]
+    flat = preprocess(small, keep_host=False, device=cuda)
+    assert not flat.tiled
+    nd = small[1_000:3_200]
+    assert DynamicSearcher(nd, device=cuda).find(flat) == 1_000
+    assert DynamicSearcher(nd, device=cuda).count_in(flat) == 1
+    mixed = BatchedSearcher([nd, small[5:9]], device=cuda)
+    assert mixed.find_all(flat).tolist() == [1_000, small.find(small[5:9])]
+    assert mixed.count_all(flat).tolist() == [1, overlapping_count(small, small[5:9])]
+    assert [p.tolist() for p in mixed.positions_all(flat)] == [[1_000], _host_positions(small, small[5:9]).tolist()]
+    words = [w for w in open(os.path.join(DATA, "words.txt"), "rb").read().split(b"\n") if w][::40]
+    needles = words + [present, absent, hay[-2100:]]
+    bs = BatchedSearcher(needles, device=cuda)
+    assert bs.find_all(dh).tolist() == [hay.find(nd) for nd in needles]
+    assert bs.count_all(dh).tolist() == [overlapping_count(hay, nd) for nd in needles]
+    assert [p.tolist() for p in bs.positions_all(dh)] == [_host_positions(hay, nd).tolist() for nd in needles]
+    for name in ("find_all_device", "count_all_device"):
+        with pytest.raises(ValueError, match="MAX_NEEDLE_LEN"):
+            getattr(bs, name)(dh)

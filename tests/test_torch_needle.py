@@ -93,6 +93,19 @@ def test_port_imports_without_jax():
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
 
 
+def test_native_helper_is_the_ports_own():
+    """The host helper's sources and its built library lie inside the
+    port package, never under the repository's root ``csrc/``, which the
+    JAX package builds from."""
+    from sliceslice_tpu_torch.utils import native
+
+    for path in [*native._SRCS, native._so_path()]:
+        p = pathlib.Path(path).resolve()
+        assert p.is_relative_to(PORT.resolve()), p
+    assert all(pathlib.Path(src).is_file() for src in native._SRCS)
+    assert pathlib.Path(native._so_path()).parent == (PORT / "csrc" / "build").resolve()
+
+
 def test_port_sources_import_no_jax():
     """No module of the port names jax or the JAX package in an import."""
     for path in sorted(PORT.rglob("*.py")):

@@ -271,7 +271,8 @@ def test_positions_searchers_and_layouts(i386_small):
     """TorchSearcher (plain bitmap on the layout's device) agrees with the
     kernel searchers; a flat layout on the CPU is scanned on the host and
     needs host bytes, as in the JAX package; the bitmap wrapper refuses
-    devices it has no kernel for."""
+    devices it has no kernel for; a huge needle's positions over a flat
+    layout come from its host bytes too."""
     tdh = preprocess(i386_small, kh=16, device=CPU)
     for nd in (b"e", b"the", i386_small[-11:], b"\xfe\xfe"):
         assert TorchSearcher(nd, device=CPU).positions(tdh).tolist() == DynamicSearcher(nd, device=CPU).positions(tdh).tolist()
@@ -289,5 +290,7 @@ def test_positions_searchers_and_layouts(i386_small):
     with pytest.raises(ValueError, match="no match-bitmap kernel"):
         tsk.match_bitmap(torch.empty(1024, dtype=torch.uint8, device="meta"), values, masks,
                          np.asarray([5], np.int32))
-    with pytest.raises(NotImplementedError):
-        BatchedSearcher([b"x" * 2049], device=CPU)
+    # A huge needle in a batch: the flat rung on the CPU scans host bytes.
+    huge = small[100:2200]
+    got = BatchedSearcher([huge, b"the"], device=CPU).positions_all(flat)
+    assert [p.tolist() for p in got] == [[100], oracle(small, b"the")]

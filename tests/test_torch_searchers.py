@@ -19,6 +19,7 @@ from sliceslice_tpu_torch import (
     naive_find,
 )
 from sliceslice_tpu_torch.models.cuda_searcher import SPECIALIZED, searcher_for_size
+from sliceslice_tpu_torch.models.huge import HugeNeedleSearcher
 from sliceslice_tpu_torch.ops.layout import preprocess
 
 #: The CPU tests run the kernels' plain versions: the port's entry points
@@ -221,8 +222,8 @@ def test_dynamic_dispatch_arms():
         assert type(DynamicSearcher(b"a" * k, device=CPU).inner).__name__ == f"Searcher{k}"
     assert type(DynamicSearcher(b"a" * 17, device=CPU).inner) is CudaSearcher
     assert type(DynamicSearcher(b"a" * 2048, device=CPU).inner) is CudaSearcher
-    with pytest.raises(NotImplementedError, match="queue 1, item 12"):
-        DynamicSearcher(b"a" * 2049, device=CPU)
+    huge = DynamicSearcher(b"a" * 2049, device=CPU).inner
+    assert type(huge) is HugeNeedleSearcher and huge.size == 2049 and huge.needle.size == 64
 
 
 def test_specialized_size_mismatch():
