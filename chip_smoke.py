@@ -45,9 +45,21 @@ drives the port's main paths against host oracles:
   of 20,000 records sharing one prefix (the chained-bitmap tier), each
   call on its tier with its launches, and one ``BatchedSearcher`` of all
   the words and the i386 huge needles;
+* streams: ``StreamingScanner`` find (with and without early stop),
+  count and positions over i386 at 64 KiB windows (all the words; prefetch
+  2 and 0; file and chunks), the 256 MiB corpus written to a file (its 41
+  needles at 32 MiB and 1 MiB windows; five early-stopped finds on one
+  scanner, a stop mid-stream), a 4.5 GiB chunk stream with
+  scripts/bigscan_check.py's plants (offsets past 2^31 and 2^32; a stream
+  that starts at 2^32 - window + 64), and the words with the huge phase's
+  i386 needles; GB/s per mode with the stats split; then, outside the
+  stream path's counts, the card's part of one 32 MiB window (CUDA
+  events), a torch.profiler trace of one stream per mode (the card's idle
+  share) and the single-layout sweeps of the same needles;
 * the grep CLI: ``python -m sliceslice_tpu_torch.cli`` with the dynamic,
-  batched, count and positions backends over data/i386.txt, a huge needle
-  among the needles, four processes at once, against bytes.find's lines;
+  batched, count, positions and stream backends over data/i386.txt, a huge
+  needle among the needles, seven processes at once, against bytes.find's
+  lines;
 
 then times the sweeps, each kernel (the find and count kernels per width
 group; the pair kernel's device time in both modes; the count kernel, the
@@ -60,7 +72,9 @@ line and its seconds; any failure raises and exits non-zero.  The
 next-to-last lines are a JSON object describing the kernels (times, bound
 and what sets it, launches per sweep) and the card's name and power
 limit; the last line is ``{"ok": true, "device": ...}``.  Imports nothing
-of JAX.
+of JAX.  Each main path's launch counts start at 0 just before it and are
+read just after; the huge-needle and stream paths have their own
+(``huge_path_launches``, ``stream_path_launches``).
 """
 
 from __future__ import annotations
@@ -95,6 +109,9 @@ HARNESS_TOLERANCE = 0.05
 CAPS = (1, 7, 64, 4096, 16384)
 #: Planted only in the last 100 bytes of the 256 MiB corpus.
 LAST_CHUNK_NEEDLE = b"\xfc\xfd\xfe\xfc\xfd\xfe\xfc\xfd\xfe"
+#: The 256 MiB corpus's periodic run's needle (998 overlapping matches),
+#: the 41st needle of its count, positions and stream checks.
+BIG_PERIODIC = b"\xfa\xfb" * 3
 #: The first find and count design's per-width-group kernel times over the
 #: i386 sweep, in µs (traces on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md).
 FIRST_DESIGN_GROUP_US = {"find": {"1": 332.5, "2": 618.2, "3": 365.1, "4..6": 124.5},
@@ -734,13 +751,290 @@ def phase_huge(torch, device, card, hay, words, i386_dh, i386_answers, big):
                      "bound_ms": bound[0], "bound_by": bound[1], "halo": needed},
         i386_needles=[len(nd) for nd in i386], batched_rows=len(bs), big_needles=[len(c[0]) for c in cases],
         period1_matches=len(p1_pos), parity=True)
+    return i386
+
+
+#: The stream phase's windows: 64 KiB over i386 (14 windows), 1 MiB over
+#: the 256 MiB corpus (256 windows), 128 MiB over the 4.5 GiB chunk
+#: stream, 128 KiB and 32 KiB with huge needles (the latter grows to the
+#: overlap).
+STREAM_I386_WINDOW = 64 * 1024
+STREAM_SMALL_WINDOW = 1 << 20
+STREAM_BIG_WINDOW = 128 << 20
+STREAM_HUGE_WINDOWS = (128 * 1024, 32 * 1024)
+#: The 4.5 GiB chunk stream, made of one seeded lowercase block per chunk
+#: with scripts/bigscan_check.py's uppercase plants written in.
+STREAM_BIG_BYTES = int(4.5 * 2**30)
+STREAM_BLOCK = 64 << 20
+#: Timed samples per mode of the 256 MiB file at the default windows and of
+#: the single-layout calls beside them.
+STREAM_SAMPLES = 3
+
+
+def make_plants(total: int):
+    """(offset, needle) plants at boundary-critical offsets, as
+    scripts/bigscan_check.py plants them: a straddle of 2^31, offsets past
+    2^31 and 2^32 and at ``total - 20``, DELTA twice (first occurrence)."""
+    plants = [
+        (1_000, b"ALPHA-NEEDLE-01!"),
+        (2**31 - 8, b"STRADDLE-2GIB-XX"),
+        (2**31 + 12_345, b"BETA-NEEDLE-002!"),
+        (2**32 + 777, b"GAMMA-NEEDLE-03!"),
+        (total - 20, b"OMEGA-NEEDLE-04!"),
+        (2**31 + 9_999_999, b"DELTA-NEEDLE-05!"),
+        (2**32 + 50_000_000, b"DELTA-NEEDLE-05!"),
+    ]
+    return [(o, n) for o, n in plants if o + len(n) <= total]
+
+
+def plant_chunks(total: int, plants, block: np.ndarray):
+    """The chunk stream: ``block`` copied per chunk with the plants that
+    touch it written in, as memoryviews (bytes-like, no copy); never more
+    than one chunk on the host."""
+    size = block.size
+    for base in range(0, total, size):
+        buf = block[:min(size, total - base)].copy()
+        for off, nd in plants:
+            lo, hi = max(off, base), min(off + len(nd), base + buf.size)
+            if lo < hi:
+                buf[lo - base:hi - base] = np.frombuffer(nd, np.uint8)[lo - off:hi - off]
+        yield buf.data
+
+
+def _stream_held(sc, src, exp_first, exp_counts, exp_pos, what, start=0):
+    """find (early_stop False and True), count and positions of one
+    scanner over a file path or a chunk-iterator factory, each exact.
+    Returns the windows of one stream."""
+    if isinstance(src, str):
+        calls = {"find": lambda: sc.find_in_file(src, early_stop=False),
+                 "find early_stop": lambda: sc.find_in_file(src, early_stop=True),
+                 "count": lambda: sc.count_in_file(src), "positions": lambda: sc.positions_in_file(src)}
+    else:
+        calls = {"find": lambda: sc.find_in_chunks(src(), early_stop=False, start_offset=start),
+                 "find early_stop": lambda: sc.find_in_chunks(src(), early_stop=True, start_offset=start),
+                 "count": lambda: sc.count_in_chunks(src()),
+                 "positions": lambda: sc.positions_in_chunks(src(), start_offset=start)}
+    for name, call in calls.items():
+        got = call()
+        if name == "positions":
+            bad = sum(not np.array_equal(g, e) for g, e in zip(got, exp_pos))
+            check(len(got) == len(exp_pos) and bad == 0, f"stream {what} {name}: {bad} needles differ")
+        else:
+            exp = exp_counts if name == "count" else exp_first
+            check(np.array_equal(got, exp), f"stream {what} {name}: {int((got != np.asarray(exp)).sum())} "
+                  "needles differ")
+    return sc.stats["windows"]
+
+
+def _straddles(positions, needles, window: int) -> int:
+    """Matches that start in one window and end in the next."""
+    return int(sum(((p // window) != ((p + len(nd) - 1) // window)).sum() for p, nd in zip(positions, needles)))
+
+
+def phase_stream(torch, device, card, hay, words, i386_answers, big, big_answers, i386_huge):
+    """Streams of any length through ``StreamingScanner``, each case exact:
+    i386 at 64 KiB windows (all 4,585 words; prefetch 2 then 0; file and
+    10,007-byte chunks), the 256 MiB corpus written to a file (its 41
+    needles at 32 MiB and at 1 MiB windows, five early-stopped finds on
+    one scanner and one stop mid-stream), a 4.5 GiB chunk stream with
+    bigscan_check's plants at 128 MiB windows (int64 offsets past 2^31 and
+    2^32; and a stream that starts at 2^32 - window + 64), the words and
+    the huge phase's i386 needles at 128 KiB and 32 KiB windows.  Then GB/s
+    per mode over the file, with the stats split, and each kernel's
+    launches per window, held above 0 in its mode."""
+    import tempfile
+
+    from sliceslice_tpu_torch import StreamingScanner, overlapping_count
+    from sliceslice_tpu_torch.ops import scan_kernel
+    from sliceslice_tpu_torch.searcher import _host_positions
+    from sliceslice_tpu_torch.utils.profiling import measure
+
+    i386_firsts, i386_counts, i386_positions = i386_answers
+    path = os.path.join(REPO, "data/i386.txt")
+    out = {}
+
+    # 1. i386, all words, 64 KiB windows: prefetch 2, then 0.
+    def chunks():
+        return (hay[i:i + 10_007] for i in range(0, len(hay), 10_007))
+
+    for prefetch in (2, 0):
+        sc = StreamingScanner(words, window_bytes=STREAM_I386_WINDOW, prefetch=prefetch, device=device)
+        windows = _stream_held(sc, path, i386_firsts, i386_counts, i386_positions, f"i386 prefetch={prefetch}")
+        _stream_held(sc, chunks, i386_firsts, i386_counts, i386_positions, f"i386 chunks prefetch={prefetch}")
+    check(windows == 14, f"i386 at 64 KiB windows: {windows} windows, not 14")
+    out["i386"] = {"windows": windows, "straddling_matches": _straddles(i386_positions, words, sc.window)}
+    check(out["i386"]["straddling_matches"] > 0, "no i386 match straddles a window boundary")
+
+    # 2. The 256 MiB corpus as a file: 41 needles at 32 MiB and 1 MiB.
+    big_dh, big_hay, _ = big
+    needles, big_firsts, big_counts, big_positions = big_answers
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        big_path = os.path.join(tmp, "big.bin")
+        with open(big_path, "wb") as f:
+            f.write(big_hay)
+        sc = StreamingScanner(needles, device=device).warmup()
+        made = sc.buffer_allocations
+        windows = _stream_held(sc, big_path, big_firsts, big_counts, big_positions, "256 MiB, 32 MiB windows")
+        # Times on a warm page cache, and the launches of one window.
+        names = {"find": scan_kernel.batched_find, "count": scan_kernel.batched_count,
+                 "bitmap": scan_kernel.match_bitmap_counted, "compaction": scan_kernel.compact_positions}
+
+        def file_times(sc, label, samples):
+            """Host-clock seconds (median) and GB/s of each mode's stream
+            over the file, its stats, and each kernel's launches per
+            window."""
+            per_window = {}
+            for mode, call in (("find", lambda: sc.find_in_file(big_path, early_stop=False)),
+                               ("count", lambda: sc.count_in_file(big_path)),
+                               ("positions", lambda: sc.positions_in_file(big_path))):
+                before = {k: w.launches for k, w in names.items()}
+                m = measure(call, f"stream {mode}", warmup=0, samples=samples)
+                runs = samples * sc.stats["windows"]
+                per_window[mode] = {k: (w.launches - before[k]) / runs for k, w in names.items()}
+                times[f"file 256 MiB, {label}, {mode}"] = {
+                    "s": m.estimate, "low_s": m.low, "GBps": len(big_hay) / m.estimate / 1e9,
+                    "stats": sc.stats_summary()}
+            return per_window
+
+        per_window = file_times(sc, "32 MiB windows", STREAM_SAMPLES)
+        check(sc.buffer_allocations == made, "a stream after warmup allocated a window buffer")
+        for mode, kernels in (("find", ("find",)), ("count", ("count",)), ("positions", ("bitmap", "compaction"))):
+            for k in kernels:
+                check(per_window[mode][k] > 0, f"a {mode} stream window launched no {k} kernel")
+        sc = StreamingScanner(needles, window_bytes=STREAM_SMALL_WINDOW, device=device)
+        small_windows = _stream_held(sc, big_path, big_firsts, big_counts, big_positions, "256 MiB, 1 MiB windows")
+        file_times(sc, "1 MiB windows", 1)
+        for i in range(5):
+            got = sc.find_in_file(big_path, early_stop=True)
+            check(np.array_equal(got, big_firsts), f"256 MiB at 1 MiB windows: early-stopped find {i} differs")
+        early = [nd for nd, f in zip(needles, big_firsts) if 0 <= f < len(big_hay) // 2]
+        ec = StreamingScanner(early, window_bytes=STREAM_SMALL_WINDOW, check_every=1, device=device)
+        got = ec.find_in_file(big_path, early_stop=True)
+        check(np.array_equal(got, [big_hay.find(nd) for nd in early]) and ec.stats["windows"] < small_windows,
+              "256 MiB at 1 MiB windows: the stop mid-stream differs")
+        stopped_at = ec.stats["windows"]
+        check(np.array_equal(ec.find_in_file(big_path, early_stop=False), got), "a full find after a stop differs")
+    out["big_file"] = {"needles": len(needles), "windows_32MiB": windows, "windows_1MiB": small_windows,
+                       "early_stop_windows": stopped_at, "launches_per_window": per_window}
+
+    # 3. 4.5 GiB of chunks at 128 MiB windows, never whole on the host.
+    plants = make_plants(STREAM_BIG_BYTES)
+    first = {}
+    for off, nd in plants:
+        first[nd] = min(first.get(nd, off), off)
+    plant_needles = sorted(first) + [b"ABSENT-NEEDLE-Z!"]
+    exp_first = [first.get(nd, -1) for nd in plant_needles]
+    exp_counts = [sum(nd == n for _, n in plants) for nd in plant_needles]
+    exp_pos = [np.array(sorted(o for o, n in plants if n == nd), np.int64) for nd in plant_needles]
+    block = np.random.default_rng(4545).integers(97, 123, STREAM_BLOCK, dtype=np.uint8)
+
+    def stream():
+        return plant_chunks(STREAM_BIG_BYTES, plants, block)
+
+    t0 = time.perf_counter()
+    for _ in stream():  # the source alone: a chunk copied, plants written
+        pass
+    source_s = time.perf_counter() - t0
+    sc = StreamingScanner(plant_needles, window_bytes=STREAM_BIG_WINDOW, device=device).warmup()
+    for mode, call, exp in (("find", lambda: sc.find_in_chunks(stream(), early_stop=False), exp_first),
+                            ("count", lambda: sc.count_in_chunks(stream()), exp_counts),
+                            ("positions", lambda: sc.positions_in_chunks(stream()), exp_pos)):
+        t0 = time.perf_counter()
+        got = call()
+        sec = time.perf_counter() - t0
+        same = (all(np.array_equal(g, e) for g, e in zip(got, exp)) if mode == "positions"
+                else np.array_equal(got, exp))
+        check(same, f"4.5 GiB chunk stream: {mode} differs: {got} != {exp}")
+        times[f"chunks 4.5 GiB, 128 MiB windows, {mode}"] = {
+            "s": sec, "GBps": STREAM_BIG_BYTES / sec / 1e9, "stats": sc.stats_summary()}
+    big_windows = sc.stats["windows"]
+    check(max(exp_first) > 2**32, "no plant past 2^32")
+    win = sc.window
+    start = 2**32 - win + 64
+    tail = np.zeros(win + 25 + 503, np.uint8)
+    tail[win:win + 25] = np.frombuffer(b"xxxxxneedle-in-window-two", np.uint8)
+    ts = StreamingScanner([b"needle", b"absent-needle"], window_bytes=win, device=device)
+    got = ts.find_in_chunks(iter([tail[:40_000].data, tail[40_000:].data]), early_stop=False, start_offset=start)
+    check(got.tolist() == [start + win + 5, -1] and got[0] > 2**32, f"start_offset past 2^32: {got}")
+    out["big_chunks"] = {"bytes": STREAM_BIG_BYTES, "windows": big_windows, "plants": len(plants),
+                         "first_offsets": exp_first, "start_offset_find": int(got[0]),
+                         "chunk_source_alone_s": source_s}
+
+    # 4. Huge needles: the words and the huge phase's i386 needles.
+    needles = list(words) + list(i386_huge)
+    exp_f = np.concatenate([i386_firsts, [hay.find(nd) for nd in i386_huge]])
+    exp_c = np.concatenate([i386_counts, [overlapping_count(hay, nd) for nd in i386_huge]])
+    exp_p = list(i386_positions) + [_host_positions(hay, nd) for nd in i386_huge]
+    huge = []
+    for wb in STREAM_HUGE_WINDOWS:
+        sc = StreamingScanner(needles, window_bytes=wb, device=device)
+        w = _stream_held(sc, path, exp_f, exp_c, exp_p, f"i386 + huge needles at {wb}-byte windows")
+        huge.append({"window_bytes": wb, "window": sc.window, "overlap": sc.overlap, "windows": w})
+    check(huge[-1]["window"] == huge[-1]["overlap"], "the window did not grow to the overlap")
+    out["huge"] = huge
+    say("stream", card=card, cases=out, exact=True)
+    return per_window, times, windows
+
+
+def phase_stream_times(torch, device, card, big, needles, times, windows):
+    """Outside the stream path's counts: the card's part of one full
+    32 MiB window (CUDA events: the copy of a pinned buffer into a device
+    buffer, and the window's find and count launches), a torch.profiler
+    trace of one stream of each mode over the 256 MiB file (the card's
+    busy and idle share, copies and kernels apart), and the single-layout
+    sweeps of the same needles over the corpus already on the card.  Then
+    every stream time, each on its own line."""
+    import tempfile
+
+    from sliceslice_tpu_torch import BatchedSearcher, DeviceHaystack, StreamingScanner
+    from sliceslice_tpu_torch.ops import scan_kernel
+    from sliceslice_tpu_torch.scripts.sweep_times import trace_share
+    from sliceslice_tpu_torch.utils.profiling import measure
+
+    big_dh, big_hay, _ = big
+    sc = StreamingScanner(needles, device=device).warmup()
+    host, dev = sc._host_q.queue[0], sc._dev_pool[0]
+    h2d = measure(lambda: dev.copy_(host, non_blocking=True), "h2d", samples=5, device=device).estimate
+    dh = DeviceHaystack.from_buffer(dev, sc._wcap, sc._kh)
+    card_ms = {"h2d_ms": h2d * 1e3, "h2d_GBps": host.numel() / h2d / 1e9}
+    for mode, kernel in (("find", scan_kernel.batched_find), ("count", scan_kernel.batched_count)):
+        m = measure(lambda k=kernel: sc._group_launches(k, dh, sc._ends_full_dev), f"{mode} window",
+                    samples=5, device=device)
+        card_ms[f"{mode}_kernels_ms"] = m.estimate * 1e3
+        wall = times[f"file 256 MiB, 32 MiB windows, {mode}"]["s"]
+        card_ms[f"{mode}_card_share_estimate"] = windows * (h2d + m.estimate) / wall
+    groups = {"h2d_copies": "Memcpy HtoD", "find": "batched_find", "count": "count_kernel",
+              "bitmap": "match_bitmap", "compaction": "compact_kernel"}
+    traced = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        big_path = os.path.join(tmp, "big.bin")
+        with open(big_path, "wb") as f:
+            f.write(big_hay)
+        for mode, call in (("find", lambda: sc.find_in_file(big_path, early_stop=False)),
+                           ("count", lambda: sc.count_in_file(big_path)),
+                           ("positions", lambda: sc.positions_in_file(big_path))):
+            t = trace_share(torch, call, reps=1, groups=groups)
+            traced[mode] = {k: t.get(k) for k in ("device_us", "span_us", "idle_share", "device_events",
+                                                  "grouped_us", "note")}
+    say("stream_card", card=card, one_window=card_ms, traced_stream=traced)
+    single = BatchedSearcher(needles, device=device)
+    for mode, call in (("find_all", lambda: single.find_all(big_dh)),
+                       ("count_all", lambda: single.count_all(big_dh)),
+                       ("positions_all", lambda: single.positions_all(big_dh))):
+        m = measure(call, mode, warmup=1, samples=STREAM_SAMPLES)
+        times[f"single layout 256 MiB, {mode}"] = {"s": m.estimate, "low_s": m.low,
+                                                   "GBps": len(big_hay) / m.estimate / 1e9}
+    for what, t in times.items():
+        say("stream_time", card=card, what=what, **t)
 
 
 def phase_cli(hay):
     """``python -m sliceslice_tpu_torch.cli`` over data/i386.txt with the
-    dynamic, batched, count and positions backends, a huge needle among
-    the needles, in four processes at once; every printed line against
-    lines built from bytes.find."""
+    dynamic, batched, count, positions, stream, stream-count and
+    stream-positions backends, a huge needle among the needles, in seven
+    processes at once; every printed line against lines built from
+    bytes.find."""
     import subprocess
 
     from sliceslice_tpu_torch.searcher import _host_positions, overlapping_count
@@ -762,10 +1056,12 @@ def phase_cli(hay):
 
     lists = {"batched": [short[0], huge, absent, short[1]], "count": [short[2], huge2, absent],
              "positions": [short[2], huge, absent]}
+    for backend in list(lists):  # the same lists, streamed
+        lists["stream" if backend == "batched" else f"stream-{backend}"] = lists[backend]
     runs = {"dynamic": ([huge], [f"{path}: {find_line(huge)}"])}
     for backend, nds in lists.items():
         line = {"batched": find_line, "count": lambda nd: str(overlapping_count(hay, nd)),
-                "positions": pos_line}[backend]
+                "positions": pos_line}[backend.replace("stream-", "").replace("stream", "batched")]
         runs[backend] = (nds, [f"{path}: {nd.decode()}: {line(nd)}" for nd in nds])
     def arg(nds):  # split_needles' escapes for the lists
         return ",".join(nd.decode().replace("\\", "\\\\").replace(",", "\\,") for nd in nds)
@@ -843,7 +1139,7 @@ def phase_count(torch, device, hay, words, i386_dh, big):
             check(scan_kernel.batched_count.launches > c0, "the 1-byte arm never launched the count kernel")
 
     big_dh, big_hay, big_needles = big
-    periodic = b"\xfa\xfb" * 3
+    periodic = BIG_PERIODIC
     needles = big_needles + [periodic]
     exp_big = np.array([overlapping_count(big_hay, nd) for nd in needles])
     check(exp_big[-1] == 1000 - 2, "periodic run not planted")
@@ -923,7 +1219,7 @@ def phase_positions(torch, device, hay, words, i386_dh, big, i386_counts, big_co
                 checks += 1
 
     big_dh, big_hay, big_needles = big
-    periodic = b"\xfa\xfb" * 3
+    periodic = BIG_PERIODIC
     needles = big_needles + [periodic]
     t0 = time.perf_counter()
     exp_big = [_host_positions(big_hay, nd) for nd in needles]
@@ -940,7 +1236,7 @@ def phase_positions(torch, device, hay, words, i386_dh, big, i386_counts, big_co
         flat_rung_words=len(flat_words), dynamic_lengths=lengths, dynamic_checks=checks,
         big_needles=len(needles), big_total_matches=int(sizes.sum()),
         big_dense_rows=int((sizes > cap).sum()), host_oracle_s=round(oracle_s, 3))
-    return bs, exp
+    return bs, exp, exp_big
 
 
 def phase_probe(torch, device, hay, i386_dh, count_bs):
@@ -1345,7 +1641,7 @@ def main() -> int:
         (phase_big, (torch, device)))
     ((count_bs, i386_counts, big_counts),) = path(
         ("batched_count",), (phase_count, (torch, device, hay, words, i386_dh, big)))
-    ((pos_bs, i386_positions),) = path(("match_bitmap", "compact_positions"), (phase_positions, (
+    ((pos_bs, i386_positions, big_positions),) = path(("match_bitmap", "compact_positions"), (phase_positions, (
         torch, device, hay, words, i386_dh, big, i386_counts, big_counts)))
     (ps,) = path(("pair_block",), (phase_pairwise, (torch, device, words)))
     ((errs["probe"], probe_setups),) = path(
@@ -1355,9 +1651,23 @@ def main() -> int:
     # The huge-needle path (its own counts), then the CLI in processes of
     # its own.
     huge_launches = {}
-    path(("batched_count", "match_bitmap", "compact_positions"), (phase_huge, (
+    (i386_huge,) = path(("batched_count", "match_bitmap", "compact_positions"), (phase_huge, (
         torch, device, card, hay, words, i386_dh, (i386_firsts, i386_counts, i386_positions), big)),
         into=huge_launches)
+    # Streams (their own counts): the 256 MiB corpus's 41 needles with
+    # their first offsets from the positions phase's host oracle.
+    stream_launches = {}
+    big_firsts = np.array([p[0] if p.size else -1 for p in big_positions])
+    big_answers = (big[2] + [BIG_PERIODIC], big_firsts, big_counts, big_positions)
+    ((stream_per_window, stream_times, stream_windows),) = path(
+        ("batched_find", "batched_count", "match_bitmap", "compact_positions"), (phase_stream, (
+            torch, device, card, hay, words, (i386_firsts, i386_counts, i386_positions), big, big_answers,
+            i386_huge)), into=stream_launches)
+    per_stream_window = {"batched_find": stream_per_window["find"]["find"],
+                         "batched_count": stream_per_window["count"]["count"],
+                         "match_bitmap": stream_per_window["positions"]["bitmap"],
+                         "compact_positions": stream_per_window["positions"]["compaction"]}
+    timed(phase_stream_times, torch, device, card, big, big_answers[0], stream_times, stream_windows)
     timed(phase_cli, hay)
     times, bounds, per_sweep = timed(phase_times, torch, device, card, i386_dh, bs, big[0], count_bs,
                                      ps, pos_bs, probe_setups)
@@ -1380,6 +1690,8 @@ def main() -> int:
          "launches": launches[name], "max_abs_err": errs[name], "ms": times[name][0],
          "plain_ms": times[name][1], "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "launches_per_sweep": per_sweep[name], "huge_path_launches": huge_launches.get(name),
+         "stream_path_launches": stream_launches.get(name),
+         "launches_per_stream_window": per_stream_window.get(name),
          "library_ms": None, "library_note": no_library}
         for name, source, replaces in kernels]}))
     print(card)

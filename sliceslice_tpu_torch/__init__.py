@@ -20,6 +20,7 @@ Public API::
     DynamicSearcher(b"aa").count_in(b"aaaa")                   # -> 3
     DynamicSearcher(b"aa", device="cpu").positions(b"aaaa")    # -> array([0, 1, 2])
     PairwiseSearcher([b"ab", b"abc"]).contains_matrix()
+    StreamingScanner([b"needle"]).find_in_file("huge.log")     # any length
 """
 
 from . import config
@@ -38,6 +39,7 @@ from .needle import MAX_NEEDLE_LEN, Needle, build_probe_table, probe_program
 from .ops import DeviceHaystack, preprocess
 from .ops.pairwise import PairwiseSearcher, pairwise_contains_all
 from .searcher import EmptyNeedleSearcher, SearcherBase, overlapping_count
+from .utils.streaming import StreamingScanner
 
 __all__ = [
     "config",
@@ -61,4 +63,5 @@ __all__ = [
     "SearcherBase",
     "overlapping_count",
     "EmptyNeedleSearcher",
+    "StreamingScanner",
 ]

@@ -11,15 +11,19 @@ backend is an error): ``dynamic`` (length dispatch), ``cuda`` (the kernel
 searcher, the JAX package's ``pallas``), ``torch`` (plain torch ops, its
 ``xla``), ``naive`` (oracle), ``memchr`` (1-byte needles), ``batched``
 (the needle argument is a comma-separated list), ``count`` (grep -c
-analogue: overlapping occurrence counts of a list) and ``positions``
-(grep -b analogue: every overlapping match offset of a list).  In
-multi-needle lists ``\\,`` escapes a literal comma and ``\\\\`` a literal
-backslash (see :func:`split_needles`).  The JAX package's ``stream*`` and
-``sharded*`` backends and its ``--mesh`` flag are not ported yet: they are
-a usage error.
+analogue: overlapping occurrence counts of a list), ``positions``
+(grep -b analogue: every overlapping match offset of a list) and
+``stream``, ``stream-count`` and ``stream-positions`` (``batched``,
+``count`` and ``positions`` over the file in windows, through a bounded
+device footprint: files of any size, offsets exact past 2 GiB;
+utils/streaming.py).  In multi-needle lists ``\\,`` escapes a literal
+comma and ``\\\\`` a literal backslash (see :func:`split_needles`).  The JAX
+package's ``sharded*`` backends and its ``--mesh`` flag are not ported
+yet: they are a usage error.
 
-The file is memory-mapped and laid out on the card once; the output is the
-match verdict plus the first-match offset (a superset of the reference's
+The file is memory-mapped and laid out on the card once (or, for the
+``stream*`` backends, read window by window); the output is the match
+verdict plus the first-match offset (a superset of the reference's
 bool print).  The command line always runs on the card; :func:`main` and
 :func:`make_searcher` take ``device="cpu"`` from a caller that asks.
 """
@@ -39,6 +43,7 @@ from .models import (
 from .models.huge import PREFIX_LEN
 from .needle import MAX_NEEDLE_LEN, needed_halo, needed_halo_for_t
 from .utils.io import load_haystack
+from .utils.streaming import StreamingScanner
 
 BACKENDS = {
     "dynamic": DynamicSearcher,
@@ -48,16 +53,14 @@ BACKENDS = {
     "memchr": MemchrSearcher,
 }
 
-MULTI_BACKENDS = ("count", "batched", "positions")
+LAYOUT_BACKENDS = ("count", "batched", "positions")
+STREAM_BACKENDS = ("stream", "stream-count", "stream-positions")
+MULTI_BACKENDS = LAYOUT_BACKENDS + STREAM_BACKENDS
 
 #: The JAX package's backends that wait for a later part of the port, with
 #: the ROADMAP queue 1 item that brings each.
-NOT_PORTED = {
-    **dict.fromkeys(("stream", "stream-count", "stream-positions"),
-                    "streaming comes with ROADMAP queue 1 item 14"),
-    **dict.fromkeys(("sharded", "sharded-count", "sharded-positions"),
-                    "sharded corpora come with ROADMAP queue 1 item 15"),
-}
+NOT_PORTED = dict.fromkeys(("sharded", "sharded-count", "sharded-positions"),
+                           "sharded corpora come with ROADMAP queue 1 item 15")
 MESH_NOT_PORTED = "--mesh (sharded corpora) comes with ROADMAP queue 1 item 15"
 
 USAGE = "usage: python -m sliceslice_tpu_torch.cli <backend> <needle> <file>..."
@@ -89,8 +92,10 @@ def split_needles(arg: bytes) -> list:
 def make_searcher(backend: str, needle: bytes, *, device="cuda"):
     """Build the backend's searcher once, for every file argument (the
     library's preprocess-once contract applied to the CLI itself)."""
-    if backend in MULTI_BACKENDS:
+    if backend in LAYOUT_BACKENDS:
         return BatchedSearcher(split_needles(needle), device=device)
+    if backend in STREAM_BACKENDS:
+        return StreamingScanner(split_needles(needle), device=device)
     if backend in NOT_PORTED:
         raise SystemExit(f"backend {backend!r} is not ported yet: {NOT_PORTED[backend]}")
     cls = BACKENDS.get(backend)
@@ -106,7 +111,7 @@ def _load_for(searcher, backend: str, path: str, *, device="cuda"):
     """The file's layout with the halo the searcher will need (sized from
     its bucketed probe widths and, for a batch, its huge needles' 64-byte
     prefix filter), so that no search re-lays it."""
-    if backend in MULTI_BACKENDS:
+    if backend in LAYOUT_BACKENDS:
         kh = needed_halo_for_t(searcher.max_t)
         if searcher._huge:
             kh = max(kh, PREFIX_LEN - 1)
@@ -119,6 +124,12 @@ def _load_for(searcher, backend: str, path: str, *, device="cuda"):
 def run_on_file(searcher, backend: str, path: str, *, device="cuda"):
     """Returns (found, offset), or a per-needle list of them for the
     multi-needle backends, grep-style."""
+    if backend == "stream":
+        return [(o >= 0, None if o < 0 else int(o)) for o in searcher.find_in_file(path)]
+    if backend == "stream-count":
+        return [(int(c) > 0, int(c)) for c in searcher.count_in_file(path)]
+    if backend == "stream-positions":
+        return [(p.size > 0, p) for p in searcher.positions_in_file(path)]
     dh = _load_for(searcher, backend, path, device=device)
     if backend == "count":
         return [(int(c) > 0, int(c)) for c in searcher.count_all(dh)]
@@ -151,11 +162,11 @@ def main(argv=None, *, device="cuda"):
     rc = 1
     for path in files:
         res = run_on_file(searcher, backend, path, device=device)
-        if backend == "count":
+        if backend in ("count", "stream-count"):
             for nd, (found, c) in zip(split_needles(needle_b), res):
                 print(f"{path}: {nd.decode('utf-8', 'replace')}: {c}")
                 rc = 0 if found else rc
-        elif backend == "positions":
+        elif backend in ("positions", "stream-positions"):
             for nd, (found, pos) in zip(split_needles(needle_b), res):
                 shown = ",".join(map(str, pos[:100].tolist()))
                 more = f" (+{pos.size - 100} more)" if pos.size > 100 else ""
@@ -164,7 +175,7 @@ def main(argv=None, *, device="cuda"):
                     f"{shown if found else 'no match'}{more}"
                 )
                 rc = 0 if found else rc
-        elif backend == "batched":
+        elif backend in ("batched", "stream"):
             for nd, (found, off) in zip(split_needles(needle_b), res):
                 print(f"{path}: {nd.decode('utf-8', 'replace')}: "
                       f"{'match at ' + str(off) if found else 'no match'}")

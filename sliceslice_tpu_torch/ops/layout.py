@@ -94,6 +94,20 @@ class DeviceHaystack:
         default=None, repr=False, compare=False
     )
 
+    @classmethod
+    def from_buffer(cls, flat: torch.Tensor, length: int, kh: int,
+                    host_bytes: Optional[bytes] = None) -> "DeviceHaystack":
+        """The kernel layout of a ``length``-byte corpus that already lies
+        in ``flat``, with no copy and no allocation: ``flat`` is uint8 of
+        ``padded_total(length, kh, force_cols=True)`` bytes, and its bytes
+        past ``length`` must be zero (a streamed window in a pooled
+        buffer, utils/streaming.py)."""
+        kh = round_up(max(kh, MIN_KH), 32)
+        total = padded_total(length, kh, force_cols=True)
+        if flat.dtype != torch.uint8 or flat.dim() != 1 or flat.numel() != total:
+            raise ValueError(f"a {length}-byte kernel layout takes a 1-D uint8 buffer of {total} bytes")
+        return cls(length=length, kh=kh, flat=flat, tiled=True, host_bytes=host_bytes)
+
     @property
     def device(self) -> torch.device:
         return self.flat.device

@@ -1,6 +1,6 @@
 """The port's grep CLI, its ingestion helpers and its examples against the
-JAX package — the mirror of tests/test_cli.py (but its stream and sharded
-cases, which wait for the port's streaming and ``parallel/``): for every
+JAX package — the mirror of tests/test_cli.py (but its sharded cases,
+which wait for the port's ``parallel/``): for every
 case the port's printed lines and exit code, with ``main(...,
 device="cpu")``, equal the JAX CLI's on the same file, with the backend
 names mapped (``cuda`` for ``pallas``, ``torch`` for ``xla``)."""
@@ -11,7 +11,9 @@ import torch
 
 import sliceslice_tpu.cli as jcli
 import sliceslice_tpu.utils.io as jio
+import sliceslice_tpu.utils.streaming as jstreaming
 import sliceslice_tpu_torch.cli as tcli
+import sliceslice_tpu_torch.utils.streaming as tstreaming
 from sliceslice_tpu_torch.examples import corpus_scan, serving_loop
 from sliceslice_tpu_torch.searcher import _host_positions, overlapping_count
 from sliceslice_tpu_torch.utils import io as tio
@@ -135,15 +137,42 @@ def test_cli_mesh_flag_edge_cases(tmp_path, capsys):
     assert "usage:" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("backend", ["stream", "stream-count", "stream-positions"])
+def test_cli_stream(tmp_path, capsys, monkeypatch, backend):
+    """The stream backends over a 300 KB file in windows of 100,000 bytes
+    (both CLIs' scanners patched to them, as tests/test_cli.py does):
+    the same lines and exit code as the JAX CLI, a window-straddling
+    needle, an absent one and a frequent one among them."""
+    rng = np.random.default_rng(5)
+    data = bytes(rng.integers(97, 110, (300_000,), dtype=np.uint8))
+    p = tmp_path / "big.bin"
+    p.write_bytes(data)
+    for mod in (tstreaming, jstreaming):
+        init = mod.StreamingScanner.__init__
+
+        def small(self, needles, *args, init=init, **kw):
+            init(self, needles, 100_000, *args, **kw)
+
+        monkeypatch.setattr(mod.StreamingScanner, "__init__", small)
+    needles = [data[123_456:123_468], data[99_994:100_006], b"zebra!", b"abc"]
+    rc, out = both(capsys, [backend, ",".join(nd.decode() for nd in needles), str(p)])
+    assert rc == 0 and len(out.splitlines()) == len(needles)
+    line = {"stream": lambda nd: "match at %d" % data.find(nd) if nd in data else "no match",
+            "stream-count": lambda nd: str(overlapping_count(data, nd)),
+            "stream-positions": lambda nd: ",".join(map(str, _host_positions(data, nd)[:100].tolist()))
+            or "no match"}[backend]
+    for nd, got in zip(needles, out.splitlines()):
+        assert got.startswith(f"{p}: {nd.decode()}: {line(nd)}")
+
+
 @pytest.mark.parametrize("argv, item", [
-    (["stream", "abc"], 14), (["stream-count", "abc"], 14), (["stream-positions", "abc"], 14),
     (["sharded", "abc"], 15), (["sharded-count", "abc"], 15), (["sharded-positions", "abc"], 15),
     (["--mesh", "4x2", "sharded", "abc"], 15), (["--mesh=2x4", "batched", "abc"], 15),
 ])
 def test_cli_not_ported_backends_are_usage_errors(tmp_path, capsys, argv, item):
-    """The JAX CLI's streaming and sharded backends and ``--mesh`` come
-    with later parts of the port: exit 2 with the usage line and the
-    ROADMAP item that brings them."""
+    """The JAX CLI's sharded backends and ``--mesh`` come with a later
+    part of the port: exit 2 with the usage line and the ROADMAP item that
+    brings them."""
     p = tmp_path / "h.txt"
     p.write_bytes(b"abc" * 100)
     assert tcli.main(argv + [str(p)], device=CPU) == 2

@@ -14,6 +14,7 @@ from sliceslice_tpu_torch import (
     MemchrSearcher,
     NaiveSearcher,
     PairwiseSearcher,
+    StreamingScanner,
     TorchSearcher,
     interop,
     pairwise_contains_all,
@@ -36,6 +37,7 @@ ENTRY_POINTS = {
     "load_haystack": lambda **kw: load_haystack("data/words.txt", **kw),
     "cli.make_searcher": lambda **kw: cli.make_searcher("cuda", b"ab", **kw),
     "cli.make_searcher-count": lambda **kw: cli.make_searcher("count", b"ab,c", **kw),
+    "cli.make_searcher-stream": lambda **kw: cli.make_searcher("stream", b"ab,c", **kw),
     "DynamicSearcher.with_position": lambda **kw: DynamicSearcher.with_position(b"ab", 1, **kw),
     "CudaSearcher": lambda **kw: CudaSearcher(b"abcde", **kw),
     "CudaSearcher.with_position": lambda **kw: CudaSearcher.with_position(b"abcde", 2, **kw),
@@ -44,6 +46,8 @@ ENTRY_POINTS = {
     "MemchrSearcher": lambda **kw: MemchrSearcher(b"a", **kw),
     "BatchedSearcher": lambda **kw: BatchedSearcher([b"a", b"bc"], **kw),
     "PairwiseSearcher": lambda **kw: PairwiseSearcher([b"a", b"bc"], **kw),
+    "StreamingScanner": lambda **kw: StreamingScanner([b"a", b"bc"], **kw),
+    "StreamingScanner-huge": lambda **kw: StreamingScanner([b"a", b"bc" * 1100], **kw),
     "pairwise_contains_all": lambda **kw: pairwise_contains_all([b"a", b"ab"], **kw),
     "interop.haystack": lambda **kw: interop.haystack(b"abc" * 4000, 12_000, 32, True, **kw),
     "interop.batched_searcher": lambda **kw: interop.batched_searcher(
@@ -84,6 +88,13 @@ def test_grep_cli_takes_the_card_unless_asked(no_card, capsys):
         cli.main(["count", "ab,c", "data/words.txt"])
     assert cli.main(["count", "ab,c", "data/words.txt"], device="cpu") == 0
     assert capsys.readouterr().out.startswith("data/words.txt: ab: ")
+
+
+def test_grep_cli_streams_on_the_card_unless_asked(no_card, capsys):
+    with pytest.raises(ValueError, match="no CUDA device"):
+        cli.main(["stream", "ab,c", "data/words.txt"])
+    assert cli.main(["stream", "ab,c", "data/words.txt"], device="cpu") == 0
+    assert capsys.readouterr().out.startswith("data/words.txt: ab: match at ")
 
 
 def test_probe_cli_takes_the_card_unless_asked(no_card, capsys):

@@ -21,6 +21,7 @@ from sliceslice_tpu_torch import (
     BatchedSearcher,
     DynamicSearcher,
     PairwiseSearcher,
+    StreamingScanner,
     TorchSearcher,
     overlapping_count,
     preprocess,
@@ -31,6 +32,7 @@ from sliceslice_tpu_torch.ops import pairwise, scan_kernel, torch_backend
 from sliceslice_tpu_torch.ops.scan_math import table_bits
 from sliceslice_tpu_torch.scripts import kernel_probe, pair_cases
 from sliceslice_tpu_torch.searcher import _host_positions
+from sliceslice_tpu_torch.utils import streaming
 
 pytestmark = pytest.mark.gpu
 
@@ -648,3 +650,50 @@ def test_huge_tiers_on_card(cuda, monkeypatch):
     for name in ("find_all_device", "count_all_device"):
         with pytest.raises(ValueError, match="MAX_NEEDLE_LEN"):
             getattr(bs, name)(dh)
+
+
+def _stream_case(seed: int, n: int):
+    """A seeded corpus of ``n`` bytes and needles over it: planted at
+    window boundaries, frequent, 1-byte, absent, a zero-tailed one."""
+    data = bytearray(_hay(seed, n))
+    mib = 1 << 20
+    plants = [data[5 * mib - 7:5 * mib + 9], data[11 * mib - 1:11 * mib + 40]]
+    return bytes(data), plants + [bytes(data[100:103]), b"a", b"\xff\xfe\xfd", bytes(data[-6:])]
+
+
+def test_stream_parity_at_1mib_windows_pinned(cuda, tmp_path):
+    """A 16 MiB file streamed at 1 MiB windows: find (with and without
+    early stop), count and positions exact, file and chunks alike, both
+    pools on their side of the copy (host pinned, device on the card)."""
+    data, needles = _stream_case(21, 16 << 20)
+    p = tmp_path / "s.bin"
+    p.write_bytes(data)
+    sc = StreamingScanner(needles, window_bytes=1 << 20, device=cuda).warmup()
+    assert all(t.is_pinned() for t in sc._host_q.queue)
+    assert all(t.device == cuda for t in sc._dev_pool)
+    made = sc.buffer_allocations
+    exp = [data.find(nd) for nd in needles]
+    assert sc.find_in_file(str(p), early_stop=False).tolist() == exp
+    assert sc.find_in_file(str(p), early_stop=True).tolist() == exp
+    assert sc.count_in_file(str(p)).tolist() == [overlapping_count(data, nd) for nd in needles]
+    chunks = [data[i:i + 999_983] for i in range(0, len(data), 999_983)]
+    for got in (sc.positions_in_file(str(p)), sc.positions_in_chunks(iter(chunks))):
+        assert [g.tolist() for g in got] == [_host_positions(data, nd).tolist() for nd in needles]
+    assert sc.find_in_chunks(iter(chunks), early_stop=False).tolist() == exp
+    assert sc.buffer_allocations == made
+
+
+def test_stream_windows_outnumber_the_pool(cuda):
+    """A chunk stream of 40 windows through a pool of 3 host and 2 device
+    buffers, at each prefetch depth: every buffer is reused many times
+    while copies and kernels are in flight, and the answers stay exact."""
+    data, needles = _stream_case(22, 10 << 20)
+    for prefetch in (0, 1, 4):
+        sc = StreamingScanner(needles, window_bytes=1 << 18, prefetch=prefetch, device=cuda)
+        exp = [data.find(nd) for nd in needles]
+        assert sc.find_in_chunks(iter([data]), early_stop=False).tolist() == exp
+        assert sc.stats["windows"] == 40 > 3 * (max(prefetch, 1) + 2)
+        assert sc.count_in_chunks(iter([data])).tolist() == [overlapping_count(data, nd) for nd in needles]
+        got = sc.positions_in_chunks(iter([data]), start_offset=2**33)
+        assert [g.tolist() for g in got] == [(_host_positions(data, nd) + 2**33).tolist() for nd in needles]
+        assert len(sc._dev_pool) == streaming.DEVICE_BUFFERS

@@ -20,7 +20,7 @@ import sliceslice_tpu_torch.models.huge as thuge
 from sliceslice_tpu_torch import BatchedSearcher, DynamicSearcher, preprocess
 from sliceslice_tpu_torch.config import SENTINEL
 from sliceslice_tpu_torch.models.huge import CHUNK, HugeNeedleSearcher
-from sliceslice_tpu_torch.needle import MAX_NEEDLE_LEN, build_probe_table, needed_halo_for_t
+from sliceslice_tpu_torch.needle import MAX_NEEDLE_LEN, needed_halo_for_t
 from sliceslice_tpu_torch.ops import chained, torch_backend
 from sliceslice_tpu_torch.searcher import _host_positions, overlapping_count
 
