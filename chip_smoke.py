@@ -56,6 +56,16 @@ drives the port's main paths against host oracles:
   stream path's counts, the card's part of one 32 MiB window (CUDA
   events), a torch.profiler trace of one stream per mode (the card's idle
   share) and the single-layout sweeps of the same needles;
+* sharded corpora (``parallel/``): in an NCCL group of one, meshes 1x1,
+  2x1, 4x1 and 2x2 of cells on the card, ``ShardedBatchedSearcher`` over
+  i386 (all the words, before and after ``optimize_for``, the int64
+  combine, needles across every shard boundary, a ``GlobalCorpus``), the
+  256 MiB corpus, huge needles on both tiers, a stream over a 4x1 mesh and
+  the CLI's sharded backends; then two processes under gloo over a
+  4.5 GiB corpus, each holding its half as two cells
+  (``scripts/multihost_check.py --device cuda``); then, outside the
+  path's counts, the sharded sweeps against the single layout's, a
+  collective's µs and ``measure_scaling`` over cells on the card;
 * the grep CLI: ``python -m sliceslice_tpu_torch.cli`` with the dynamic,
   batched, count, positions and stream backends over data/i386.txt, a huge
   needle among the needles, seven processes at once, against bytes.find's
@@ -73,8 +83,9 @@ next-to-last lines are a JSON object describing the kernels (times, bound
 and what sets it, launches per sweep) and the card's name and power
 limit; the last line is ``{"ok": true, "device": ...}``.  Imports nothing
 of JAX.  Each main path's launch counts start at 0 just before it and are
-read just after; the huge-needle and stream paths have their own
-(``huge_path_launches``, ``stream_path_launches``).
+read just after; the huge-needle, stream and sharded paths have their own
+(``huge_path_launches``, ``stream_path_launches``,
+``sharded_path_launches``).
 """
 
 from __future__ import annotations
@@ -771,36 +782,6 @@ STREAM_BLOCK = 64 << 20
 STREAM_SAMPLES = 3
 
 
-def make_plants(total: int):
-    """(offset, needle) plants at boundary-critical offsets, as
-    scripts/bigscan_check.py plants them: a straddle of 2^31, offsets past
-    2^31 and 2^32 and at ``total - 20``, DELTA twice (first occurrence)."""
-    plants = [
-        (1_000, b"ALPHA-NEEDLE-01!"),
-        (2**31 - 8, b"STRADDLE-2GIB-XX"),
-        (2**31 + 12_345, b"BETA-NEEDLE-002!"),
-        (2**32 + 777, b"GAMMA-NEEDLE-03!"),
-        (total - 20, b"OMEGA-NEEDLE-04!"),
-        (2**31 + 9_999_999, b"DELTA-NEEDLE-05!"),
-        (2**32 + 50_000_000, b"DELTA-NEEDLE-05!"),
-    ]
-    return [(o, n) for o, n in plants if o + len(n) <= total]
-
-
-def plant_chunks(total: int, plants, block: np.ndarray):
-    """The chunk stream: ``block`` copied per chunk with the plants that
-    touch it written in, as memoryviews (bytes-like, no copy); never more
-    than one chunk on the host."""
-    size = block.size
-    for base in range(0, total, size):
-        buf = block[:min(size, total - base)].copy()
-        for off, nd in plants:
-            lo, hi = max(off, base), min(off + len(nd), base + buf.size)
-            if lo < hi:
-                buf[lo - base:hi - base] = np.frombuffer(nd, np.uint8)[lo - off:hi - off]
-        yield buf.data
-
-
 def _stream_held(sc, src, exp_first, exp_counts, exp_pos, what, start=0):
     """find (early_stop False and True), count and positions of one
     scanner over a file path or a chunk-iterator factory, each exact.
@@ -846,6 +827,7 @@ def phase_stream(torch, device, card, hay, words, i386_answers, big, big_answers
 
     from sliceslice_tpu_torch import StreamingScanner, overlapping_count
     from sliceslice_tpu_torch.ops import scan_kernel
+    from sliceslice_tpu_torch.scripts.multihost_check import make_plants, plant_chunks
     from sliceslice_tpu_torch.searcher import _host_positions
     from sliceslice_tpu_torch.utils.profiling import measure
 
@@ -1029,65 +1011,278 @@ def phase_stream_times(torch, device, card, big, needles, times, windows):
         say("stream_time", card=card, what=what, **t)
 
 
+#: The sharded phase: the meshes of cells on the one card, the 4.5 GiB
+#: corpus of the two-process run, its cells per process and its time limit.
+SHARDED_MESHES = ((1, 1), (2, 1), (4, 1), (2, 2))
+SHARDED_TWO_PROCESS_BYTES = int(4.5 * 2**30)
+SHARDED_CELLS_PER_PROCESS = 2
+SHARDED_TIMEOUT_S = 400
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _grep_lines(hay: bytes, path: str, backend: str, needles) -> str:
+    """The grep CLI's output for ``needles`` under ``backend``, from
+    bytes.find (one line a needle, which may hold newlines)."""
+    from sliceslice_tpu_torch.searcher import _host_positions, overlapping_count
+
+    def line(nd):
+        if backend.endswith("count"):
+            return str(overlapping_count(hay, nd))
+        if backend.endswith("positions"):
+            p = _host_positions(hay, nd)
+            more = f" (+{p.size - 100} more)" if p.size > 100 else ""
+            return (",".join(map(str, p[:100].tolist())) if p.size else "no match") + more
+        f = hay.find(nd)
+        return f"match at {f}" if f >= 0 else "no match"
+
+    if backend == "dynamic":  # one needle, not named in its line
+        return f"{path}: {line(needles[0])}\n"
+    return "".join(f"{path}: {nd.decode()}: {line(nd)}\n" for nd in needles)
+
+
+def _cli_held(hay: bytes, path: str, runs: dict) -> None:
+    """Run ``python -m sliceslice_tpu_torch.cli`` once per entry of
+    ``runs`` ({name: (options, backend, needles)}), all at once, and hold
+    each exit code and printed output against bytes.find's.  Every process
+    is stopped before this returns."""
+    import subprocess
+
+    def arg(backend, nds):  # dynamic takes one needle as it is; lists take split_needles' escapes
+        if backend == "dynamic":
+            return nds[0].decode()
+        return ",".join(nd.decode().replace("\\", "\\\\").replace(",", "\\,") for nd in nds)
+
+    procs = {name: subprocess.Popen([sys.executable, "-m", "sliceslice_tpu_torch.cli", *opts, b, arg(b, nds), path],
+                                    cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name, (opts, b, nds) in runs.items()}
+    outs = {}
+    try:
+        for name, proc in procs.items():
+            outs[name] = proc.communicate(timeout=300)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, (opts, b, nds) in runs.items():
+        out, err = outs[name]
+        rc = procs[name].returncode
+        check(rc == (0 if any(hay.find(nd) >= 0 for nd in nds) else 1),
+              f"cli {name}: exit code {rc}; stderr: {err[-2000:]}")
+        check(out == _grep_lines(hay, path, b, nds), f"cli {name}: printed lines differ from bytes.find's")
+
+
+def phase_sharded(torch, device, card, hay, words, i386_dh, i386_answers, big, big_answers, i386_huge):
+    """Sharded corpora (``parallel/``), each case exact.  (a) NCCL as a
+    group of one on the card, meshes 1x1, 2x1, 4x1 and 2x2 of cells on it:
+    ``ShardedBatchedSearcher`` find, count and positions of the 4,585
+    words over i386 before and after ``optimize_for`` (and with
+    ``force_int64``), needles cut across every shard boundary at offsets
+    -7..+7, a ``GlobalCorpus`` of i386; at 4x1 the 256 MiB corpus's 41
+    needles, the i386 huge needles on the host and the dense tier,
+    ``StreamingScanner(mesh=4x1)`` over the 256 MiB file at 32 MiB
+    windows, and the CLI's sharded backends at --mesh 4x1 and 2x2.  Then
+    the group is destroyed.  (b) gloo across two processes on the card:
+    ``scripts/multihost_check.py --device cuda`` over a 4.5 GiB corpus, each
+    process holding its 2.25 GiB half as 2 cells (a 4x1 mesh), exact past
+    2^31 and 2^32 and across the process boundary."""
+    import subprocess
+    import tempfile
+
+    import torch.distributed as dist
+
+    from sliceslice_tpu_torch import BatchedSearcher, StreamingScanner, overlapping_count
+    from sliceslice_tpu_torch.models import huge as huge_mod
+    from sliceslice_tpu_torch.parallel import ShardedBatchedSearcher, make_mesh
+    from sliceslice_tpu_torch.parallel.distributed import all_reduce, assemble_global_corpus, initialize
+    from sliceslice_tpu_torch.parallel.shard_scan import shard_bytes_for
+    from sliceslice_tpu_torch.searcher import _host_positions
+
+    i386_firsts, i386_counts, i386_positions = i386_answers
+    big_dh, big_hay, _ = big
+    big_needles, big_firsts, big_counts, big_positions = big_answers
+    out = {"meshes": {}}
+
+    def held(sb, dh, firsts, counts, positions, what):
+        f, c, p = sb.find_all(dh), sb.count_all(dh), sb.positions_all(dh)
+        check(f.dtype == np.int64 and np.array_equal(f, firsts), f"{what}: find_all differs "
+              f"({int((f != np.asarray(firsts)).sum())} needles)")
+        check(np.array_equal(c, counts), f"{what}: count_all differs ({int((c != np.asarray(counts)).sum())})")
+        bad = sum(not np.array_equal(g, e) for g, e in zip(p, positions))
+        check(len(p) == len(positions) and bad == 0, f"{what}: positions_all differs ({bad} needles)")
+
+    initialize(f"127.0.0.1:{_free_port()}", 1, 0, backend="nccl", device=device, timeout_s=300)
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1, "not an NCCL group of one")
+        calls0 = all_reduce.calls
+        for shape in SHARDED_MESHES:
+            mesh = make_mesh(shape, device=device)
+            sb = ShardedBatchedSearcher(words, mesh)
+            held(sb, i386_dh, i386_firsts, i386_counts, i386_positions, f"i386 at {shape}")
+            sb.optimize_for(i386_dh)
+            held(sb, i386_dh, i386_firsts, i386_counts, i386_positions, f"i386 at {shape} after optimize_for")
+            wide = ShardedBatchedSearcher(words, mesh)
+            wide.force_int64 = True
+            check(np.array_equal(wide.find_all(i386_dh), i386_firsts)
+                  and np.array_equal(wide.count_all(i386_dh), i386_counts), f"i386 at {shape}: force_int64 differs")
+            shard = shard_bytes_for(len(hay), shape[0])
+            cuts = [hay[b * shard + o:b * shard + o + 12] for b in range(1, shape[0]) for o in range(-7, 8)]
+            if cuts:
+                cut = ShardedBatchedSearcher(cuts, mesh)
+                exp_f = [hay.find(nd) for nd in cuts]
+                exp_c = [overlapping_count(hay, nd) for nd in cuts]
+                held(cut, i386_dh, exp_f, exp_c, [_host_positions(hay, nd) for nd in cuts],
+                     f"shard-boundary needles at {shape}")
+            gc = assemble_global_corpus(hay, b"", len(hay), 24, mesh)
+            held(sb, gc, i386_firsts, i386_counts, i386_positions, f"a GlobalCorpus of i386 at {shape}")
+            out["meshes"][f"{shape[0]}x{shape[1]}"] = {"cells": shape[0] * shape[1], "shard_bytes": shard,
+                                                       "boundary_needles": len(cuts)}
+        mesh4 = make_mesh((4, 1), device=device)
+        held(ShardedBatchedSearcher(big_needles, mesh4), big_dh, big_firsts, big_counts, big_positions,
+             "the 256 MiB corpus at 4x1")
+        # The i386 huge needles among a few words: the host tier, then the
+        # dense tier (its candidate budget set to 0).
+        needles = list(i386_huge) + list(words[::500])
+        exp = ([hay.find(nd) for nd in needles], [overlapping_count(hay, nd) for nd in needles],
+               [_host_positions(hay, nd) for nd in needles])
+        tiers = {}
+        for tier, budget in (("host", huge_mod.HOST_VERIFY_MAX), ("dense", 0)):
+            saved, huge_mod.HOST_VERIFY_MAX = huge_mod.HOST_VERIFY_MAX, budget
+            try:
+                hsb = ShardedBatchedSearcher(needles, mesh4)
+                held(hsb, i386_dh, *exp, f"i386 huge needles at 4x1, {tier} tier")
+                held(hsb, assemble_global_corpus(hay, b"", len(hay), 64, mesh4), *exp,
+                     f"i386 huge needles over a GlobalCorpus at 4x1, {tier} tier")
+            finally:
+                huge_mod.HOST_VERIFY_MAX = saved
+            tiers[tier] = len(i386_huge)
+        # A stream over the 4x1 mesh: the 256 MiB corpus as a file.
+        with tempfile.TemporaryDirectory() as tmp:
+            big_path = os.path.join(tmp, "big.bin")
+            with open(big_path, "wb") as f:
+                f.write(big_hay)
+            sc = StreamingScanner(big_needles, mesh=mesh4, device=device)
+            windows = _stream_held(sc, big_path, big_firsts, big_counts, big_positions, "256 MiB over a 4x1 mesh")
+        # The CLI's sharded backends, six processes at once.
+        path = "data/i386.txt"
+        lists = {"sharded": [b"Protected Mode", b"zebra!", b"the"], "sharded-count": [b"the", b"zebra!"],
+                 "sharded-positions": [b"Protected Mode", b"zebra!"]}
+        runs = {f"{b} --mesh {m}": (["--mesh", m], b, nds) for b, nds in lists.items() for m in ("4x1", "2x2")}
+        _cli_held(hay, path, runs)
+        out.update(collectives_in_a=all_reduce.calls - calls0, huge_tiers=tiers, stream_windows=windows,
+                   cli=list(runs))
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "the NCCL group outlived the phase")
+
+    # (b) gloo across two processes on the card, 4.5 GiB.
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "sliceslice_tpu_torch.scripts.multihost_check", "--device", "cuda",
+         "--bytes", str(SHARDED_TWO_PROCESS_BYTES), "--cells-per-process", str(SHARDED_CELLS_PER_PROCESS),
+         "--timeout", str(SHARDED_TIMEOUT_S - 20)],
+        cwd=REPO, capture_output=True, text=True, timeout=SHARDED_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0 and "2-process sharded scan parity ok" in proc.stdout,
+          f"the two-process run failed (rc={proc.returncode}): {(proc.stdout + proc.stderr)[-3000:]}")
+    workers = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    check(len(workers) == 2 and all(w["max_offset"] > 2**32 for w in workers),
+          "the two-process run held no plant past 2^32")
+    out["two_processes"] = {"wall_s": wall, "workers": workers}
+    say("sharded", card=card, cases=out, exact=True)
+    return out
+
+
+def phase_sharded_times(torch, device, card, words, i386_dh, big):
+    """Outside the sharded path's counts: the i386 find and count sweeps
+    through ``ShardedBatchedSearcher`` at 1x1, 2x1, 4x1 and 2x2 against
+    ``BatchedSearcher``'s, with their host stages, with no group, in an
+    NCCL group of one and with no group again (``sweep_times.py
+    --sharded``), the µs of one NCCL collective of 4,585 int64,
+    ``measure_scaling``'s table over 1, 2 and 4 cells on the card (what a
+    mesh costs there, not scaling), the launches of one sweep at 4x1, and
+    the count kernel's one-row rate over the 256 MiB corpus
+    (``predicted_efficiency``'s default)."""
+    import torch.distributed as dist
+
+    from sliceslice_tpu_torch import BatchedSearcher
+    from sliceslice_tpu_torch.needle import build_probe_table
+    from sliceslice_tpu_torch.ops import scan_kernel
+    from sliceslice_tpu_torch.ops.scan_math import table_bits
+    from sliceslice_tpu_torch.parallel import ShardedBatchedSearcher, format_report, make_mesh, measure_scaling
+    from sliceslice_tpu_torch.parallel.distributed import all_reduce, initialize
+    from sliceslice_tpu_torch.scripts.sweep_times import sharded_rounds
+    from sliceslice_tpu_torch.utils.profiling import measure
+
+    bs = BatchedSearcher(words, device=device).optimize_for(i386_dh)
+    rounds = sharded_rounds(torch, bs, words, i386_dh, device)
+    sb4 = ShardedBatchedSearcher(words, make_mesh((4, 1), device=device)).optimize_for(i386_dh)
+    initialize(f"127.0.0.1:{_free_port()}", 1, 0, backend="nccl", device=device, timeout_s=300)
+    try:
+        vec = torch.zeros((len(words),), dtype=torch.int64, device=device)
+        m = measure(lambda: [all_reduce(vec, "min") for _ in range(SWEEPS)], "nccl all_reduce", warmup=1,
+                    samples=5, device=device)
+        nccl_us = m.estimate * 1e6 / SWEEPS
+        c0 = all_reduce.calls
+        sb4.find_all(i386_dh)
+        per_sweep_collectives = all_reduce.calls - c0
+    finally:
+        dist.destroy_process_group()
+    names = {"batched_find": scan_kernel.batched_find, "batched_count": scan_kernel.batched_count,
+             "match_bitmap": scan_kernel.match_bitmap_counted, "compact_positions": scan_kernel.compact_positions}
+    per_sweep = {}
+    for run in (lambda: sb4.find_all(i386_dh), lambda: sb4.count_all(i386_dh), lambda: sb4.positions_all(i386_dh)):
+        before = {k: w.launches for k, w in names.items()}
+        run()
+        per_sweep.update({k: w.launches - before[k] for k, w in names.items() if w.launches > before[k]})
+    scaling = measure_scaling(i386_dh, words, device_counts=[1, 2, 4], samples=5)
+    # The count kernel's one-row rate over 256 MiB (an absent needle: every
+    # position tested).
+    big_dh, big_hay, _ = big
+    nd = bytes([255]) + big_hay[1000:1010]
+    vals, msks, lens = build_probe_table([nd])
+    v, m_, e = (table_bits(vals, device), table_bits(msks, device),
+                torch.tensor([len(big_hay) - len(nd) + 1], dtype=torch.int32, device=device))
+    one = measure(lambda: [scan_kernel.batched_count(big_dh.flat, v, m_, e) for _ in range(SWEEPS)],
+                  "one-row count, 256 MiB", warmup=1, samples=5, device=device)
+    one_ms = one.estimate * 1e3 / SWEEPS
+    for row in rounds:
+        say("sharded_times", card=card, **row)
+    say("sharded_times", card=card, nccl_all_reduce_us=nccl_us, collectives_per_sweep=per_sweep_collectives,
+        launches_per_sweep_4x1=per_sweep, groups=len(sb4.inner.groups), one_row_count_ms_256MiB=one_ms,
+        one_row_count_GBps=len(big_hay) / (one_ms * 1e-3) / 1e9,
+        scaling_note="cells on one card: dispatch overhead, not scaling", scaling=scaling)
+    print("measure_scaling over cells on one card (dispatch overhead, not scaling), " + card)
+    print(format_report(scaling))
+    return per_sweep
+
+
 def phase_cli(hay):
     """``python -m sliceslice_tpu_torch.cli`` over data/i386.txt with the
     dynamic, batched, count, positions, stream, stream-count and
     stream-positions backends, a huge needle among the needles, in seven
     processes at once; every printed line against lines built from
     bytes.find."""
-    import subprocess
-
-    from sliceslice_tpu_torch.searcher import _host_positions, overlapping_count
-
     path = "data/i386.txt"
     huge = _ascii_slice(hay, 300_000, 4096)
     huge2 = _ascii_slice(hay, 500_000, 2049)
     absent = huge2[:1000] + (b"~" if huge2[1000:1001] != b"~" else b"^") + huge2[1001:]
     short = [b"Protected Mode", b"zebra!", b"the"]
-
-    def find_line(nd):
-        f = hay.find(nd)
-        return f"match at {f}" if f >= 0 else "no match"
-
-    def pos_line(nd):
-        p = _host_positions(hay, nd)
-        more = f" (+{p.size - 100} more)" if p.size > 100 else ""
-        return (",".join(map(str, p[:100].tolist())) if p.size else "no match") + more
-
     lists = {"batched": [short[0], huge, absent, short[1]], "count": [short[2], huge2, absent],
              "positions": [short[2], huge, absent]}
     for backend in list(lists):  # the same lists, streamed
         lists["stream" if backend == "batched" else f"stream-{backend}"] = lists[backend]
-    runs = {"dynamic": ([huge], [f"{path}: {find_line(huge)}"])}
-    for backend, nds in lists.items():
-        line = {"batched": find_line, "count": lambda nd: str(overlapping_count(hay, nd)),
-                "positions": pos_line}[backend.replace("stream-", "").replace("stream", "batched")]
-        runs[backend] = (nds, [f"{path}: {nd.decode()}: {line(nd)}" for nd in nds])
-    def arg(nds):  # split_needles' escapes for the lists
-        return ",".join(nd.decode().replace("\\", "\\\\").replace(",", "\\,") for nd in nds)
-
-    procs = {b: subprocess.Popen([sys.executable, "-m", "sliceslice_tpu_torch.cli", b,
-                                  arg(nds) if b in lists else nds[0].decode(), path],
-                                 cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for b, (nds, _) in runs.items()}
-    outs = {}
-    try:
-        for b, proc in procs.items():
-            outs[b] = proc.communicate(timeout=300)
-    finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    for b, (nds, want) in runs.items():
-        out, err = outs[b]
-        rc = procs[b].returncode
-        check(rc == (0 if any(hay.find(nd) >= 0 for nd in nds) else 1),
-              f"cli {b}: exit code {rc}; stderr: {err[-2000:]}")
-        check(out == "".join(line + "\n" for line in want),  # needles hold newlines
-              f"cli {b}: printed lines differ from bytes.find's")
-    say("cli", backends=list(runs), needle_lengths={b: [len(nd) for nd in nds] for b, (nds, _) in runs.items()},
-        lines={b: len(w) for b, (_, w) in runs.items()}, equal_to_bytes_find=True)
+    runs = {b: ([], b, nds) for b, nds in {"dynamic": [huge], **lists}.items()}
+    _cli_held(hay, path, runs)
+    say("cli", backends=list(runs), needle_lengths={b: [len(nd) for nd in nds] for b, (_, _, nds) in runs.items()},
+        lines={b: len(nds) for b, (_, _, nds) in runs.items()}, equal_to_bytes_find=True)
 
 
 def phase_count(torch, device, hay, words, i386_dh, big):
@@ -1668,6 +1863,13 @@ def main() -> int:
                          "match_bitmap": stream_per_window["positions"]["bitmap"],
                          "compact_positions": stream_per_window["positions"]["compaction"]}
     timed(phase_stream_times, torch, device, card, big, big_answers[0], stream_times, stream_windows)
+    # Sharded corpora (their own counts): the meshes of cells on the card in
+    # an NCCL group of one, then two processes under gloo.
+    sharded_launches = {}
+    path(("batched_find", "batched_count", "match_bitmap", "compact_positions"), (phase_sharded, (
+        torch, device, card, hay, words, i386_dh, (i386_firsts, i386_counts, i386_positions), big, big_answers,
+        i386_huge)), into=sharded_launches)
+    per_sharded_sweep = timed(phase_sharded_times, torch, device, card, words, i386_dh, big)
     timed(phase_cli, hay)
     times, bounds, per_sweep = timed(phase_times, torch, device, card, i386_dh, bs, big[0], count_bs,
                                      ps, pos_bs, probe_setups)
@@ -1692,6 +1894,8 @@ def main() -> int:
          "launches_per_sweep": per_sweep[name], "huge_path_launches": huge_launches.get(name),
          "stream_path_launches": stream_launches.get(name),
          "launches_per_stream_window": per_stream_window.get(name),
+         "sharded_path_launches": sharded_launches.get(name),
+         "launches_per_sharded_sweep_4x1": per_sharded_sweep.get(name),
          "library_ms": None, "library_note": no_library}
         for name, source, replaces in kernels]}))
     print(card)

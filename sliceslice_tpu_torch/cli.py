@@ -3,7 +3,7 @@
 
 Usage::
 
-    python -m sliceslice_tpu_torch.cli <backend> <needle> <file> [more files...]
+    python -m sliceslice_tpu_torch.cli [--mesh DxN] <backend> <needle> <file> [more files...]
 
 The backend selects the searcher by string, as the reference's
 ``search_in_slice`` dispatch does (examples/grep.rs:12-40; an invalid
@@ -12,14 +12,17 @@ searcher, the JAX package's ``pallas``), ``torch`` (plain torch ops, its
 ``xla``), ``naive`` (oracle), ``memchr`` (1-byte needles), ``batched``
 (the needle argument is a comma-separated list), ``count`` (grep -c
 analogue: overlapping occurrence counts of a list), ``positions``
-(grep -b analogue: every overlapping match offset of a list) and
+(grep -b analogue: every overlapping match offset of a list),
 ``stream``, ``stream-count`` and ``stream-positions`` (``batched``,
 ``count`` and ``positions`` over the file in windows, through a bounded
 device footprint: files of any size, offsets exact past 2 GiB;
-utils/streaming.py).  In multi-needle lists ``\\,`` escapes a literal
-comma and ``\\\\`` a literal backslash (see :func:`split_needles`).  The JAX
-package's ``sharded*`` backends and its ``--mesh`` flag are not ported
-yet: they are a usage error.
+utils/streaming.py), and ``sharded``, ``sharded-count`` and
+``sharded-positions`` (``batched``, ``count`` and ``positions`` over a mesh
+of cells, ``--mesh DxN``: D data shards by N needle blocks, default one
+cell per visible card; parallel/shard_scan.py).  ``--mesh`` is accepted,
+and unused, with every other backend, as in the JAX CLI.  In multi-needle
+lists ``\\,`` escapes a literal comma and ``\\\\`` a literal backslash
+(see :func:`split_needles`).
 
 The file is memory-mapped and laid out on the card once (or, for the
 ``stream*`` backends, read window by window); the output is the match
@@ -31,6 +34,7 @@ bool print).  The command line always runs on the card; :func:`main` and
 from __future__ import annotations
 
 import sys
+from typing import Optional
 
 from .models import (
     BatchedSearcher,
@@ -55,15 +59,10 @@ BACKENDS = {
 
 LAYOUT_BACKENDS = ("count", "batched", "positions")
 STREAM_BACKENDS = ("stream", "stream-count", "stream-positions")
-MULTI_BACKENDS = LAYOUT_BACKENDS + STREAM_BACKENDS
+SHARDED_BACKENDS = ("sharded", "sharded-count", "sharded-positions")
+MULTI_BACKENDS = LAYOUT_BACKENDS + STREAM_BACKENDS + SHARDED_BACKENDS
 
-#: The JAX package's backends that wait for a later part of the port, with
-#: the ROADMAP queue 1 item that brings each.
-NOT_PORTED = dict.fromkeys(("sharded", "sharded-count", "sharded-positions"),
-                           "sharded corpora come with ROADMAP queue 1 item 15")
-MESH_NOT_PORTED = "--mesh (sharded corpora) comes with ROADMAP queue 1 item 15"
-
-USAGE = "usage: python -m sliceslice_tpu_torch.cli <backend> <needle> <file>..."
+USAGE = "usage: python -m sliceslice_tpu_torch.cli [--mesh DxN] <backend> <needle> <file>..."
 
 
 def split_needles(arg: bytes) -> list:
@@ -89,15 +88,31 @@ def split_needles(arg: bytes) -> list:
     return needles
 
 
-def make_searcher(backend: str, needle: bytes, *, device="cuda"):
+def parse_mesh(spec: Optional[str], *, device="cuda"):
+    """``--mesh DxN`` -> a (data, needle) mesh of cells on ``device``'s
+    cards; None -> one cell per visible card on the data axis."""
+    from .parallel import make_mesh
+
+    if spec is None:
+        return make_mesh(device=device)
+    try:
+        d, n = (int(x) for x in spec.lower().replace(",", "x").split("x"))
+    except ValueError:
+        raise SystemExit(f"invalid mesh spec {spec!r}; expected DxN, e.g. 4x2")
+    return make_mesh((d, n), device=device)
+
+
+def make_searcher(backend: str, needle: bytes, mesh_spec: Optional[str] = None, *, device="cuda"):
     """Build the backend's searcher once, for every file argument (the
     library's preprocess-once contract applied to the CLI itself)."""
     if backend in LAYOUT_BACKENDS:
         return BatchedSearcher(split_needles(needle), device=device)
     if backend in STREAM_BACKENDS:
         return StreamingScanner(split_needles(needle), device=device)
-    if backend in NOT_PORTED:
-        raise SystemExit(f"backend {backend!r} is not ported yet: {NOT_PORTED[backend]}")
+    if backend in SHARDED_BACKENDS:
+        from .parallel import ShardedBatchedSearcher
+
+        return ShardedBatchedSearcher(split_needles(needle), parse_mesh(mesh_spec, device=device))
     cls = BACKENDS.get(backend)
     if cls is None:
         raise SystemExit(
@@ -110,8 +125,12 @@ def make_searcher(backend: str, needle: bytes, *, device="cuda"):
 def _load_for(searcher, backend: str, path: str, *, device="cuda"):
     """The file's layout with the halo the searcher will need (sized from
     its bucketed probe widths and, for a batch, its huge needles' 64-byte
-    prefix filter), so that no search re-lays it."""
-    if backend in LAYOUT_BACKENDS:
+    prefix filter), so that no search re-lays it.  A sharded backend's
+    file is laid out on its mesh's home card."""
+    if backend in SHARDED_BACKENDS:
+        device = searcher.mesh.home
+        searcher = searcher.inner
+    if backend in LAYOUT_BACKENDS + SHARDED_BACKENDS:
         kh = needed_halo_for_t(searcher.max_t)
         if searcher._huge:
             kh = max(kh, PREFIX_LEN - 1)
@@ -131,11 +150,11 @@ def run_on_file(searcher, backend: str, path: str, *, device="cuda"):
     if backend == "stream-positions":
         return [(p.size > 0, p) for p in searcher.positions_in_file(path)]
     dh = _load_for(searcher, backend, path, device=device)
-    if backend == "count":
+    if backend in ("count", "sharded-count"):
         return [(int(c) > 0, int(c)) for c in searcher.count_all(dh)]
-    if backend == "batched":
+    if backend in ("batched", "sharded"):
         return [(o >= 0, None if o < 0 else int(o)) for o in searcher.find_all(dh)]
-    if backend == "positions":
+    if backend in ("positions", "sharded-positions"):
         return [(p.size > 0, p) for p in searcher.positions_all(dh)]
     off = searcher.find(dh)
     return off is not None, off
@@ -149,24 +168,35 @@ def search_in_file(backend: str, needle: bytes, path: str, *, device="cuda"):
 
 def main(argv=None, *, device="cuda"):
     argv = list(sys.argv[1:] if argv is None else argv)
-    if any(a == "--mesh" or a.startswith("--mesh=") for a in argv):
-        why = MESH_NOT_PORTED
-    else:
-        why = NOT_PORTED.get(argv[0]) if argv else None
-    if why or len(argv) < 3:
-        print(USAGE + (f"\n{why}" if why else ""), file=sys.stderr)
+    mesh_spec = None
+    bad_flag = False
+    for i, a in enumerate(list(argv)):
+        # The exact flag only: "--meshes" is not consumed, and a bare
+        # "--mesh" with no value is a usage error.
+        if a == "--mesh" or a.startswith("--mesh="):
+            if "=" in a:
+                mesh_spec = a.split("=", 1)[1]
+                del argv[i:i + 1]
+            elif i + 1 < len(argv):
+                mesh_spec = argv[i + 1]
+                del argv[i:i + 2]
+            else:
+                bad_flag = True
+            break
+    if bad_flag or len(argv) < 3:
+        print(USAGE, file=sys.stderr)
         return 2
     backend, needle, *files = argv
     needle_b = needle.encode("utf-8")
-    searcher = make_searcher(backend, needle_b, device=device)  # once, for every file
+    searcher = make_searcher(backend, needle_b, mesh_spec, device=device)  # once, for every file
     rc = 1
     for path in files:
         res = run_on_file(searcher, backend, path, device=device)
-        if backend in ("count", "stream-count"):
+        if backend in ("count", "stream-count", "sharded-count"):
             for nd, (found, c) in zip(split_needles(needle_b), res):
                 print(f"{path}: {nd.decode('utf-8', 'replace')}: {c}")
                 rc = 0 if found else rc
-        elif backend in ("positions", "stream-positions"):
+        elif backend in ("positions", "stream-positions", "sharded-positions"):
             for nd, (found, pos) in zip(split_needles(needle_b), res):
                 shown = ",".join(map(str, pos[:100].tolist()))
                 more = f" (+{pos.size - 100} more)" if pos.size > 100 else ""
@@ -175,7 +205,7 @@ def main(argv=None, *, device="cuda"):
                     f"{shown if found else 'no match'}{more}"
                 )
                 rc = 0 if found else rc
-        elif backend in ("batched", "stream"):
+        elif backend in ("batched", "stream", "sharded"):
             for nd, (found, off) in zip(split_needles(needle_b), res):
                 print(f"{path}: {nd.decode('utf-8', 'replace')}: "
                       f"{'match at ' + str(off) if found else 'no match'}")

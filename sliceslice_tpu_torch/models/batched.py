@@ -172,6 +172,9 @@ class BatchedSearcher:
 
     def _finish_init(self) -> None:
         self.max_t = max((g.t for g in self.groups), default=1)
+        #: bumped by every reschedule: caches keyed by row order (the
+        #: sharded searcher's placed tables) compare it.
+        self._epoch = 0
         #: true (unpadded) row count per group — static across reorders.
         self._order_sizes = tuple(g.n for g in self.groups)
         self._rebuild_order()
@@ -363,6 +366,7 @@ class BatchedSearcher:
         argsort (SENTINEL-absent rows sort last, as on the host path), and
         permute the real rows of values/masks and every cached ends vector;
         padded rows stay in place."""
+        self._epoch += 1
         off = 0
         new_order = []
         for g, sz in zip(self.groups, self._order_sizes):
@@ -384,6 +388,7 @@ class BatchedSearcher:
 
     def _apply_schedule(self, firsts: np.ndarray) -> None:
         """Host-path reschedule from measured first offsets."""
+        self._epoch += 1
         key = np.where(firsts < 0, np.iinfo(np.int64).max, firsts)
         for g in self.groups:
             g.sync_host()  # indices must be current before keying

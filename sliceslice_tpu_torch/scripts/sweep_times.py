@@ -3,6 +3,7 @@
     python3 sliceslice_tpu_torch/scripts/sweep_times.py [--tree DIR] [--chunks 16384,32768,65536]
     python3 sliceslice_tpu_torch/scripts/sweep_times.py --positions [--tree DIR]
     python3 sliceslice_tpu_torch/scripts/sweep_times.py --pairs [--tree DIR]
+    python3 sliceslice_tpu_torch/scripts/sweep_times.py --sharded [--tree DIR]
 
 All 4,585 words of ``data/words.txt`` over ``data/i386.txt`` on the first
 CUDA card, after ``optimize_for``, as the smoke's sweeps run them: per
@@ -37,6 +38,18 @@ events, so the host's dispatch is hidden; each sweep carries its small
 fill; a sweep that uploads its plan waits for the card and reads its host
 time instead) and a trace of 8 sweeps (the kernel's device µs, the card's
 idle share).  One JSON line.
+
+``--sharded`` times ``ShardedBatchedSearcher``'s ``find_all`` and
+``count_all`` of the same words after ``optimize_for``, on meshes of 1x1,
+2x1, 4x1 and 2x2 cells on the card, beside ``BatchedSearcher``'s: ms per
+call (CUDA events around each call, which reads its answers back; median
+of 5, then low and high), and the stages of the searcher's own sweep on
+the host clock, each ended by a synchronisation in its timing hook (the
+cells' launches and the on-device combine, the collective, the finish and
+the readback; median of 5).  Three rounds:
+with no process group, in an NCCL group of one, with no group again (the
+first and the last bound the drift of the card and the host).  One JSON
+line per round.
 """
 
 from __future__ import annotations
@@ -239,6 +252,69 @@ def one_row_times(torch, hay: bytes, dh, device, reps: int = 32, samples: int = 
     return out
 
 
+def sharded_times(torch, bs, words, dh, device, label: str, samples: int = 5) -> dict:
+    """{mesh: {op: {"call_ms": [low, median, high], "stages_ms": {...}}}}
+    for ``ShardedBatchedSearcher`` over ``dh`` (see ``--sharded``), and
+    the single layout's calls as mesh ``"single"``."""
+    import time
+
+    from sliceslice_tpu_torch.parallel import ShardedBatchedSearcher, make_mesh
+    from sliceslice_tpu_torch.parallel import shard_scan as ss
+    from sliceslice_tpu_torch.utils.profiling import measure
+
+    def call_ms(fn, name):
+        m = measure(fn, name, warmup=2, samples=samples, device=device)
+        return [x * 1e3 for x in (m.low, m.estimate, m.high)]
+
+    out = {"single": {op: {"call_ms": call_ms(lambda op=op: getattr(bs, op)(dh), op)}
+                      for op in ("find_all", "count_all")}}
+    for shape in ((1, 1), (2, 1), (4, 1), (2, 2)):
+        sb = ShardedBatchedSearcher(words, make_mesh(shape, device=device)).optimize_for(dh)
+        row = {}
+        for op, mode in (("find_all", ss.FIND), ("count_all", ss.COUNT)):
+            stages = {"launches_and_combine": [], "collective": [], "finish_and_readback": []}
+            for _ in range(samples + 1):
+                stamps = []
+
+                def mark(stage, stamps=stamps):
+                    torch.cuda.synchronize()
+                    stamps.append((stage, time.perf_counter()))
+
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sb._sweep(dh, mode, mark)  # the sweep of find_all / count_all, stage by stage
+                for stage, t in stamps:
+                    stages[stage].append((t - t0) * 1e3)
+                    t0 = t
+            row[op] = {"call_ms": call_ms(lambda op=op: getattr(sb, op)(dh), f"{shape} {op}"),
+                       "stages_ms": {k: sorted(v[1:])[samples // 2] for k, v in stages.items()}}
+        out[f"{shape[0]}x{shape[1]}"] = row
+    return {"round": label, "times": out}
+
+
+def sharded_rounds(torch, bs, words, dh, device) -> list:
+    """:func:`sharded_times` in three rounds: with no process group, in an
+    NCCL group of one (on a free local port, destroyed after), and with no
+    group again."""
+    import socket
+
+    import torch.distributed as dist
+
+    from sliceslice_tpu_torch.parallel.distributed import initialize
+
+    rounds = [sharded_times(torch, bs, words, dh, device, "no group")]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    initialize(f"127.0.0.1:{port}", 1, 0, backend="nccl", device=device)
+    try:
+        rounds.append(sharded_times(torch, bs, words, dh, device, "NCCL group of one"))
+    finally:
+        dist.destroy_process_group()
+    rounds.append(sharded_times(torch, bs, words, dh, device, "no group, again"))
+    return rounds
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(HERE)))
@@ -246,6 +322,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=32)
     ap.add_argument("--positions", action="store_true")
     ap.add_argument("--pairs", action="store_true")
+    ap.add_argument("--sharded", action="store_true")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -269,6 +346,10 @@ def main(argv=None) -> int:
     if not np.array_equal(bs.find_all(dh), exp):
         raise SystemExit("find answers differ from bytes.find")
     bs.optimize_for(dh)
+    if args.sharded:
+        for row in sharded_rounds(torch, bs, words, dh, device):
+            print(json.dumps(row), flush=True)
+        return 0
     if args.positions:
         reps = min(args.reps, 4)
         row = {"tree": tree, "groups": {g.t: g.n for g in bs.groups},

@@ -12,7 +12,11 @@ kernels (one launch per width group), the match-bitmap and compaction
 kernels for positions, and the huge needles' prefix filter and verify
 (models/huge.py).  Kernel offsets stay window-local int32; the window's
 int64 base is added by the device folds (find, count) or on the host
-(positions), so offsets past 2^31 and 2^32 are exact.
+(positions), so offsets past 2^31 and 2^32 are exact.  With a ``mesh``,
+each window is cut into the mesh's shards and scanned by the sharded find,
+count and positions (parallel/shard_scan.py): the exactly-once rule holds
+at window and shard boundaries alike, and one collective per window
+combines the processes of a group.
 
 Every window, the final short one too, takes the kernel layout at one
 fixed size (``_wcap = window + overlap`` bytes, zero-padded), on any
@@ -55,13 +59,13 @@ from ..models.huge import CHUNK, PREFIX_LEN
 from ..needle import needed_halo_for_t
 from ..ops import cuda_lib, scan_kernel, torch_backend
 from ..ops.layout import MAX_DEVICE_POSITIONS, DeviceHaystack, padded_total, resolve_device
+from ..parallel import shard_scan
 from ..searcher import DeviceLike
 
 #: The find fold's "absent": larger than any stream offset.
 INT64_MAX = torch.iinfo(torch.int64).max
 #: Device window buffers: one scanned while the next is copied in.
 DEVICE_BUFFERS = 2
-MESH_NOT_PORTED = "StreamingScanner(mesh=...) (sharded streams) comes with ROADMAP queue 1 item 15"
 
 
 class _IngestStopped(Exception):
@@ -151,9 +155,11 @@ class StreamingScanner:
     ``window_bytes`` is raised to the overlap (longest needle - 1) when a
     needle exceeds it, bounding read amplification at 2x.  ``prefetch``:
     windows read ahead on a background thread (0 reads on the calling
-    thread).  ``mesh`` (sharded streams) waits for ROADMAP queue 1 item 15
-    and raises.  Huge needles (beyond MAX_NEEDLE_LEN) keep each window's
-    host bytes for the verify step of their filter and verify."""
+    thread).  ``mesh``: a mesh of cells (``parallel.make_mesh``) over which
+    each window is sharded; the windows lie on ``device`` and a cell on
+    another device takes a copy of its shard.  Huge needles (beyond
+    MAX_NEEDLE_LEN) keep each window's host bytes for the verify step of
+    their filter and verify."""
 
     #: per-window sparse-positions budget: needles with at most this many
     #: matches in a window read back their offsets instead of the
@@ -170,9 +176,10 @@ class StreamingScanner:
         *,
         device: DeviceLike = "cuda",
     ):
-        if mesh is not None:
-            raise ValueError(MESH_NOT_PORTED)
         self.device = resolve_device(device)
+        self.mesh = mesh
+        #: the cells of a full window over the mesh, built at the first one.
+        self._mesh_full = None
         self.batched = BatchedSearcher(needles, device=self.device)
         bs = self.batched
         self.overlap = max(max(map(len, bs.needles), default=0) - 1, 0)
@@ -592,6 +599,36 @@ class StreamingScanner:
                  for g, e in zip(bs.groups, ends)]
         return _scatter(len(bs), bs._order_sizes, bs._order_dev, parts)
 
+    def _mesh_cells(self, dh, wlen: int, is_last: bool):
+        """The window's shards over the mesh (views of its buffer) and each
+        width group's cells: their tables and shard-clipped window ends,
+        built once for a full window (every window has the same shard
+        geometry, its layout being ``_wcap`` bytes)."""
+        place = shard_scan.place_corpus(dh, self.mesh)
+        full = not is_last and wlen >= self._wcap
+        if full and self._mesh_full is not None:
+            return place, self._mesh_full
+        cells = [shard_scan.cells_of(place, self.mesh, g.values_dev[:g.n], g.masks_dev[:g.n],
+                                     self._group_ends(g, wlen, is_last)[:g.n])
+                 for g in self.batched.groups]
+        if full:
+            self._mesh_full = cells
+        return place, cells
+
+    def _window_launches(self, mode: str, dh, wlen: int, is_last: bool) -> torch.Tensor:
+        """Window-local int32[N] first offsets (SENTINEL absent) or counts
+        in input order (huge slots 0): one launch per width group, or with a
+        mesh one per cell and width group, combined on the device with one
+        collective for the window."""
+        if self.mesh is None:
+            kernel = scan_kernel.batched_find if mode == "find" else scan_kernel.batched_count
+            return self._group_launches(kernel, dh, self._ends_dev(wlen, is_last))
+        bs = self.batched
+        place, cells = self._mesh_cells(dh, wlen, is_last)
+        acc = shard_scan.sweep(place, cells, bs._order_sizes, mode, self.mesh)
+        local = shard_scan.finish(acc, mode, True).to(self.device)
+        return _scatter(len(bs), bs._order_sizes, bs._order_dev, list(torch.split(local, bs._order_sizes)))
+
     def _huge_prefix_counts(self, dh) -> np.ndarray:
         """Per-window prefix-candidate counts of ALL huge needles: one
         count launch, one int32[H] readback — the tier decisions of every
@@ -648,8 +685,7 @@ class StreamingScanner:
                 self._fold_huge_find(best, dh, wlen, base, is_last)
                 if bs.groups:
                     t0 = time.perf_counter()
-                    local = self._group_launches(scan_kernel.batched_find, dh, self._ends_dev(wlen, is_last))
-                    _first_fold(best_dev, local, base)
+                    _first_fold(best_dev, self._window_launches("find", dh, wlen, is_last), base)
                     self._stats_add("dispatch_s", time.perf_counter() - t0)
                 base += self.window
                 since_check += 1
@@ -698,8 +734,7 @@ class StreamingScanner:
                         totals[i] += pos.size
                 if bs.groups:
                     t0 = time.perf_counter()
-                    local = self._group_launches(scan_kernel.batched_count, dh, self._ends_dev(wlen, is_last))
-                    _count_fold(totals_dev, local)
+                    _count_fold(totals_dev, self._window_launches("count", dh, wlen, is_last))
                     self._stats_add("dispatch_s", time.perf_counter() - t0)
                 since += 1
                 if since >= self.check_every:
@@ -711,6 +746,25 @@ class StreamingScanner:
             totals += totals_dev.cpu().numpy()
             self._stats_add("drain_s", time.perf_counter() - t0)
         return totals
+
+    def _window_positions(self, dh, wlen: int, is_last: bool, cap: int):
+        """``(needle index, window-local positions)`` of each kernel-group
+        needle with a match in the window: per width group, one bitmap and
+        one compaction launch per launch batch (per cell and launch batch
+        with a mesh)."""
+        bs = self.batched
+        if self.mesh is not None:
+            place, cells = self._mesh_cells(dh, wlen, is_last)
+            res = [shard_scan.positions_of_cells(place, gc, g.n, cap) for g, gc in zip(bs.groups, cells)]
+        else:
+            res = [[p for i0, i1 in torch_backend.position_batches(g.n, dh.flat.numel(), g.t, cap)
+                    for p in torch_backend.two_tier_positions(
+                        dh.flat, g.values_dev[i0:i1], g.masks_dev[i0:i1], ends[i0:i1], cap)]
+                   for g, ends in zip(bs.groups, self._ends_dev(wlen, is_last))]
+        for g, rows in zip(bs.groups, res):
+            for j, pos in zip(g.indices.tolist(), rows):
+                if pos.size:
+                    yield j, pos
 
     def _positions(self, factory, base0: int = 0) -> list:
         """Per-window two-tier positions (one bitmap and one compaction
@@ -729,14 +783,8 @@ class StreamingScanner:
                     for i, pos in self._huge_positions(dh, wlen, is_last):
                         out[i].append(pos + base)
                 t0 = time.perf_counter()
-                for g, ends in zip(bs.groups, self._ends_dev(wlen, is_last)):
-                    for i0, i1 in torch_backend.position_batches(g.n, dh.flat.numel(), g.t, cap):
-                        res = torch_backend.two_tier_positions(
-                            dh.flat, g.values_dev[i0:i1], g.masks_dev[i0:i1], ends[i0:i1], cap
-                        )
-                        for j, pos in zip(g.indices[i0:i1].tolist(), res):
-                            if pos.size:
-                                out[j].append(pos + base)
+                for j, pos in self._window_positions(dh, wlen, is_last, cap):
+                    out[j].append(pos + base)
                 self._stats_add("dispatch_s", time.perf_counter() - t0)
                 base += self.window
                 self._close_window(tw0, wlen)

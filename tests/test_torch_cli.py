@@ -1,9 +1,9 @@
 """The port's grep CLI, its ingestion helpers and its examples against the
-JAX package — the mirror of tests/test_cli.py (but its sharded cases,
-which wait for the port's ``parallel/``): for every
-case the port's printed lines and exit code, with ``main(...,
-device="cpu")``, equal the JAX CLI's on the same file, with the backend
-names mapped (``cuda`` for ``pallas``, ``torch`` for ``xla``)."""
+JAX package — the mirror of tests/test_cli.py: for every case the port's
+printed lines and exit code, with ``main(..., device="cpu")``, equal the
+JAX CLI's on the same file, with the backend names mapped (``cuda`` for
+``pallas``, ``torch`` for ``xla``).  The sharded backends run the port's
+mesh of cells on the CPU and the JAX package's virtual devices."""
 
 import numpy as np
 import pytest
@@ -14,7 +14,7 @@ import sliceslice_tpu.utils.io as jio
 import sliceslice_tpu.utils.streaming as jstreaming
 import sliceslice_tpu_torch.cli as tcli
 import sliceslice_tpu_torch.utils.streaming as tstreaming
-from sliceslice_tpu_torch.examples import corpus_scan, serving_loop
+from sliceslice_tpu_torch.examples import corpus_scan, distributed_scan, serving_loop
 from sliceslice_tpu_torch.searcher import _host_positions, overlapping_count
 from sliceslice_tpu_torch.utils import io as tio
 
@@ -165,23 +165,43 @@ def test_cli_stream(tmp_path, capsys, monkeypatch, backend):
         assert got.startswith(f"{p}: {nd.decode()}: {line(nd)}")
 
 
-@pytest.mark.parametrize("argv, item", [
-    (["sharded", "abc"], 15), (["sharded-count", "abc"], 15), (["sharded-positions", "abc"], 15),
-    (["--mesh", "4x2", "sharded", "abc"], 15), (["--mesh=2x4", "batched", "abc"], 15),
+@pytest.fixture()
+def sharded_file(tmp_path):
+    rng = np.random.default_rng(11)
+    corpus = bytes(rng.integers(97, 110, (300_000,), dtype=np.uint8))
+    p = tmp_path / "hay.bin"
+    p.write_bytes(corpus)
+    return corpus, str(p)
+
+
+@pytest.mark.parametrize("flags, backend", [
+    (["--mesh", "4x2"], "sharded"), (["--mesh=2x4"], "sharded-count"), ([], "sharded-positions"),
+    (["--mesh", "1x8"], "sharded-count"), (["--mesh=8x1"], "sharded"), (["--mesh", "2x4"], "sharded-positions"),
+    (["--mesh=2x4"], "batched"),
 ])
-def test_cli_not_ported_backends_are_usage_errors(tmp_path, capsys, argv, item):
-    """The JAX CLI's sharded backends and ``--mesh`` come with a later
-    part of the port: exit 2 with the usage line and the ROADMAP item that
-    brings them."""
+def test_cli_sharded_backends(sharded_file, capsys, flags, backend):
+    """The sharded backends over a 300 KB file (an explicit mesh, or the
+    default one) print the JAX CLI's lines and exit code; ``--mesh`` with
+    a backend that is not sharded is accepted and unused, as in the JAX
+    CLI."""
+    corpus, path = sharded_file
+    nd = corpus[123_456:123_468]
+    needles = [nd, b"zzqqy", corpus[149_990:150_010], corpus[:2]]
+    rc, out = both(capsys, flags + [backend, ",".join(n.decode() for n in needles), path])
+    assert rc == 0 and len(out.splitlines()) == len(needles)
+    line = {"count": lambda n: str(overlapping_count(corpus, n)),
+            "positions": lambda n: ",".join(map(str, _host_positions(corpus, n)[:100].tolist())) or "no match"}.get(
+        backend.replace("sharded-", ""), lambda n: "match at %d" % corpus.find(n) if n in corpus else "no match")
+    for n, got in zip(needles, out.splitlines()):
+        assert got.startswith(f"{path}: {n.decode()}: {line(n)}")
+
+
+def test_cli_sharded_bad_mesh(tmp_path):
     p = tmp_path / "h.txt"
     p.write_bytes(b"abc" * 100)
-    assert tcli.main(argv + [str(p)], device=CPU) == 2
-    err = capsys.readouterr().err
-    assert err.startswith("usage:") and f"ROADMAP queue 1 item {item}" in err
-    backend = argv[2] if argv[0] == "--mesh" else argv[0]
-    if backend in tcli.NOT_PORTED:
-        with pytest.raises(SystemExit, match=f"item {item}"):
-            tcli.make_searcher(backend, b"abc", device=CPU)
+    for main in (lambda a: tcli.main(a, device=CPU), jcli.main):
+        with pytest.raises(SystemExit, match="invalid mesh"):
+            main(["--mesh", "nope", "sharded", "abc", str(p)])
 
 
 def _huge_case(tmp_path):
@@ -244,3 +264,7 @@ def test_examples_run_on_the_cpu(tmp_path, capsys):
     serving_loop.main(str(tmp_path / "c.txt"), str(tmp_path / "w.txt"), batches=2, per_batch=6, device=CPU)
     out = capsys.readouterr().out
     assert out.startswith(f"12 queries over {len(hay):,} bytes in ") and "matched)" in out
+    distributed_scan.main((4, 2), device=CPU)
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "mesh {'data': 4, 'needle': 2} of cells on ['cpu'], 2,000,000 bytes"
+    assert [ln.rsplit(" -> ", 1)[1] for ln in out[1:]] == ["0", "999999", "1999990", "-1"]

@@ -24,6 +24,8 @@ from sliceslice_tpu_torch import cli
 from sliceslice_tpu_torch.models.huge import HugeNeedleSearcher
 from sliceslice_tpu_torch.needle import build_probe_table
 from sliceslice_tpu_torch.ops.layout import resolve_device
+from sliceslice_tpu_torch.parallel import ShardedBatchedSearcher, make_mesh
+from sliceslice_tpu_torch.parallel.distributed import assemble_global_corpus
 from sliceslice_tpu_torch.scripts import kernel_probe
 from sliceslice_tpu_torch.utils.io import load_haystack
 
@@ -38,6 +40,11 @@ ENTRY_POINTS = {
     "cli.make_searcher": lambda **kw: cli.make_searcher("cuda", b"ab", **kw),
     "cli.make_searcher-count": lambda **kw: cli.make_searcher("count", b"ab,c", **kw),
     "cli.make_searcher-stream": lambda **kw: cli.make_searcher("stream", b"ab,c", **kw),
+    "cli.make_searcher-sharded": lambda **kw: cli.make_searcher("sharded", b"ab,c", "2x1", **kw),
+    "make_mesh": lambda **kw: make_mesh(**kw),
+    "make_mesh-shape": lambda **kw: make_mesh((4, 2), **kw),
+    "ShardedBatchedSearcher": lambda **kw: ShardedBatchedSearcher([b"a", b"bc"], make_mesh((2, 1), **kw)),
+    "assemble_global_corpus": lambda **kw: assemble_global_corpus(b"abc" * 100, b"", 300, 32, make_mesh(**kw)),
     "DynamicSearcher.with_position": lambda **kw: DynamicSearcher.with_position(b"ab", 1, **kw),
     "CudaSearcher": lambda **kw: CudaSearcher(b"abcde", **kw),
     "CudaSearcher.with_position": lambda **kw: CudaSearcher.with_position(b"abcde", 2, **kw),

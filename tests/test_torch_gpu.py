@@ -697,3 +697,39 @@ def test_stream_windows_outnumber_the_pool(cuda):
         got = sc.positions_in_chunks(iter([data]), start_offset=2**33)
         assert [g.tolist() for g in got] == [(_host_positions(data, nd) + 2**33).tolist() for nd in needles]
         assert len(sc._dev_pool) == streaming.DEVICE_BUFFERS
+
+
+def test_sharded_4x1_mesh_equals_the_single_layout(cuda):
+    """A 4x1 mesh of cells on the card: find, count and positions of words
+    and of needles across every shard boundary equal ``BatchedSearcher``'s
+    over the same layout, through the kernels."""
+    from sliceslice_tpu_torch.parallel import ShardedBatchedSearcher, make_mesh
+    from sliceslice_tpu_torch.parallel.shard_scan import shard_bytes_for
+
+    hay = open(os.path.join(DATA, "i386.txt"), "rb").read()
+    words = [w for w in open(os.path.join(DATA, "words.txt"), "rb").read().split(b"\n") if w][::20]
+    edge = shard_bytes_for(len(hay), 4)
+    needles = words + [hay[b * edge + o:b * edge + o + 10] for b in (1, 2, 3) for o in (-9, -5, -1, 0)]
+    dh = preprocess(hay, kh=32, device=cuda)
+    bs = BatchedSearcher(needles, device=cuda)
+    sb = ShardedBatchedSearcher(needles, make_mesh((4, 1), device=cuda))
+    launches = scan_kernel.batched_find.launches
+    got = sb.find_all(dh).tolist()
+    assert scan_kernel.batched_find.launches == launches + 4 * len(sb.inner.groups)
+    assert got == bs.find_all(dh).tolist() == [hay.find(nd) for nd in needles]
+    assert sb.count_all(dh).tolist() == bs.count_all(dh).tolist()
+    assert [p.tolist() for p in sb.positions_all(dh)] == [p.tolist() for p in bs.positions_all(dh)]
+
+
+def test_two_gloo_processes_on_the_card(cuda):
+    """The two-process check with its cells on the card: gloo across two
+    processes, each holding its half of an 8 MiB corpus as two cells."""
+    import subprocess
+    import sys
+
+    out = subprocess.run(
+        [sys.executable, "-m", "sliceslice_tpu_torch.scripts.multihost_check", "--device", "cuda",
+         "--bytes", str(8 << 20), "--timeout", "150"],
+        capture_output=True, text=True, timeout=180, cwd=os.path.dirname(DATA))
+    assert out.returncode == 0, (out.stdout + out.stderr)[-3000:]
+    assert "2-process sharded scan parity ok" in out.stdout

@@ -1,13 +1,13 @@
 """Streams of any length in the port against the JAX package and the host
-oracles — the mirror of tests/test_streaming.py case by case (but its two
-mesh cases, which wait for the port's ``parallel/``), of
+oracles — the mirror of tests/test_streaming.py case by case (its two mesh
+cases on a mesh of cells on the CPU and the JAX package's virtual mesh), of
 tests/test_utils.py's offsets past 2^32 and of tests/test_fuzz.py's window
 geometry fuzz.  Each case runs the port's ``StreamingScanner`` on the CPU
 (the kernels' plain versions, every window in the kernel layout) and the
 JAX ``StreamingScanner`` as its own tests run it, on the same inputs, and
 holds both to ``bytes.find``, ``overlapping_count`` and the host positions
 scan.  Then the port's int64 device folds against the JAX two-limb and
-lexicographic folds, and the port's own contracts: ``mesh=`` raises, no
+lexicographic folds, and the port's own contracts: no
 window buffer is allocated after ``warmup``, no ingest thread outlives a
 stream, and every window lies in the kernel layout.  Every comparison is
 exact."""
@@ -25,6 +25,7 @@ from sliceslice_tpu_torch import StreamingScanner
 from sliceslice_tpu_torch.config import SENTINEL
 from sliceslice_tpu_torch.needle import MAX_NEEDLE_LEN
 from sliceslice_tpu_torch.ops.layout import SHORT_HAY_BYTES, padded_total
+from sliceslice_tpu_torch.parallel.shard_scan import shard_bytes_for
 from sliceslice_tpu_torch.searcher import _host_positions, overlapping_count
 
 #: The CPU tests run the kernels' plain versions: the port's entry points
@@ -522,12 +523,48 @@ def test_fuzz_streaming_windows(hay, needles, window):
     held(port, jax, lambda s: s.count_in_chunks(chunks()), counts(hay, needles))
 
 
+def meshes(shape):
+    """A (data, needle) mesh of the port's cells on the CPU and the JAX
+    package's mesh of its virtual CPU devices, alike."""
+    from sliceslice_tpu.parallel import make_mesh as jax_mesh
+    from sliceslice_tpu_torch.parallel import make_mesh
+
+    return make_mesh(shape, device=CPU), jax_mesh(shape)
+
+
+def test_stream_sharded_mesh(corpus):
+    """Streaming x sharding: each window scanned over a 4x2 mesh, find and
+    count exact at window and shard boundaries, in both packages."""
+    mesh, jmesh = meshes((4, 2))
+    win = 200_000
+    edge = win + 50_048  # the port's first shard boundary inside window 1
+    needles = [corpus[win - 6 : win + 6], corpus[450_000:450_010], b"XYZQ", corpus[-4:],
+               corpus[edge - 3 : edge + 5]]
+    port = StreamingScanner(needles, window_bytes=win, mesh=mesh, device=CPU)
+    jax = jstreaming.StreamingScanner(needles, window_bytes=win, mesh=jmesh)
+    assert shard_bytes_for(port._wcap, 4) == edge - win
+
+    def chunks():
+        for i in range(0, len(corpus), 77_777):
+            yield corpus[i : i + 77_777]
+
+    held(port, jax, lambda s: s.find_in_chunks(chunks(), early_stop=False), firsts(corpus, needles))
+    held(port, jax, lambda s: s.count_in_chunks(chunks()), counts(corpus, needles))
+
+
+def test_stream_sharded_positions(corpus):
+    """Streaming x sharding for positions: per-window sharded two-tier
+    positions, the int64 window base added past 2^33."""
+    mesh, jmesh = meshes((4, 2))
+    win = 200_000
+    needles = [corpus[win - 6 : win + 6], corpus[0:3], b"XYZQ", corpus[-4:]]
+    port = StreamingScanner(needles, window_bytes=win, mesh=mesh, device=CPU)
+    jax = jstreaming.StreamingScanner(needles, window_bytes=win, mesh=jmesh)
+    held(port, jax, lambda s: s.positions_in_chunks(iter([corpus]), start_offset=2**33),
+         host_positions(corpus, needles, 2**33))
+
+
 # -- the port's own contracts ----------------------------------------------
-
-
-def test_mesh_waits_for_the_sharded_port():
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 15"):
-        StreamingScanner([b"ab"], mesh=object(), device=CPU)
 
 
 @pytest.mark.parametrize("prefetch", [0, 3])
