@@ -70,6 +70,13 @@ drives the port's main paths against host oracles:
   batched, count, positions and stream backends over data/i386.txt, a huge
   needle among the needles, seven processes at once, against bytes.find's
   lines;
+* the harness: the full conformance run (``scripts/conformance.py``: the
+  4,585 words over i386 and the 21,022,225 pairs, against the oracles the
+  find and pairwise phases built), the fuzz campaign
+  (``scripts/fuzz_campaign.py``, 24 rounds, seed 20260818), the random size
+  matrix, one ``python -m sliceslice_tpu_torch.bench`` run at full size
+  (its JSON lines printed before the smoke's last lines), and
+  ``breakeven``, ``oneshot_decompose`` and ``perf_long`` once each;
 
 then times the sweeps, each kernel (the find and count kernels per width
 group; the pair kernel's device time in both modes; the count kernel, the
@@ -83,13 +90,15 @@ next-to-last lines are a JSON object describing the kernels (times, bound
 and what sets it, launches per sweep) and the card's name and power
 limit; the last line is ``{"ok": true, "device": ...}``.  Imports nothing
 of JAX.  Each main path's launch counts start at 0 just before it and are
-read just after; the huge-needle, stream and sharded paths have their own
-(``huge_path_launches``, ``stream_path_launches``,
-``sharded_path_launches``).
+read just after; the huge-needle, stream, sharded and harness paths have
+their own (``huge_path_launches``, ``stream_path_launches``,
+``sharded_path_launches``, ``harness_path_launches``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -774,7 +783,8 @@ STREAM_SMALL_WINDOW = 1 << 20
 STREAM_BIG_WINDOW = 128 << 20
 STREAM_HUGE_WINDOWS = (128 * 1024, 32 * 1024)
 #: The 4.5 GiB chunk stream, made of one seeded lowercase block per chunk
-#: with scripts/bigscan_check.py's uppercase plants written in.
+#: with the uppercase plants of the port's scripts/bigscan_check.py
+#: (the JAX script's) written in.
 STREAM_BIG_BYTES = int(4.5 * 2**30)
 STREAM_BLOCK = 64 << 20
 #: Timed samples per mode of the 256 MiB file at the default windows and of
@@ -827,7 +837,8 @@ def phase_stream(torch, device, card, hay, words, i386_answers, big, big_answers
 
     from sliceslice_tpu_torch import StreamingScanner, overlapping_count
     from sliceslice_tpu_torch.ops import scan_kernel
-    from sliceslice_tpu_torch.scripts.multihost_check import make_plants, plant_chunks
+    from sliceslice_tpu_torch.scripts.bigscan_check import expected, make_plants
+    from sliceslice_tpu_torch.scripts.multihost_check import plant_chunks
     from sliceslice_tpu_torch.searcher import _host_positions
     from sliceslice_tpu_torch.utils.profiling import measure
 
@@ -902,11 +913,7 @@ def phase_stream(torch, device, card, hay, words, i386_answers, big, big_answers
 
     # 3. 4.5 GiB of chunks at 128 MiB windows, never whole on the host.
     plants = make_plants(STREAM_BIG_BYTES)
-    first = {}
-    for off, nd in plants:
-        first[nd] = min(first.get(nd, off), off)
-    plant_needles = sorted(first) + [b"ABSENT-NEEDLE-Z!"]
-    exp_first = [first.get(nd, -1) for nd in plant_needles]
+    plant_needles, exp_first = expected(plants)
     exp_counts = [sum(nd == n for _, n in plants) for nd in plant_needles]
     exp_pos = [np.array(sorted(o for o, n in plants if n == nd), np.int64) for nd in plant_needles]
     block = np.random.default_rng(4545).integers(97, 123, STREAM_BLOCK, dtype=np.uint8)
@@ -1285,6 +1292,66 @@ def phase_cli(hay):
         lines={b: len(nds) for b, (_, _, nds) in runs.items()}, equal_to_bytes_find=True)
 
 
+#: Rounds of the fuzz campaign in the harness phase (4 rounds took 1.4 s on
+#: an H100, PERF.md; the campaign is held well under 60 s), and the bytes of
+#: the bench's stream rows there (the 1 GiB rows run outside the smoke).
+HARNESS_FUZZ_ROUNDS = 24
+HARNESS_STREAM_BYTES = 256 << 20
+
+
+def _captured(fn, *args, **kwargs):
+    """(result, printed text, seconds) of one call, its output echoed."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kwargs)
+    sec = time.perf_counter() - t0
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    return out, text, sec
+
+
+def phase_harness(torch, device, card, i386_firsts, pair_exp):
+    """The port's harness on the card, each part exact and timed: the full
+    conformance run (4,585 words over i386 and 21,022,225 pairs, against
+    the host oracles the find and pairwise phases built), the fuzz
+    campaign (:data:`HARNESS_FUZZ_ROUNDS` rounds, seed 20260818), the
+    random size matrix, one ``bench.main`` at full size (its detail and
+    last line printed here, earlier than the smoke's last line; its
+    stream rows over :data:`HARNESS_STREAM_BYTES`), then ``breakeven``,
+    ``oneshot_decompose`` and ``perf_long`` once each."""
+    from sliceslice_tpu_torch import bench
+    from sliceslice_tpu_torch.benchmarks import random_matrix
+    from sliceslice_tpu_torch.scripts import breakeven, conformance, fuzz_campaign, oneshot_decompose, perf_long
+
+    conf, _, sec = _captured(conformance.run_conformance, full=True, device=device, exp_long=i386_firsts,
+                             exp_short=pair_exp)
+    check(conf["long_words"] == 4585 and conf["short_total_checked"] == 21_022_225, f"conformance: {conf}")
+    check(conf["long_mismatches"] == 0 and conf["short_mismatches"] == 0, f"conformance mismatches: {conf}")
+    say("harness", part="conformance", seconds=round(sec, 3), **conf)
+
+    rc, text, sec = _captured(fuzz_campaign.main, [str(HARNESS_FUZZ_ROUNDS), "20260818", "--device", str(device)])
+    summary = text.strip().splitlines()[-1]
+    check(rc == 0 and "MISMATCH" not in text, f"fuzz campaign failed: {summary}")
+    say("harness", part="fuzz_campaign", rounds=HARNESS_FUZZ_ROUNDS, seconds=round(sec, 3), summary=summary)
+
+    rows, _, sec = _captured(random_matrix.collect, device)
+    check(len(rows) == 28, f"random matrix: {len(rows)} cells, not 28")
+    say("harness", part="random_matrix", cells=len(rows), exact=True, seconds=round(sec, 3))
+
+    rc, text, sec = _captured(bench.main, ["--device", str(device), "--stream-bytes", str(HARNESS_STREAM_BYTES)],
+                              oracle=(i386_firsts, pair_exp))
+    last = json.loads(text.strip().splitlines()[-1])
+    check(rc == 0 and set(last) == {"metric", "value", "unit", "vs_baseline"} and last["value"] > 0
+          and card.split(",")[0] in last["metric"], f"bench failed: {last}")
+    say("harness", part="bench", seconds=round(sec, 3), gbps=last["value"], vs_baseline=last["vs_baseline"])
+
+    for script in (breakeven, oneshot_decompose, perf_long):
+        rc, _, sec = _captured(script.main, ["--device", str(device)])
+        check(rc == 0, f"{script.__name__} failed")
+        say("harness", part=script.__name__.rsplit(".", 1)[-1], seconds=round(sec, 3))
+
+
 def phase_count(torch, device, hay, words, i386_dh, big):
     """Counts on the count path: all words over i386 before and after
     optimize_for, DynamicSearcher.count_in on every arm, and the 256 MiB
@@ -1497,11 +1564,11 @@ def phase_pairwise(torch, device, words):
     from sliceslice_tpu_torch import PairwiseSearcher
     from sliceslice_tpu_torch.ops import pairwise
 
+    from sliceslice_tpu_torch.scripts.conformance import pair_oracle
+
     ws = sorted(words, key=len)
     t0 = time.perf_counter()
-    exp = np.empty((len(ws), len(ws)), np.int32)
-    for i, nd in enumerate(ws):
-        exp[i] = [h.find(nd) for h in ws]
+    exp = pair_oracle(ws)
     oracle_s = time.perf_counter() - t0
     ps = PairwiseSearcher(ws, device=device)
     first = ps.first_matrix()
@@ -1523,7 +1590,7 @@ def phase_pairwise(torch, device, words):
         plan_blocks=len(plan), skipped_blocks=sum(1 for e in plan if e[2] == 0),
         repeated_sweeps=SWEEPS, repeated_launches=SWEEPS, repeated_plan_uploads=0,
         host_oracle_s=round(oracle_s, 3), parity=True)
-    return ps
+    return ps, exp
 
 
 def phase_times(torch, device, card, i386_dh, bs, big_dh, count_bs, ps, pos_bs, probe_setups):
@@ -1838,7 +1905,7 @@ def main() -> int:
         ("batched_count",), (phase_count, (torch, device, hay, words, i386_dh, big)))
     ((pos_bs, i386_positions, big_positions),) = path(("match_bitmap", "compact_positions"), (phase_positions, (
         torch, device, hay, words, i386_dh, big, i386_counts, big_counts)))
-    (ps,) = path(("pair_block",), (phase_pairwise, (torch, device, words)))
+    ((ps, pair_exp),) = path(("pair_block",), (phase_pairwise, (torch, device, words)))
     ((errs["probe"], probe_setups),) = path(
         ("probe",), (phase_probe, (torch, device, hay, i386_dh, count_bs)))
 
@@ -1871,6 +1938,10 @@ def main() -> int:
         i386_huge)), into=sharded_launches)
     per_sharded_sweep = timed(phase_sharded_times, torch, device, card, words, i386_dh, big)
     timed(phase_cli, hay)
+    # The harness and the bench (their own counts), the host oracles passed in.
+    harness_launches = {}
+    path(("batched_find", "memchr_find", "batched_count", "pair_block", "match_bitmap", "compact_positions"),
+         (phase_harness, (torch, device, card, i386_firsts, pair_exp)), into=harness_launches)
     times, bounds, per_sweep = timed(phase_times, torch, device, card, i386_dh, bs, big[0], count_bs,
                                      ps, pos_bs, probe_setups)
     kernels = [
@@ -1896,6 +1967,7 @@ def main() -> int:
          "launches_per_stream_window": per_stream_window.get(name),
          "sharded_path_launches": sharded_launches.get(name),
          "launches_per_sharded_sweep_4x1": per_sharded_sweep.get(name),
+         "harness_path_launches": harness_launches.get(name),
          "library_ms": None, "library_note": no_library}
         for name, source, replaces in kernels]}))
     print(card)

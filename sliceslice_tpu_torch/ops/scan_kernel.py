@@ -74,9 +74,14 @@ BITMAP_CHUNK = COUNT_CHUNK
 #: Widest table the queue kernels hold in registers (csrc/scan_common.cuh
 #: kMaxRegT); wider ones share one instantiation.
 MAX_REG_T = 4
-#: The queue kernels' modes (csrc/find.cu ``Mode``) and their chunks.
+#: The queue kernels' modes (csrc/find.cu ``Mode``).
 FIND, COUNT, BITMAP = 0, 1, 2
-_CHUNKS = {FIND: FIND_CHUNK, COUNT: COUNT_CHUNK, BITMAP: BITMAP_CHUNK}
+
+
+def chunk_of(mode: int) -> int:
+    """The work-queue chunk of ``mode``, read from the module's constants
+    at each launch (so a script may set them)."""
+    return {FIND: FIND_CHUNK, COUNT: COUNT_CHUNK, BITMAP: BITMAP_CHUNK}[mode]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -203,7 +208,7 @@ def _queue_plan(mode: int, hay, t: int, rows: int) -> QueuePlan:
     """The work queue of one ``mode`` launch over ``rows`` rows, for the
     card that holds ``hay``."""
     resident = _resident_blocks(hay.device.index, mode, min(t, MAX_REG_T + 1))
-    return plan_queue(hay.numel(), t, rows, resident, _CHUNKS[mode])
+    return plan_queue(hay.numel(), t, rows, resident, chunk_of(mode))
 
 
 def _launch_queue(mode: int, plan: QueuePlan, hay, values, masks, ends, out, base: int,

@@ -36,6 +36,8 @@ import time
 
 import numpy as np
 
+from sliceslice_tpu_torch.scripts.bigscan_check import make_plants
+
 #: Bytes of the seeded block the corpus repeats (at most the corpus).
 BLOCK = 64 << 20
 #: Corpora up to this size are also built whole for a bytes.find oracle.
@@ -47,23 +49,6 @@ NPROC = 2
 #: Timed sweeps per mode (after one warm-up); the median is reported.
 SAMPLES = 3
 KH = 64  # the huge needles' 64-byte prefix filter needs 63 halo bytes
-
-
-def make_plants(total: int):
-    """(offset, needle) plants at boundary-critical offsets, as
-    scripts/bigscan_check.py plants them: a straddle of 2^31, offsets past
-    2^31 and 2^32 and at ``total - 20``, DELTA twice (first occurrence);
-    those that fit in ``total`` bytes."""
-    plants = [
-        (1_000, b"ALPHA-NEEDLE-01!"),
-        (2**31 - 8, b"STRADDLE-2GIB-XX"),
-        (2**31 + 12_345, b"BETA-NEEDLE-002!"),
-        (2**32 + 777, b"GAMMA-NEEDLE-03!"),
-        (total - 20, b"OMEGA-NEEDLE-04!"),
-        (2**31 + 9_999_999, b"DELTA-NEEDLE-05!"),
-        (2**32 + 50_000_000, b"DELTA-NEEDLE-05!"),
-    ]
-    return [(o, n) for o, n in plants if o + len(n) <= total]
 
 
 def plant_range(block: np.ndarray, plants, lo: int, hi: int) -> np.ndarray:

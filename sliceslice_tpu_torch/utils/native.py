@@ -16,7 +16,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -127,6 +127,19 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64,
         ctypes.c_int64,
     ]
+    lib.swar_find_batch.restype = None
+    lib.swar_find_batch.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p, np.ctypeslib.ndpointer(np.int64),
+        ctypes.c_int64, np.ctypeslib.ndpointer(np.int64),
+    ]
+    lib.swar_pairwise.restype = None
+    lib.swar_pairwise.argtypes = [
+        ctypes.c_char_p, np.ctypeslib.ndpointer(np.int64), ctypes.c_int64, np.ctypeslib.ndpointer(np.int8),
+    ]
+    lib.twoway_find.restype = ctypes.c_int64
+    lib.twoway_find.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64]
+    lib.twoway_find_batch.restype = None
+    lib.twoway_find_batch.argtypes = lib.swar_find_batch.argtypes
     lib.decode_bitmap_count.restype = ctypes.c_int64
     lib.decode_bitmap_count.argtypes = [np.ctypeslib.ndpointer(np.uint32), ctypes.c_int64]
     lib.decode_bitmap.restype = ctypes.c_int64
@@ -142,12 +155,55 @@ def available() -> bool:
 
 
 def swar_find(hay: bytes, needle: bytes, position: Optional[int] = None) -> Optional[int]:
-    lib = load()
-    if lib is None:
-        raise RuntimeError("native swarscan unavailable (no C++ toolchain)")
+    lib = _need()
     pos = len(needle) - 1 if position is None else position
     r = lib.swar_find_pos(hay, len(hay), needle, len(needle), pos)
     return None if r < 0 else int(r)
+
+
+def _need() -> ctypes.CDLL:
+    lib = load()
+    if lib is None:
+        raise RuntimeError("native swarscan unavailable (no C++ toolchain)")
+    return lib
+
+
+def _pack(needles: Sequence[bytes]):
+    offsets = np.zeros(len(needles) + 1, dtype=np.int64)
+    for i, nd in enumerate(needles):
+        offsets[i + 1] = offsets[i] + len(nd)
+    return b"".join(needles), offsets
+
+
+def swar_find_batch(hay: bytes, needles: Sequence[bytes]) -> np.ndarray:
+    """First offset of each needle (int64, -1 absent) by the SWAR scanner:
+    the same-host competitor row of the benchmarks."""
+    flat, offsets = _pack(needles)
+    out = np.empty(len(needles), dtype=np.int64)
+    _need().swar_find_batch(hay, len(hay), flat, offsets, len(needles), out)
+    return out
+
+
+def twoway_find(hay: bytes, needle: bytes) -> Optional[int]:
+    """First occurrence by the from-scratch Two-Way scanner
+    (``csrc/host/twoway.cpp``), the reference's twoway/memmem competitor."""
+    r = _need().twoway_find(hay, len(hay), needle, len(needle))
+    return None if r < 0 else int(r)
+
+
+def twoway_find_batch(hay: bytes, needles: Sequence[bytes]) -> np.ndarray:
+    flat, offsets = _pack(needles)
+    out = np.empty(len(needles), dtype=np.int64)
+    _need().twoway_find_batch(hay, len(hay), flat, offsets, len(needles), out)
+    return out
+
+
+def swar_pairwise(words: Sequence[bytes]) -> np.ndarray:
+    """bool[N, N]: word ``i`` occurs in word ``j``, by the SWAR scanner."""
+    flat, offsets = _pack(words)
+    out = np.empty((len(words), len(words)), dtype=np.int8)
+    _need().swar_pairwise(flat, offsets, len(words), out)
+    return out.astype(bool)
 
 
 def decode_bitmap(words: np.ndarray) -> Optional[np.ndarray]:

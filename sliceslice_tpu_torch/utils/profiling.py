@@ -11,7 +11,9 @@ beside :func:`card`'s name and power limit.
 from __future__ import annotations
 
 import dataclasses
+import os
 import subprocess
+import tempfile
 import time
 from typing import Callable, Optional
 
@@ -110,3 +112,48 @@ def measure(
         fn()
         out.append(time.perf_counter() - t0)
     return Measurement(name, out, bytes_processed)
+
+
+def per_call_ms(fn: Callable[[], object], reps: int, device, samples: int = 5, warmup: int = 1) -> list:
+    """[low, median, high] ms per call of ``fn`` when ``reps`` calls are
+    issued back to back and timed as one sample (:func:`measure`: CUDA
+    events on a CUDA ``device``, one synchronisation a sample)."""
+    m = measure(lambda: [fn() for _ in range(reps)], warmup=warmup, samples=samples, device=device)
+    return [x * 1e3 / reps for x in (m.low, m.estimate, m.high)]
+
+
+def sync(device) -> None:
+    """Wait for the work queued on ``device`` when it is a CUDA device (the
+    CPU's torch ops have finished when they return)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def device_line(device) -> str:
+    """:func:`card` of a CUDA ``device``, or ``"cpu (no card)"``: the line
+    the harness scripts print first."""
+    d = torch.device(device)
+    if d.type != "cuda":
+        return "cpu (no card)"
+    return card(torch.cuda.current_device() if d.index is None else d.index)
+
+
+def trace(fn: Callable[[], object], logdir: Optional[str] = None) -> str:
+    """Capture a torch.profiler trace of one call of ``fn`` (the card's
+    kernels and copies too when a CUDA device is present) and export it as
+    a Chrome trace, ``trace.json``, into ``logdir`` (default: a directory
+    under the system's temporary directory, never the repository).  Returns
+    ``logdir``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if logdir is None:
+        logdir = os.path.join(tempfile.gettempdir(), "sliceslice_tpu_torch_trace")
+    os.makedirs(logdir, exist_ok=True)
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities) as prof:
+        fn()
+        if cuda:
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    return logdir

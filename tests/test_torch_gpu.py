@@ -733,3 +733,21 @@ def test_two_gloo_processes_on_the_card(cuda):
         capture_output=True, text=True, timeout=180, cwd=os.path.dirname(DATA))
     assert out.returncode == 0, (out.stdout + out.stderr)[-3000:]
     assert "2-process sharded scan parity ok" in out.stdout
+
+
+def test_full_conformance_on_the_card(cuda):
+    """All 4,585 words over i386 and all 21,022,225 ordered pairs of the
+    length-sorted words, first offsets against bytes.find (the JAX suite's
+    two full sweeps, tests/test_i386.py)."""
+    from sliceslice_tpu_torch.scripts import conformance
+
+    got = conformance.run_conformance(full=True, device=cuda)
+    assert got["long_words"] == 4585 and got["short_total_checked"] == 4585 ** 2
+    assert got["long_mismatches"] == 0 and got["short_mismatches"] == 0
+
+
+def test_fuzz_campaign_on_the_card(cuda, capsys):
+    from sliceslice_tpu_torch.scripts import fuzz_campaign
+
+    assert fuzz_campaign.main(["2"]) == 0
+    assert "MISMATCH" not in capsys.readouterr().out
