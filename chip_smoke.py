@@ -70,6 +70,11 @@ drives the port's main paths against host oracles:
   batched, count, positions and stream backends over data/i386.txt, a huge
   needle among the needles, seven processes at once, against bytes.find's
   lines;
+* the probe-table contracts (``scripts/contract_cases.py``): the
+  mixed-width table the JAX package refuses, a final mask of 0xFFFF0000
+  and a prefix mask through the find, count, bitmap and compaction
+  kernels, against their plain versions and the host oracles, and the
+  exotic table through a 2x1 sharded sweep;
 * the harness: the full conformance run (``scripts/conformance.py``: the
   4,585 words over i386 and the 21,022,225 pairs, against the oracles the
   find and pairwise phases built), the fuzz campaign
@@ -92,7 +97,8 @@ limit; the last line is ``{"ok": true, "device": ...}``.  Imports nothing
 of JAX.  Each main path's launch counts start at 0 just before it and are
 read just after; the huge-needle, stream, sharded and harness paths have
 their own (``huge_path_launches``, ``stream_path_launches``,
-``sharded_path_launches``, ``harness_path_launches``).
+``sharded_path_launches``, ``harness_path_launches``,
+``contracts_path_launches``).
 """
 
 from __future__ import annotations
@@ -1501,6 +1507,34 @@ def phase_positions(torch, device, hay, words, i386_dh, big, i386_counts, big_co
     return bs, exp, exp_big
 
 
+def phase_contracts(torch, device):
+    """The probe-table contract cases (``scripts/contract_cases.py``: the
+    mixed-width table the JAX package's ``*_cols`` refuse, a final mask of
+    0xFFFF0000, a prefix mask): the find, count, bitmap and compaction
+    kernels against their plain versions and the host oracles
+    (``bytes.find``, ``overlapping_count``, the host scan; a regular
+    expression for the caller-built row), and the exotic table through a
+    2x1 sharded sweep of cells on the card."""
+    from sliceslice_tpu_torch.config import SENTINEL
+    from sliceslice_tpu_torch.parallel import make_mesh, sharded_find_cols
+    from sliceslice_tpu_torch.scripts import contract_cases as cc
+
+    answers = {}
+    for case in cc.cases():
+        dh, v, m, e = cc.operands(case, device)
+        got = cc.answers(dh.flat, v, m, e)
+        check(cc.same(got, cc.answers(dh.flat, v, m, e, plain=True)),
+              f"contracts {case.name}: the kernels differ from their plain versions")
+        check(cc.same(got, cc.oracle(case)), f"contracts {case.name}: the kernels differ from the host oracles")
+        answers[case.name] = {"firsts": got[0], "counts": got[1], "positions": [p.tolist() for p in got[2]]}
+        if case.name == "exotic_mask":
+            sharded = sharded_find_cols(dh, case.values, case.masks, case.ends, make_mesh((2, 1), device=device))
+            sharded = [-1 if f >= SENTINEL else f for f in sharded.tolist()]
+            check(sharded == got[0], f"contracts: the 2x1 sharded sweep gave {sharded}, not {got[0]}")
+            answers[case.name]["sharded_2x1_firsts"] = sharded
+    say("contracts", answers=answers, parity=True)
+
+
 def phase_probe(torch, device, hay, i386_dh, count_bs):
     """Every variant of the ablation kernel at t = 1, 2, 3 over the JAX
     harness's tables (4,585 rows over i386): equal to its plain version,
@@ -1909,6 +1943,11 @@ def main() -> int:
     ((errs["probe"], probe_setups),) = path(
         ("probe",), (phase_probe, (torch, device, hay, i386_dh, count_bs)))
 
+    # The probe-table contract cases (their own counts).
+    contracts_launches = {}
+    path(("batched_find", "batched_count", "match_bitmap", "compact_positions"),
+         (phase_contracts, (torch, device)), into=contracts_launches)
+
     timed(phase_queue_big, torch, device, big)
     # The huge-needle path (its own counts), then the CLI in processes of
     # its own.
@@ -1968,6 +2007,7 @@ def main() -> int:
          "sharded_path_launches": sharded_launches.get(name),
          "launches_per_sharded_sweep_4x1": per_sharded_sweep.get(name),
          "harness_path_launches": harness_launches.get(name),
+         "contracts_path_launches": contracts_launches.get(name),
          "library_ms": None, "library_note": no_library}
         for name, source, replaces in kernels]}))
     print(card)

@@ -9,7 +9,7 @@ from .cuda_searcher import (
 )
 from .dynamic import DynamicSearcher
 from .memchr import MemchrSearcher
-from .naive import NaiveSearcher, naive_find
+from .naive import NaiveSearcher, naive_find, naive_windows_find
 from .torch_searcher import TorchSearcher
 
 __all__ = [
@@ -18,6 +18,7 @@ __all__ = [
     "MemchrSearcher",
     "NaiveSearcher",
     "naive_find",
+    "naive_windows_find",
     "CudaSearcher",
     "TorchSearcher",
     "SPECIALIZED",

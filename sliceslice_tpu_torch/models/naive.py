@@ -35,3 +35,15 @@ def naive_find(hay: bytes, needle: bytes) -> Optional[int]:
         return 0
     pos = hay.find(needle)
     return None if pos < 0 else pos
+
+
+def naive_windows_find(hay: bytes, needle: bytes) -> Optional[int]:
+    """Literal windows() translation of the reference oracle — quadratic; only
+    for spot-checking ``naive_find`` itself on small inputs."""
+    k = len(needle)
+    if k == 0:
+        return 0
+    for i in range(len(hay) - k + 1):
+        if hay[i : i + k] == needle:
+            return i
+    return None

@@ -258,7 +258,13 @@ def batched_find(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor:
     ``n_real`` are never scanned and report SENTINEL.  ``values``/``masks``
     are uint32 numpy tables (re-masked here, as the JAX wrapper does) or
     int32 bit-pattern tensors; ``ends`` are int32, in the same frame as the
-    reported offsets.  Padded rows (mask 0, end 0) report SENTINEL."""
+    reported offsets.  Padded rows (mask 0, end 0) report SENTINEL.
+
+    Any table of masked slots is answered exactly: every slot's mask
+    applies and a mask-0 slot is true, so rows of different widths may
+    share one table, and a final mask need not be a byte prefix.  (The JAX
+    ``batched_find_cols`` refuses a mixed-width table: its TPU kernel
+    compares non-final slots unmasked.)"""
     base, values, masks, ends = _operands(hay, values, masks, ends, base)
     device = hay.device
     if device.type == "cpu":
@@ -300,7 +306,8 @@ def batched_count(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor
     otherwise.  Rows at or past ``n_real`` are never scanned and report 0,
     as do padded rows (mask 0, end 0).  ``ends`` must exclude positions
     past ``length - k + 1``: a needle ending in zero bytes also matches in
-    the layout's zero halo."""
+    the layout's zero halo.  Any table of masked slots is answered
+    exactly, as by :func:`batched_find`."""
     base, values, masks, ends = _operands(hay, values, masks, ends, base)
     device = hay.device
     if device.type == "cpu":
@@ -349,7 +356,8 @@ def match_bitmap(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor:
     32w + b`` satisfies every slot and ``p + base < ends[n]``: positions
     are layout offsets, ``base`` moves only the end bound.  Rows at or past
     ``n_real`` are never scanned and stay 0.  As for counts, ``ends`` must
-    exclude positions past ``length - k + 1``.  The bitmaps of
+    exclude positions past ``length - k + 1``.  Any table of masked slots
+    is answered exactly, as by :func:`batched_find`.  The bitmaps of
     :func:`match_bitmap_counted`, whose launches it counts."""
     return match_bitmap_counted(hay, values, masks, ends, base, n_real)[0]
 

@@ -66,6 +66,10 @@ from ..searcher import DeviceLike
 INT64_MAX = torch.iinfo(torch.int64).max
 #: Device window buffers: one scanned while the next is copied in.
 DEVICE_BUFFERS = 2
+#: Seconds a stream waits for its reader thread to stop; a reader stuck
+#: in a slow read past it ends on its own and writes only its own
+#: stream's stats.
+READER_JOIN_S = 5.0
 
 
 class _IngestStopped(Exception):
@@ -243,9 +247,13 @@ class StreamingScanner:
             "dispatch_s": 0.0, "drain_s": 0.0, "window_ms": [],
         }
 
-    def _stats_add(self, key: str, dt: float) -> None:
+    def _stats_add(self, key: str, dt: float, stats: Optional[dict] = None) -> None:
+        """Add ``dt`` seconds to ``key`` of ``stats``, by default the
+        current stream's: a reader thread passes the dict of the stream
+        that started it, so a late read never lands in the next one's."""
         with self._stats_lock:
-            self.stats[key] = self.stats.get(key, 0.0) + dt
+            stats = self.stats if stats is None else stats
+            stats[key] = stats.get(key, 0.0) + dt
 
     def stats_summary(self) -> dict:
         """Per-stream attribution of the LAST stream run: seconds in file
@@ -255,7 +263,10 @@ class StreamingScanner:
         (``upload_s``), kernel dispatch and folds (``dispatch_s``) and
         device drains (``drain_s``), plus p50/p90 per-window wall latency.
         Reads run on the prefetch thread when pipelining is on, so the sum
-        can exceed the stream's wall time (overlap)."""
+        can exceed the stream's wall time (overlap).  ``bytes`` counts the
+        window bytes scanned, each window's overlap peek included, so it
+        exceeds the corpus by about ``overlap`` per window (the JAX
+        package's value)."""
         s = dict(self.stats)
         wm = s.pop("window_ms", [])
         out = {k: (round(v, 4) if isinstance(v, float) else v)
@@ -266,10 +277,10 @@ class StreamingScanner:
             out["window_p90_ms"] = round(float(q[1]), 2)
         return out
 
-    def _timed_windows(self, it: Iterator) -> Iterator:
+    def _timed_windows(self, it: Iterator, stats: dict) -> Iterator:
         """Attribute time spent pulling from the raw window source (file
-        read / chunk assembly) to ``read_s``; closes the source when
-        closed itself."""
+        read / chunk assembly) to ``read_s`` of ``stats``; closes the
+        source when closed itself."""
         try:
             while True:
                 t0 = time.perf_counter()
@@ -278,7 +289,7 @@ class StreamingScanner:
                 except StopIteration:
                     return
                 finally:
-                    self._stats_add("read_s", time.perf_counter() - t0)
+                    self._stats_add("read_s", time.perf_counter() - t0, stats)
                 yield item
         finally:
             close = getattr(it, "close", None)
@@ -475,6 +486,7 @@ class StreamingScanner:
         stream."""
         host_q = self._ensure_pools()
         stop = threading.Event()
+        stats = self.stats  # a reader that outlives this stream still writes here
 
         def alloc():
             t0 = time.perf_counter()
@@ -489,9 +501,9 @@ class StreamingScanner:
             finally:
                 # Pool backpressure (the consumer still scanning) — also
                 # inside read_s, so pure file IO = read_s - buf_wait_s.
-                self._stats_add("buf_wait_s", time.perf_counter() - t0)
+                self._stats_add("buf_wait_s", time.perf_counter() - t0, stats)
 
-        windows = self._timed_windows(iter(factory(alloc)))
+        windows = self._timed_windows(iter(factory(alloc)), stats)
         copying: List[tuple] = []  # (copy event, host buffer): copies in flight
 
         def scan(buf, wlen, is_last):
@@ -577,7 +589,7 @@ class StreamingScanner:
                 # worker, returning the buffers still in the hand-off queue.
                 stop.set()
                 give_back()
-                t.join(timeout=5.0)
+                t.join(timeout=READER_JOIN_S)
                 give_back()
         finally:
             stop.set()

@@ -185,3 +185,40 @@ def test_absent_rows_report_sentinel_on_device(rng):
     hay = bytes(rng.integers(97, 99, (20_000,), dtype=np.uint8))
     dev = BatchedSearcher([b"zz", hay[:3]], device=CPU).find_all_device(preprocess(hay, device=CPU))
     assert dev.tolist() == [SENTINEL, 0]
+
+
+def test_find_all_multiseg_parity():
+    """tests/test_batched.py's 1.2 MB sweep (several segments of the JAX
+    layout, many queue chunks of the port's): first, last and absent
+    needles, beside the JAX package and ``bytes.find``."""
+    rng = np.random.default_rng(48)
+    hay = bytes(rng.integers(97, 101, (1_200_000,), dtype=np.uint8))
+    needles = [hay[i : i + k] for i, k in
+               [(0, 4), (600_000, 8), (1_199_990, 10), (3, 1), (900_000, 5)]]
+    needles += [b"XYZ!", b"\x00\x01\x02"]
+    got = BatchedSearcher(needles, device=CPU).find_all(preprocess(hay, kh=16, device=CPU))
+    assert np.array_equal(got, oracle_all(hay, needles))
+    assert np.array_equal(got, jst.BatchedSearcher(needles).find_all(jst.preprocess(hay, kh=16)))
+
+
+def test_optimize_for_exactness():
+    """``optimize_for`` permutes rows only: find, count and positions stay
+    exact after it, absent and huge needles included, as the JAX package
+    finds them."""
+    from sliceslice_tpu_torch.searcher import _host_positions, overlapping_count
+
+    rng = np.random.default_rng(49)
+    hay = bytes(rng.integers(97, 102, (400_000,), dtype=np.uint8))
+    needles = [hay[i : i + k] for i, k in
+               [(300_000, 5), (10, 4), (399_990, 8), (100_000, 12), (7, 1)]]
+    needles += [b"QQQQ", hay[200_000:202_500]]  # absent, huge
+    dh = preprocess(hay, kh=16, device=CPU)
+    bs = BatchedSearcher(needles, device=CPU)
+    before = bs.find_all(dh)
+    bs.optimize_for(dh)
+    after = bs.find_all(dh)
+    assert np.array_equal(before, after) and np.array_equal(after, oracle_all(hay, needles))
+    assert list(bs.count_all(dh)) == [overlapping_count(hay, nd) for nd in needles]
+    for nd, pos in zip(needles, bs.positions_all(dh)):
+        assert np.array_equal(pos, _host_positions(hay, nd))
+    assert np.array_equal(after, jst.BatchedSearcher(needles).find_all(jst.preprocess(hay, kh=16)))

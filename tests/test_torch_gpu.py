@@ -30,7 +30,7 @@ from sliceslice_tpu_torch.config import SENTINEL
 from sliceslice_tpu_torch.needle import build_probe_table, needed_halo_for_t
 from sliceslice_tpu_torch.ops import pairwise, scan_kernel, torch_backend
 from sliceslice_tpu_torch.ops.scan_math import table_bits
-from sliceslice_tpu_torch.scripts import kernel_probe, pair_cases
+from sliceslice_tpu_torch.scripts import contract_cases, kernel_probe, pair_cases
 from sliceslice_tpu_torch.searcher import _host_positions
 from sliceslice_tpu_torch.utils import streaming
 
@@ -435,6 +435,29 @@ def test_match_bitmap_kernel_equals_plain(cuda, t):
             exp = _host_positions(hay, nd) if i < n_real else np.zeros(0, np.int64)
             assert torch_backend.decode_match_bitmap(words[i]).tolist() == exp.tolist(), (t, i)
 
+
+
+def test_contract_tables_on_card(cuda):
+    """The mixed-width, exotic-mask and prefix-mask tables of
+    ``scripts/contract_cases.py`` (the first refused by the JAX package's
+    ``*_cols``): the find, count, bitmap and compaction kernels, one launch
+    each, equal their plain versions and the host oracles; the exotic table
+    through a 2x1 sharded sweep of cells on the card too."""
+    from sliceslice_tpu_torch.parallel import make_mesh, sharded_find_cols
+
+    wrappers = (scan_kernel.batched_find, scan_kernel.batched_count,
+                scan_kernel.match_bitmap_counted, scan_kernel.compact_positions)
+    for case in contract_cases.cases():
+        dh, v, m, e = contract_cases.operands(case, cuda)
+        before = [w.launches for w in wrappers]
+        got = contract_cases.answers(dh.flat, v, m, e)
+        assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1, 1, 1], case.name
+        assert contract_cases.same(got, contract_cases.answers(dh.flat, v, m, e, plain=True)), case.name
+        assert contract_cases.same(got, contract_cases.oracle(case)), case.name
+        if case.name == "exotic_mask":
+            mesh = make_mesh((2, 1), device=cuda)
+            sharded = sharded_find_cols(dh, case.values, case.masks, case.ends, mesh)
+            assert sharded.tolist() == [contract_cases.EXOTIC_AT]
 
 @pytest.mark.parametrize("t", [1, 2, 3])
 def test_probe_kernel_equals_plain(cuda, t):

@@ -120,3 +120,71 @@ def test_port_sources_import_no_jax():
             for name in names:
                 top = name.split(".")[0]
                 assert top not in ("jax", "jaxlib", "sliceslice_tpu"), (path, name)
+
+
+def _eval_probes(window: bytes, values, masks) -> bool:
+    """What a probe program means on a byte window: slot t compares the
+    little-endian word at byte 4t (zero past the window) under its mask."""
+    for t, (v, m) in enumerate(zip(values, masks)):
+        if (tn.pack_le32(window[4 * t : 4 * t + 4].ljust(4, b"\x00")) ^ v) & m:
+            return False
+    return True
+
+
+@pytest.mark.parametrize("k", list(range(1, 40)) + [61, 64, 100, 1000])
+def test_probe_program_exact(k):
+    """The JAX package's program, and its meaning: the needle's window
+    passes, any one-byte corruption within it fails, bytes past it never
+    count."""
+    rng = np.random.default_rng(1000 + k)
+    needle = bytes(rng.integers(0, 256, (k,), dtype=np.uint8))
+    values, masks = tn.probe_program(needle)
+    assert (values, masks) == jn.probe_program(needle)
+    assert len(values) == tn.num_probes(k) == -(-k // 4)
+    pad = bytes(rng.integers(0, 256, (8,), dtype=np.uint8))
+    assert _eval_probes(needle + pad, values, masks)
+    for i in range(k):
+        corrupted = bytearray(needle + pad)
+        corrupted[i] ^= 0x01
+        assert not _eval_probes(bytes(corrupted), values, masks), i
+    tail = bytearray(needle + pad)
+    for i in range(k, len(tail)):
+        tail[i] ^= 0xFF
+    assert _eval_probes(bytes(tail), values, masks)
+
+
+def test_probe_program_empty():
+    assert tn.probe_program(b"") == jn.probe_program(b"") == ((), ())
+
+
+def test_build_probe_table_mixed():
+    """One table of mixed widths, the empty needle among them: the JAX
+    package's table, inactive slots mask 0, the final mask a byte prefix."""
+    needles = [b"", b"a", b"abc", b"abcd", b"abcdefgh", b"abcdefghij"]
+    values, masks, lengths = tn.build_probe_table(needles)
+    for a, b in zip((values, masks, lengths), jn.build_probe_table(needles)):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    assert values.shape == (6, 3) and list(lengths) == [0, 1, 3, 4, 8, 10]
+    assert masks[0].sum() == 0
+    assert masks[1, 1] == 0 and masks[1, 0] == 0xFF
+    assert masks[3, 0] == 0xFFFFFFFF
+    assert masks[5, 2] == 0xFFFF
+    with pytest.raises(ValueError):
+        tn.build_probe_table([b"abcdefghij"], t_max=2)
+
+
+def test_position_recorded_but_ignored_by_device_kernels():
+    """``position`` is checked and recorded, and changes no table and no
+    answer: the program is the same at every position (and the JAX
+    package's), and the kernel layout's find gives 5,000 at each."""
+    from sliceslice_tpu import DynamicSearcher as JaxDynamicSearcher
+    from sliceslice_tpu_torch import DynamicSearcher
+
+    nd = b"hay-needle!"
+    programs = {tn.Needle(nd, p).probes for p in range(len(nd))}
+    assert programs == {jn.Needle(nd, 0).probes}
+    assert tn.Needle(nd, 2).position == 2
+    hay = b"xx" * 2500 + nd + b"tail"
+    for p in range(0, len(nd), 3):
+        assert DynamicSearcher(nd, p, device="cpu").find(hay) == 5000
+    assert JaxDynamicSearcher(nd, 2).find(hay) == 5000

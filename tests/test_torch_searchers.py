@@ -289,3 +289,36 @@ def test_host_oracles_match_jax(rng):
         assert overlapping_count(hay, nd) == js.overlapping_count(hay, nd)
         assert np.array_equal(_host_positions(hay, nd), js._host_positions(hay, nd))
     assert overlapping_count(b"ababa", b"aba") == 2  # overlapping, unlike bytes.count
+
+
+def test_short_haystack_sampled(words):
+    """tests/test_i386.py's word-in-word sample: a needle word against a
+    same-or-longer haystack word, through the dispatch of both packages."""
+    rng = np.random.default_rng(46)
+    ws = sorted(words, key=len)
+    for i in rng.integers(0, len(ws), (120,)):
+        nd = ws[int(i)]
+        hay = ws[int(rng.integers(i, len(ws)))]
+        got = DynamicSearcher(nd, device=CPU).find(hay)
+        assert got == naive_find(hay, nd) == jst.DynamicSearcher(nd).find(hay), (nd, hay)
+
+
+def test_column_boundary_straddle():
+    """tests/test_searchers.py's needles across the JAX layout's column
+    boundaries (offsets ``(c + 1) * s - k // 2 - 1`` of a 20,000-byte
+    corpus at kh=24): the port's flat layout has no columns and answers
+    them as ``bytes.find`` and the JAX XlaSearcher do."""
+    rng = np.random.default_rng(47)
+    hay = bytes(rng.integers(97, 100, (20_000,), dtype=np.uint8))
+    jdh = jst.preprocess(hay, kh=24, force_cols=True)
+    dh = preprocess(hay, kh=24, force_cols=True, device=CPU)
+    checked = 0
+    for c in (0, 1, 64, 126):
+        for k in (2, 5, 8, 16):
+            start = (c + 1) * jdh.s - k // 2 - 1
+            nd = hay[start : start + k]
+            if len(nd) == k:
+                got = DynamicSearcher(nd, device=CPU).find(dh)
+                assert got == naive_find(hay, nd) == jst.XlaSearcher(nd).find(jdh), (c, k)
+                checked += 1
+    assert checked == 12  # column 126's boundary lies past the corpus, as in the JAX test

@@ -436,3 +436,55 @@ def test_a_candidate_outside_the_own_range_raises(corpus):
     gc_.local_base = 5000  # as if this process held bytes from 5,000 on
     with pytest.raises(RuntimeError, match="outside this process's range"):
         sb.find_all(gc_)
+
+
+def test_sharded_huge_needles():
+    """tests/test_huge.py's huge needles over a 4x2 mesh of cells: the
+    prefix filter per cell, candidates verified against the host bytes,
+    one needle across the port's first shard boundary and a decoy sharing
+    a real 64-byte prefix; find, count and positions (gathered too) exact,
+    find as the JAX package's single layout gives it."""
+    import sliceslice_tpu as jst
+
+    corpus = bytes(np.random.default_rng(99).integers(97, 110, (400_000,), dtype=np.uint8))
+    edge = shard_edge(corpus, 4, 1)
+    k = MAX_NEEDLE_LEN + 700
+    needles = [
+        corpus[10:14],
+        corpus[77_000 : 77_000 + k],
+        corpus[edge - 900 : edge - 900 + k],
+        b"q" * k,
+        corpus[1_000:1_064] + b"\xffX" + bytes(2_500),
+        corpus[-5:],
+    ]
+    sb = ShardedBatchedSearcher(needles, mesh((4, 2)))
+    dh = preprocess(corpus, device=CPU)
+    got = sb.find_all(dh)
+    assert list(got) == [corpus.find(nd) for nd in needles]
+    assert list(sb.count_all(dh)) == [overlapping_count(corpus, nd) for nd in needles]
+    pos = sb.positions_all(dh)
+    for nd, p in zip(needles, pos):
+        assert np.array_equal(p, _host_positions(corpus, nd)), nd[:20]
+    for p, q in zip(pos, sb.positions_all(dh, gather=True)):
+        assert np.array_equal(p, q)
+    assert np.array_equal(got, jst.BatchedSearcher(needles).find_all(jst.preprocess(corpus)))
+
+
+def test_sharded_huge_global_corpus_requires_local_bytes():
+    """A ``GlobalCorpus`` assembled without its local bytes cannot verify a
+    huge needle's candidates and raises; with them, find, count and
+    gathered positions are exact, as in the JAX package."""
+    import sliceslice_tpu as jst
+
+    corpus = bytes(np.random.default_rng(99).integers(97, 110, (400_000,), dtype=np.uint8))
+    nd = corpus[5_000 : 5_000 + MAX_NEEDLE_LEN + 100]
+    m = distributed.global_mesh(2, cells_per_process=8, device=CPU)
+    assert m.shape == {"data": 4, "needle": 2}
+    sb = ShardedBatchedSearcher([nd], m)
+    blind = distributed.assemble_global_corpus(corpus, b"", len(corpus), 64, m, keep_local=False)
+    with pytest.raises(ValueError, match="keep_local"):
+        sb.find_all(blind)
+    gc_ = distributed.assemble_global_corpus(corpus, b"", len(corpus), 64, m)
+    assert list(sb.find_all(gc_)) == [5_000] == [jst.DynamicSearcher(nd).find(corpus)]
+    assert list(sb.count_all(gc_)) == [overlapping_count(corpus, nd)]
+    assert np.array_equal(sb.positions_all(gc_, gather=True)[0], _host_positions(corpus, nd))

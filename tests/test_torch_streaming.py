@@ -13,6 +13,7 @@ stream, and every window lies in the kernel layout.  Every comparison is
 exact."""
 
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -635,3 +636,43 @@ def test_every_window_takes_the_kernel_layout(monkeypatch, tmp_path):
     pool = {t.data_ptr() for t in sc._dev_pool}
     assert len(seen) == 3 * 7 and sum(s[4] for s in seen) == 3
     assert all(s[:3] == (True, sc._wcap, total) and s[3] in pool for s in seen)
+
+
+def test_late_reader_writes_only_its_own_streams_stats(monkeypatch):
+    """A reader stuck in a slow read past the stream's join ends later and
+    adds its ``read_s`` to the stats of the stream that started it, never
+    to those of the next stream on the same scanner."""
+    late = 0.5
+    monkeypatch.setattr(tstreaming, "READER_JOIN_S", 0.05)
+    nd = b"needle"
+    sc = StreamingScanner([nd], window_bytes=4096, check_every=1, prefetch=1, device=CPU)
+    blocked, gate = threading.Event(), threading.Event()
+    drain = sc._drain
+
+    def drain_once_the_reader_blocks():
+        blocked.wait(30)  # the early stop comes only while the reader is in its read
+        drain()
+
+    monkeypatch.setattr(sc, "_drain", drain_once_the_reader_blocks)
+
+    def slow_chunks():
+        yield nd + bytes(4096)  # one full window, the needle at 0: an early stop
+        blocked.set()
+        gate.wait(30)
+        yield bytes(4096)
+
+    before = set(_ingest_threads())
+    assert list(sc.find_in_chunks(slow_chunks())) == [0]
+    first = sc.stats
+    (stuck,) = set(_ingest_threads()) - before  # still in its read, past the join
+    time.sleep(late)  # the stuck read grows past `late` seconds
+
+    def fast_chunks():
+        gate.set()
+        stuck.join(30)  # the late read's time has been added by now
+        yield b"xx" + nd
+
+    assert list(sc.find_in_chunks(fast_chunks())) == [2]
+    assert not stuck.is_alive()
+    assert first["read_s"] >= late
+    assert sc.stats is not first and sc.stats_summary()["read_s"] < late / 2
