@@ -5,12 +5,14 @@
 
 Builds the port's CUDA kernels from ``sliceslice_tpu_torch/csrc`` with
 nvcc (and fails on any ptxas spill), holds each kernel against its plain
-PyTorch version on the card (the find, count, match-bitmap and compaction
-kernels also on their work queue's hard cases: t = 1..8, 16, 32, 512, a
-match only in a row's last chunk, absent rows, one-row launches over 1 MiB
-and 256 MiB, ends inside a 16-position group and at the buffer's last
-words, ``base > 0``, ``n_real < n``, repeated launches, compaction caps 1,
-7, 64, 4096 and 16,384, a t = 128 table of chunks of differing lengths
+PyTorch version on the card (the find, count, match-bitmap, rank and
+compaction kernels also on their work queue's hard cases: t = 1..8, 16,
+32, 512, a match only in a row's last chunk, absent rows, one-row launches
+over 1 MiB and 256 MiB, ends inside a 16-position group and at the
+buffer's last words, ``base > 0``, ``n_real < n``, repeated launches, the
+rank kernel's SENTINEL tail and the capped compaction at caps 1, 7, 64,
+4096 and 16,384, the packed compaction in windows of 7, 1,000 and a third
+of the offsets, a t = 128 table of chunks of differing lengths
 with mask-0 padded slots and differing ends, the chained bitmap of huge
 needles; the pair-block kernel on the hard cases of
 ``sliceslice_tpu_torch/scripts/pair_cases.py``: tiles in both directions,
@@ -27,8 +29,9 @@ drives the port's main paths against host oracles:
   before and after ``optimize_for``, ``DynamicSearcher.count_in`` on every
   arm and counts in the 256 MiB corpus, against ``overlapping_count``;
 * positions: ``BatchedSearcher.positions_all`` over the same words and
-  corpus before and after ``optimize_for`` (both tiers; one bitmap and
-  one compaction launch per width group),
+  corpus before and after ``optimize_for`` (rows past the sparse cap and
+  under it, every row compacted on the card and no bitmap decoded on the
+  host; one bitmap, one rank and one compaction launch per width group),
   ``DynamicSearcher.positions`` on every arm, a flat layout on the card
   kept without host bytes, and the 256 MiB corpus's needles, against the
   host positions oracle;
@@ -84,7 +87,8 @@ drives the port's main paths against host oracles:
   ``breakeven``, ``oneshot_decompose`` and ``perf_long`` once each;
 
 then times the sweeps, each kernel (the find and count kernels per width
-group; the pair kernel's device time in both modes; the count kernel, the
+group; the rank and compaction kernels alone and as wrapper calls, packed
+and capped, beside the first design's torch ops; the pair kernel's device time in both modes; the count kernel, the
 harness's ``count`` variant, which must come within 5% of it, its ``word``
 variant, the first count loop, and its ``prefilter`` and ``nomask`` variants
 over the real words' tables, in turns), the huge-needle tiers per call and
@@ -233,27 +237,63 @@ def _err(a, b) -> int:
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
+def _rank_windows(total: int) -> list:
+    """Windows of packed ranks the kernels phase checks: all of them at
+    once, thirds, and the first and last 5 windows of 7 and of 1,000
+    (windows that cut rows and bitmap words)."""
+    out = {(0, total)}
+    for step in (7, 1000, max(total // 3, 1)):
+        starts = list(range(0, total, step))
+        out.update((lo, min(lo + step, total)) for lo in starts[:5] + starts[-5:])
+    return sorted(out)
+
+
 def _positions_checks(flat, v, m, e, base=0, n_real=None):
-    """The match-bitmap kernel (words, item counts, chunk; launched twice)
-    and the compaction kernel at every cap of CAPS against their plain
-    versions on one table; returns the words, the row totals and both
-    largest differences."""
+    """The match-bitmap kernel (words, item counts, chunk; launched twice),
+    the rank kernel (with the SENTINEL tail at every cap of CAPS, and
+    without) and the compaction kernel, capped at every cap of CAPS and
+    packed in the windows of ``_rank_windows``, against their plain
+    versions on one table; returns the words, the row totals and the
+    bitmap's, the ranks' and the compaction's largest differences."""
+    import torch
+
     from sliceslice_tpu_torch.ops import scan_kernel
 
     words, counts, chunk = scan_kernel.match_bitmap_counted(flat, v, m, e, base=base, n_real=n_real)
     again = scan_kernel.match_bitmap_counted(flat, v, m, e, base=base, n_real=n_real)
     plain = scan_kernel.match_bitmap_counted_plain(flat, v, m, e, base=base, n_real=n_real)
+    where = f"t={v.shape[1]}, base={base}"
     check(all(_same(words, o[0]) and _same(counts, o[1]) and chunk == o[2]
-              for o in (again, plain)), f"match-bitmap kernel != plain (t={v.shape[1]}, base={base})")
+              for o in (again, plain)), f"match-bitmap kernel != plain ({where})")
     bitmap_err = max(_err(words, plain[0]), _err(counts, plain[1]))
-    compact_err = 0
+    rank_err = compact_err = 0
     for cap in CAPS:
+        tail = torch.full((words.shape[0], cap), -3, dtype=torch.int32, device=words.device)
+        ref_tail = tail.clone()
+        got = scan_kernel.item_ranks(counts, tail) + (tail,)
+        ref = scan_kernel.item_ranks_plain(counts, ref_tail) + (ref_tail,)
+        rank_err = max([rank_err] + [_err(a, b) for a, b in zip(got, ref)])
+        check(all(_same(a, b) for a, b in zip(got, ref)), f"rank kernel != plain ({where}, cap={cap})")
         got = scan_kernel.compact_positions(words, counts, chunk, cap)
         ref = scan_kernel.compact_positions_plain(words, counts, chunk, cap)
         compact_err = max(compact_err, _err(got[0], ref[0]), _err(got[1], ref[1]))
         check(_same(got[0], ref[0]) and _same(got[1], ref[1]),
-              f"compaction kernel != plain (t={v.shape[1]}, base={base}, cap={cap})")
-    return words, counts.sum(dim=0, dtype=counts.dtype), bitmap_err, compact_err
+              f"capped compaction kernel != plain ({where}, cap={cap})")
+    totals, first = scan_kernel.item_ranks(counts)
+    ref = scan_kernel.item_ranks_plain(counts)
+    rank_err = max(rank_err, _err(totals, ref[0]), _err(first, ref[1]))
+    check(_same(totals, ref[0]) and _same(first, ref[1]), f"rank kernel != plain ({where}, no tail)")
+    cnt = totals.cpu().numpy().astype(np.int64)
+    row_base = torch.from_numpy(np.cumsum(cnt) - cnt).to(words.device)
+    total = int(cnt.sum())
+    whole = torch.full((total,), -2, dtype=torch.int32, device=words.device)
+    scan_kernel.compact_window_plain(words, counts, first, chunk, whole, row_base=row_base, window=(0, total))
+    for lo, hi in _rank_windows(total):
+        got = torch.full((hi - lo,), -1, dtype=torch.int32, device=words.device)
+        scan_kernel.compact_window(words, counts, first, chunk, got, row_base=row_base, window=(lo, hi))
+        compact_err = max(compact_err, _err(got, whole[lo:hi]))
+        check(_same(got, whole[lo:hi]), f"packed compaction kernel != plain ({where}, window {lo}-{hi})")
+    return words, totals, bitmap_err, rank_err, compact_err
 
 
 def _queue_checks(torch, device, hay, flat, needles, t, ends, base=0, n_real=None):
@@ -277,7 +317,7 @@ def _queue_checks(torch, device, hay, flat, needles, t, ends, base=0, n_real=Non
         check(torch.equal(got, again), f"{kernel.__name__}: two launches differ at t={t}")
         check(torch.equal(got, ref), f"{kernel.__name__} != plain on a queue case at t={t}")
         out.append(got.cpu().tolist())
-    _, totals, _, _ = _positions_checks(flat, v, m, e, base, n_real)
+    _, totals, _, _, _ = _positions_checks(flat, v, m, e, base, n_real)
     check(totals.cpu().tolist() == out[1], f"bitmap row totals != counts on a queue case at t={t}")
     return out
 
@@ -286,10 +326,11 @@ def _chunk_table_checks(torch, device, hay, dh):
     """The dense huge-needle tier's operands: one t = 128 table of chunks
     of differing lengths (mask-0 padded slots; present, absent, at the
     last position, a zero tail, dense), with their own ends and with ends
-    cut inside the corpus.  The find, count, bitmap and compaction kernels
-    (every cap of CAPS) against their plain versions and the host oracles;
-    then the chained bitmap of huge needles, kernel against plain.
-    Returns the bitmap's and the compaction's largest differences."""
+    cut inside the corpus.  The find, count, bitmap, rank and compaction
+    kernels (every cap of CAPS, and packed) against their plain versions
+    and the host oracles; then the chained bitmap of huge needles, kernel
+    against plain.  Returns the bitmap's, the ranks' and the compaction's
+    largest differences."""
     from sliceslice_tpu_torch import overlapping_count
     from sliceslice_tpu_torch.config import SENTINEL
     from sliceslice_tpu_torch.models.huge import CHUNK, HugeNeedleSearcher
@@ -307,11 +348,11 @@ def _chunk_table_checks(torch, device, hay, dh):
     f, c = _queue_checks(torch, device, hay, dh.flat, chunks, t, own)
     check(f == [SENTINEL if hay.find(x) < 0 else hay.find(x) for x in chunks]
           and c == [overlapping_count(hay, x) for x in chunks], "t=128 chunk table != host oracles")
-    bitmap_err = compact_err = 0
+    bitmap_err = rank_err = compact_err = 0
     for ends in (own, own - np.arange(len(chunks)) * 1000 - 7):
         e = torch.from_numpy(np.maximum(ends, 0).astype(np.int32)).to(device)
-        words, totals, b_err, c_err = _positions_checks(dh.flat, v, m, e)
-        bitmap_err, compact_err = max(bitmap_err, b_err), max(compact_err, c_err)
+        words, totals, b_err, r_err, c_err = _positions_checks(dh.flat, v, m, e)
+        bitmap_err, rank_err, compact_err = max(bitmap_err, b_err), max(rank_err, r_err), max(compact_err, c_err)
         rows = words.cpu().numpy()
         for i, x in enumerate(chunks):
             exp = _host_positions(hay, x)
@@ -328,7 +369,7 @@ def _chunk_table_checks(torch, device, hay, dh):
               and np.array_equal(torch_backend.decode_match_bitmap(got[2].cpu().numpy()), exp),
               f"chained bitmap != host positions, k={len(nd)}")
         bitmap_err = max(bitmap_err, _err(got[2], ref[2]))
-    return bitmap_err, compact_err
+    return bitmap_err, rank_err, compact_err
 
 
 def _random_words(rng, count: int, max_len: int):
@@ -353,8 +394,9 @@ def _pair_checks(torch, pairwise, args, exp, what) -> int:
 
 
 def phase_kernels(torch, device):
-    """Find, count, match-bitmap, compaction, memchr and pair-block kernels
-    against their plain versions (and the host oracles) on the card."""
+    """Find, count, match-bitmap, rank, compaction (capped and packed),
+    memchr and pair-block kernels against their plain versions (and the
+    host oracles) on the card."""
     from sliceslice_tpu_torch import PairwiseSearcher, overlapping_count, preprocess
     from sliceslice_tpu_torch.config import SENTINEL
     from sliceslice_tpu_torch.needle import build_probe_table, needed_halo_for_t
@@ -369,7 +411,7 @@ def phase_kernels(torch, device):
     hay = np.concatenate([body, tail]).tobytes()
     dh = preprocess(hay, kh=needed_halo_for_t(512), device=device)
     widths = list(range(1, 9)) + [16, 32, 512]
-    max_err = count_err = bitmap_err = compact_err = 0
+    max_err = count_err = bitmap_err = rank_err = compact_err = 0
     rows = queue_cases = 0
     for t in widths:
         needles = _kernel_tables(hay, rng, t)
@@ -399,8 +441,8 @@ def phase_kernels(torch, device):
             check(np.array_equal(got, plain), f"count kernel != plain at t={t} base={base}")
             exp = np.where(np.arange(n_pad) < n_real, counts, 0)
             check(np.array_equal(got, exp), f"count kernel != overlapping_count at t={t} base={base}")
-            got, totals, b_err, c_err = _positions_checks(dh.flat, v, m, e, base, n_real)
-            bitmap_err, compact_err = max(bitmap_err, b_err), max(compact_err, c_err)
+            got, totals, b_err, r_err, c_err = _positions_checks(dh.flat, v, m, e, base, n_real)
+            bitmap_err, rank_err, compact_err = max(bitmap_err, b_err), max(rank_err, r_err), max(compact_err, c_err)
             check(np.array_equal(totals.cpu().numpy(), exp), f"bitmap row totals != counts at t={t} base={base}")
             if base == 0:
                 words = got.cpu().numpy()
@@ -428,8 +470,8 @@ def phase_kernels(torch, device):
             check(f == [SENTINEL if hay.find(nd) < 0 else hay.find(nd)]
                   and c == [overlapping_count(hay, nd)], f"one-row launch differs at t={t}")
         queue_cases += 7 + len(qn)  # tables, each launched twice per kernel
-    b_err, c_err = _chunk_table_checks(torch, device, hay, dh)
-    bitmap_err, compact_err = max(bitmap_err, b_err), max(compact_err, c_err)
+    b_err, r_err, c_err = _chunk_table_checks(torch, device, hay, dh)
+    bitmap_err, rank_err, compact_err = max(bitmap_err, b_err), max(rank_err, r_err), max(compact_err, c_err)
     queue_cases += 1
     find_err = max_err
     max_err = 0
@@ -467,13 +509,14 @@ def phase_kernels(torch, device):
     say("kernels", find_rows=rows, find_widths=widths, find_max_abs_err=find_err,
         queue_case_tables=queue_cases, chunk_table_t=128,
         count_rows=rows, count_max_abs_err=count_err, bitmap_rows=rows,
-        bitmap_max_abs_err=bitmap_err, compaction_caps=list(CAPS), compaction_max_abs_err=compact_err,
+        bitmap_max_abs_err=bitmap_err, rank_max_abs_err=rank_err, compaction_caps=list(CAPS),
+        compaction_modes=["capped", "packed"], compaction_max_abs_err=compact_err,
         memchr_cases=cases, memchr_max_abs_err=memchr_err,
         pair_pairs=pairs, pair_hard_cases=[c.name for c in hard],
         pair_max_abs_err=pair_err, equal=True)
     return {"batched_find": find_err, "memchr_find": memchr_err,
             "batched_count": count_err, "pair_block": pair_err, "match_bitmap": bitmap_err,
-            "compact_positions": compact_err}
+            "item_ranks": rank_err, "compact_window": compact_err}
 
 
 def phase_i386(torch, device, hay, words):
@@ -601,10 +644,10 @@ def _ascii_slice(hay: bytes, start: int, k: int) -> bytes:
     return hay[i:i + k]
 
 
-#: Launches (count, bitmap, compaction) of one huge-needle call per tier:
-#: the prefix count, then the candidates' bitmap and compaction (host) or
-#: the chunks' bitmap (dense).
-TIER_LAUNCHES = {"host": (1, 1, 1), "dense": (1, 1, 0)}
+#: Launches (count, bitmap, ranks, compaction) of one huge-needle call per
+#: tier: the prefix count, then the candidates' bitmap, ranks and capped
+#: compaction (host) or the chunks' bitmap (dense).
+TIER_LAUNCHES = {"host": (1, 1, 1, 1), "dense": (1, 1, 0, 0)}
 
 
 def _huge_calls(torch, device, cases, what):
@@ -616,7 +659,7 @@ def _huge_calls(torch, device, cases, what):
 
     def counts():
         return (scan_kernel.batched_count.launches, scan_kernel.match_bitmap_counted.launches,
-                scan_kernel.compact_positions.launches)
+                scan_kernel.item_ranks.launches, scan_kernel.compact_window.launches)
 
     for nd, dh, (first, count, positions), tier in cases:
         ds = DynamicSearcher(nd, device=device)
@@ -877,7 +920,8 @@ def phase_stream(torch, device, card, hay, words, i386_answers, big, big_answers
         windows = _stream_held(sc, big_path, big_firsts, big_counts, big_positions, "256 MiB, 32 MiB windows")
         # Times on a warm page cache, and the launches of one window.
         names = {"find": scan_kernel.batched_find, "count": scan_kernel.batched_count,
-                 "bitmap": scan_kernel.match_bitmap_counted, "compaction": scan_kernel.compact_positions}
+                 "bitmap": scan_kernel.match_bitmap_counted, "ranks": scan_kernel.item_ranks,
+                 "compaction": scan_kernel.compact_window}
 
         def file_times(sc, label, samples):
             """Host-clock seconds (median) and GB/s of each mode's stream
@@ -898,7 +942,7 @@ def phase_stream(torch, device, card, hay, words, i386_answers, big, big_answers
 
         per_window = file_times(sc, "32 MiB windows", STREAM_SAMPLES)
         check(sc.buffer_allocations == made, "a stream after warmup allocated a window buffer")
-        for mode, kernels in (("find", ("find",)), ("count", ("count",)), ("positions", ("bitmap", "compaction"))):
+        for mode, kernels in (("find", ("find",)), ("count", ("count",)), ("positions", ("bitmap", "ranks", "compaction"))):
             for k in kernels:
                 check(per_window[mode][k] > 0, f"a {mode} stream window launched no {k} kernel")
         sc = StreamingScanner(needles, window_bytes=STREAM_SMALL_WINDOW, device=device)
@@ -1249,7 +1293,8 @@ def phase_sharded_times(torch, device, card, words, i386_dh, big):
     finally:
         dist.destroy_process_group()
     names = {"batched_find": scan_kernel.batched_find, "batched_count": scan_kernel.batched_count,
-             "match_bitmap": scan_kernel.match_bitmap_counted, "compact_positions": scan_kernel.compact_positions}
+             "match_bitmap": scan_kernel.match_bitmap_counted, "item_ranks": scan_kernel.item_ranks,
+             "compact_window": scan_kernel.compact_window}
     per_sweep = {}
     for run in (lambda: sb4.find_all(i386_dh), lambda: sb4.count_all(i386_dh), lambda: sb4.positions_all(i386_dh)):
         before = {k: w.launches for k, w in names.items()}
@@ -1424,9 +1469,11 @@ def phase_count(torch, device, hay, words, i386_dh, big):
 
 def phase_positions(torch, device, hay, words, i386_dh, big, i386_counts, big_counts):
     """Positions on the positions path: all words over i386 before and
-    after optimize_for (both tiers), DynamicSearcher.positions on every
-    arm, a flat layout on the card kept without host bytes, and the 256 MiB
-    corpus's needles and periodic run; totals against the count phase."""
+    after optimize_for (rows past the sparse cap and under it, every row
+    compacted on the card, no bitmap decoded on the host),
+    DynamicSearcher.positions on every arm, a flat layout on the card kept
+    without host bytes, and the 256 MiB corpus's needles and periodic run;
+    totals against the count phase."""
     from sliceslice_tpu_torch import BatchedSearcher, DynamicSearcher, preprocess
     from sliceslice_tpu_torch.ops import scan_kernel, torch_backend
     from sliceslice_tpu_torch.searcher import _host_positions
@@ -1441,14 +1488,28 @@ def phase_positions(torch, device, hay, words, i386_dh, big, i386_counts, big_co
         bad = sum(not np.array_equal(g, e) for g, e in zip(got, exp_rows))
         check(len(got) == len(exp_rows) and bad == 0, f"{what}: {bad} rows differ")
 
-    b0, c0 = scan_kernel.match_bitmap_counted.launches, scan_kernel.compact_positions.launches
-    got = bs.positions_all(i386_dh)
-    sweep_launches = (scan_kernel.match_bitmap_counted.launches - b0,
-                      scan_kernel.compact_positions.launches - c0)
+    def launches():
+        return (scan_kernel.match_bitmap_counted.launches, scan_kernel.item_ranks.launches,
+                scan_kernel.compact_window.launches)
+
+    def sweep_launches(searcher, exp_rows):
+        """A bitmap and a rank launch per width group (one launch batch
+        each), a compaction launch per group holding a match (one window)."""
+        live = sum(any(exp_rows[j].size for j in g.indices.tolist()) for g in searcher.groups)
+        return len(searcher.groups), len(searcher.groups), live
+
+    before = launches()
+    decode = torch_backend.decode_match_bitmap
+    torch_backend.decode_match_bitmap = None  # the positions path decodes nothing on the host
+    try:
+        got = bs.positions_all(i386_dh)
+    finally:
+        torch_backend.decode_match_bitmap = decode
+    made = tuple(a - b for a, b in zip(launches(), before))
     same(got, exp, "i386 positions")
-    check(sweep_launches == (len(bs.groups), len(bs.groups)),
-          f"i386 positions sweep: {sweep_launches} bitmap and compaction launches, "
-          f"not one each per width group ({len(bs.groups)})")
+    check(made == sweep_launches(bs, exp),
+          f"i386 positions sweep: {made} bitmap, rank and compaction launches, "
+          f"not {sweep_launches(bs, exp)} ({len(bs.groups)} width groups)")
     total = sum(len(p) for p in got)
     dense = sum(len(p) > cap for p in got)
     i386_total = int(i386_counts.sum())
@@ -1462,13 +1523,13 @@ def phase_positions(torch, device, hay, words, i386_dh, big, i386_counts, big_co
     tiny = preprocess(hay[:3000], keep_host=False, device=device)   # flat rung, card only
     check(not tiny.tiled, "the 3,000-byte layout is not the flat rung")
     flat_words = words[::15]
-    b0, c0 = scan_kernel.match_bitmap_counted.launches, scan_kernel.compact_positions.launches
+    flat_exp = [_host_positions(hay[:3000], w) for w in flat_words]
+    before = launches()
     flat_bs = BatchedSearcher(flat_words, device=device)
-    same(flat_bs.positions_all(tiny), [_host_positions(hay[:3000], w) for w in flat_words],
-         "positions over the flat rung on the card")
-    check(scan_kernel.match_bitmap_counted.launches == b0 + len(flat_bs.groups)
-          and scan_kernel.compact_positions.launches == c0 + len(flat_bs.groups),
-          "positions_all over the flat rung on the card did not launch the bitmap and compaction kernels")
+    same(flat_bs.positions_all(tiny), flat_exp, "positions over the flat rung on the card")
+    check(tuple(a - b for a, b in zip(launches(), before)) == sweep_launches(flat_bs, flat_exp),
+          "positions_all over the flat rung on the card did not launch the bitmap, rank and "
+          "compaction kernels")
     lengths = [0, 1, 2, 3, 5, 8, 12, 16, 17, 24, 32, 33, 40, 100, 1000]
     checks = 0
     for k in lengths:
@@ -1476,14 +1537,14 @@ def phase_positions(torch, device, hay, words, i386_dh, big, i386_counts, big_co
             start = int(rng.integers(0, len(h_bytes) - k))
             for nd in (h_bytes[start:start + k], h_bytes[-k:] if k else b"", b"\xfe" * k,
                        h_bytes[len(h_bytes) - k + 1:] + b"\0" if k else b""):
-                before = (scan_kernel.match_bitmap_counted.launches, scan_kernel.compact_positions.launches)
+                before = launches()
                 got = DynamicSearcher(nd, device=device).positions(h)
                 check(np.array_equal(got, _host_positions(h_bytes, nd)),
                       f"DynamicSearcher.positions k={k} differs")
                 if k and h is tiny:
-                    check((scan_kernel.match_bitmap_counted.launches, scan_kernel.compact_positions.launches)
-                          == (before[0] + 1, before[1] + 1),
-                          f"positions k={k} over the flat rung on the card did not launch both kernels")
+                    check(tuple(a - b for a, b in zip(launches(), before)) == (1, 1, int(got.size > 0)),
+                          f"positions k={k} over the flat rung on the card did not launch the "
+                          "bitmap, rank and compaction kernels")
                 checks += 1
 
     big_dh, big_hay, big_needles = big
@@ -1499,8 +1560,8 @@ def phase_positions(torch, device, hay, words, i386_dh, big, i386_counts, big_co
     check(np.array_equal(DynamicSearcher(periodic, device=device).positions(big_dh), exp_big[-1]),
           "256 MiB corpus: periodic positions differ")
     say("positions", words=len(words), total_i386_matches=total, dense_rows=dense,
-        sparse_cap=cap, sweep_bitmap_launches=sweep_launches[0],
-        sweep_compaction_launches=sweep_launches[1], width_groups=len(bs.groups), parity=True, parity_after_optimize_for=True,
+        sparse_cap=cap, sweep_bitmap_launches=made[0], sweep_rank_launches=made[1],
+        sweep_compaction_launches=made[2], width_groups=len(bs.groups), parity=True, parity_after_optimize_for=True,
         flat_rung_words=len(flat_words), dynamic_lengths=lengths, dynamic_checks=checks,
         big_needles=len(needles), big_total_matches=int(sizes.sum()),
         big_dense_rows=int((sizes > cap).sum()), host_oracle_s=round(oracle_s, 3))
@@ -1735,19 +1796,28 @@ def phase_times(torch, device, card, i386_dh, bs, big_dh, count_bs, ps, pos_bs, 
         card=card, sweeps=POSITION_SWEEPS, ms_per_sweep=m.estimate * 1e3 / POSITION_SWEEPS,
         low_ms=m.low * 1e3 / POSITION_SWEEPS, high_ms=m.high * 1e3 / POSITION_SWEEPS,
         note="each sweep reads its answers back, so each synchronises")
-    # The bitmap and compaction launches of one positions sweep, on its
-    # launch plan (torch_backend.position_batches).
-    cap = torch_backend.SPARSE_POSITIONS_CAP
-    batches = [(i386_dh.flat, g.values_dev[i0:i1], g.masks_dev[i0:i1], g.ends_dev(hay_len)[i0:i1], 0, i1 - i0)
-               for g in pos_bs.groups
-               for i0, i1 in torch_backend.position_batches(g.n, i386_dh.flat.numel(), g.t, cap)]
+    # The bitmap, rank and compaction launches of one positions sweep (one
+    # launch batch a width group at i386: torch_backend.position_batches).
+    check(all(len(torch_backend.position_batches(g.n, i386_dh.flat.numel(), g.t)) == 1
+              for g in pos_bs.groups), "an i386 width group takes several positions launch batches")
+    batches = [(i386_dh.flat, g.values_dev, g.masks_dev, g.ends_dev(hay_len), 0, g.n) for g in pos_bs.groups]
     bitmap = vs_plain(scan_kernel.match_bitmap_counted, scan_kernel.match_bitmap_counted_plain, batches,
                       f"match-bitmap kernel vs plain, one i386 positions sweep ({len(batches)} launch batches)",
                       rows=[b[5] for b in batches])
-    compact_calls = [scan_kernel.match_bitmap_counted(*b) + (cap,) for b in batches]
-    compact = vs_plain(scan_kernel.compact_positions, scan_kernel.compact_positions_plain, compact_calls,
-                       f"compaction kernel vs plain, one i386 positions sweep (cap {cap})",
-                       note="each call: the row totals, the first ranks, the SENTINEL fill and the kernel")
+    # The rank kernel and the compaction, alone (device time, queued behind
+    # a spin kernel) and as wrapper calls, packed as the sweep runs them and
+    # capped at 4,096 (the JAX contract), beside the first design's torch
+    # ops around its kernel and their bounds.
+    pos_calls = sweep_times.positions_calls(pos_bs, i386_dh)
+    pos_times = sweep_times.positions_kernel_times(torch, pos_calls, device)
+    pos_bounds = sweep_times.positions_bounds(torch, pos_calls)
+    say("times", what="rank and compaction kernels over one i386 positions sweep's bitmaps "
+        "(ms per sweep: low, median, high; device_ms = the kernels alone behind a spin kernel, "
+        "call_ms = wrapper calls between CUDA events)", card=card, calls=len(pos_calls),
+        matches=sum(int(c[1].sum()) for c in pos_calls), kernels=pos_times, bounds=pos_bounds)
+    ranks = (pos_times["item_ranks_packed"]["call_ms"][1], pos_times["item_ranks_plain"]["call_ms"][1])
+    compact = (pos_times["compact_window_packed"]["call_ms"][1],
+               pos_times["compact_window_plain_packed"]["call_ms"][1])
 
     # The find and count kernels per width group, next to the first
     # design's times; then, over the real words' tables in turns: the first
@@ -1809,7 +1879,7 @@ def phase_times(torch, device, card, i386_dh, bs, big_dh, count_bs, ps, pos_bs, 
                                       for name, r in row.items()))
     times = {"batched_find": find, "memchr_find": (mem_ms, mem_plain_ms),
              "batched_count": count, "pair_block": pair, "match_bitmap": bitmap,
-             "compact_positions": compact, "probe": probe_ms}
+             "item_ranks": ranks, "compact_window": compact, "probe": probe_ms}
 
     # Launches per sweep: one run of each kernel's sweep, counted.
     per_sweep = {}
@@ -1817,7 +1887,8 @@ def phase_times(torch, device, card, i386_dh, bs, big_dh, count_bs, ps, pos_bs, 
         "batched_find": (scan_kernel.batched_find, lambda: bs.find_all_device(i386_dh)),
         "batched_count": (scan_kernel.batched_count, lambda: count_bs.count_all_device(i386_dh)),
         "match_bitmap": (scan_kernel.match_bitmap_counted, lambda: pos_bs.positions_all(i386_dh)),
-        "compact_positions": (scan_kernel.compact_positions, lambda: pos_bs.positions_all(i386_dh)),
+        "item_ranks": (scan_kernel.item_ranks, lambda: pos_bs.positions_all(i386_dh)),
+        "compact_window": (scan_kernel.compact_window, lambda: pos_bs.positions_all(i386_dh)),
         "memchr_find": (scan_kernel.memchr_find, lambda: scan_kernel.memchr_find(big_dh.flat, 255, big_end)),
         "pair_block": (pairwise.pair_block, ps.count_matches_device),
         "probe": (kp.probe, lambda: kp.probe("count", flat, v, m_, e, n_real=n)),
@@ -1827,24 +1898,22 @@ def phase_times(torch, device, card, i386_dh, bs, big_dh, count_bs, ps, pos_bs, 
         run()
         per_sweep[name] = wrapper.launches - before
     torch.cuda.synchronize()
-    bounds = sweep_bounds(torch, i386_dh, bs, pos_bs, big_end, ps, probe_setups[2], compact_calls)
+    bounds = sweep_bounds(torch, i386_dh, bs, pos_bs, big_end, ps, probe_setups[2], pos_bounds)
     say("bounds", card=card, means="least ms for the run's work: max(INT32 ops / 16.7 T op/s, "
         "bytes / 3.35 TB/s), one op per position tested", bounds=bounds, launches_per_sweep=per_sweep)
-    return times, bounds, per_sweep
+    return times, bounds, per_sweep, {k: v.get("device_ms", [None] * 3)[1] for k, v in pos_times.items()}
 
 
-def sweep_bounds(torch, i386_dh, bs, pos_bs, big_end, ps, probe_setup, compact_calls) -> dict:
+def sweep_bounds(torch, i386_dh, bs, pos_bs, big_end, ps, probe_setup, pos_bounds) -> dict:
     """{kernel: (bound ms, "operations" or "bytes")} for the work each
     timed kernel did in this run: one 32-bit operation per position these
     inputs need tested (find: up to each row's first match; count, bitmap
     and the ablation's count: every position below each row's limit; pair:
     up to each pair's first match or its last position; memchr: every byte
-    scanned; compaction: one per bitmap word it must read and one per
-    offset it writes), and every input read and output written once (the
-    bitmap: the corpus once per launch batch, tables, ends, its words and
-    item counts; the compaction: the words of the items it must read —
-    those holding a match whose rank within its row is below the cap —,
-    every item's count and first rank, and the N x cap offsets)."""
+    scanned; the rank and compaction kernels: ``pos_bounds``, from
+    ``sweep_times.positions_bounds``, packed as the sweep runs them), and
+    every input read and output written once (the bitmap: the corpus once
+    per launch batch, tables, ends, its words and item counts)."""
     from sliceslice_tpu_torch.ops import torch_backend
     from sliceslice_tpu_torch.ops.scan_kernel import BITMAP_CHUNK, bitmap_words
     from sliceslice_tpu_torch.ops.scan_math import position_limit
@@ -1866,20 +1935,10 @@ def sweep_bounds(torch, i386_dh, bs, pos_bs, big_end, ps, probe_setup, compact_c
         find_ops += int(np.where(f >= 0, np.minimum(f + 1, lim), lim).sum())
         count_ops += int(lim.sum())
         scan_bytes += numel + 4 * g.n_pad * (2 * g.t + 2)  # corpus, tables, ends, out
-    cap = torch_backend.SPARSE_POSITIONS_CAP
     for g, lim in rows(pos_bs):
-        batches = len(torch_backend.position_batches(g.n, numel, g.t, cap))
+        batches = len(torch_backend.position_batches(g.n, numel, g.t))
         n_chunks = -(-position_limit(numel, g.t) // BITMAP_CHUNK)
         bitmap_bytes += batches * numel + 4 * g.n * (2 * g.t + 1 + bitmap_words(numel, g.t) + n_chunks)
-    compact_ops = compact_bytes = 0
-    for words, counts, chunk, cap in compact_calls:
-        first = torch.cumsum(counts, dim=0) - counts
-        live = (counts > 0) & (first < cap)
-        per_item = (words.shape[1] - chunk // 32 * torch.arange(counts.shape[0], device=counts.device))
-        read = int((live * per_item.clamp(max=chunk // 32)[:, None]).sum())
-        written = int(torch.minimum(counts.sum(dim=0), torch.tensor(cap, device=counts.device)).sum())
-        compact_ops += read + written
-        compact_bytes += 4 * read + 8 * counts.numel() + 4 * words.shape[0] * cap
     first = ps.first_matrix()
     ln = np.array([len(w) for w in ps.needles], np.int64)
     tested = np.where(first >= 0, first + 1, np.maximum(ln[None, :] - ln[:, None] + 1, 0))
@@ -1891,7 +1950,8 @@ def sweep_bounds(torch, i386_dh, bs, pos_bs, big_end, ps, probe_setup, compact_c
         "batched_find": bound_ms(find_ops, scan_bytes),
         "batched_count": bound_ms(count_ops, scan_bytes),
         "match_bitmap": bound_ms(count_ops, bitmap_bytes),
-        "compact_positions": bound_ms(compact_ops, compact_bytes),
+        "item_ranks": pos_bounds["item_ranks_packed"],
+        "compact_window": pos_bounds["compact_window_packed"],
         "memchr_find": bound_ms(big_end, big_end),
         "pair_block": bound_ms(int(tested.sum()), pair_bytes),
         "probe": bound_ms(int(probe_lim.sum()), flat.numel() + 4 * (v.numel() + m.numel() + 2 * n)),
@@ -1914,8 +1974,8 @@ def main() -> int:
     check(len(words) == 4585 and len(hay) == 857425, "unexpected corpus files")
     wrappers = {"batched_find": scan_kernel.batched_find, "memchr_find": scan_kernel.memchr_find,
                 "batched_count": scan_kernel.batched_count, "pair_block": pairwise.pair_block,
-                "match_bitmap": scan_kernel.match_bitmap_counted,
-                "compact_positions": scan_kernel.compact_positions, "probe": kernel_probe.probe}
+                "match_bitmap": scan_kernel.match_bitmap_counted, "item_ranks": scan_kernel.item_ranks,
+                "compact_window": scan_kernel.compact_window, "probe": kernel_probe.probe}
     launches = {}
 
     def path(names, *phases, into=launches):
@@ -1937,7 +1997,7 @@ def main() -> int:
         (phase_big, (torch, device)))
     ((count_bs, i386_counts, big_counts),) = path(
         ("batched_count",), (phase_count, (torch, device, hay, words, i386_dh, big)))
-    ((pos_bs, i386_positions, big_positions),) = path(("match_bitmap", "compact_positions"), (phase_positions, (
+    ((pos_bs, i386_positions, big_positions),) = path(("match_bitmap", "item_ranks", "compact_window"), (phase_positions, (
         torch, device, hay, words, i386_dh, big, i386_counts, big_counts)))
     ((ps, pair_exp),) = path(("pair_block",), (phase_pairwise, (torch, device, words)))
     ((errs["probe"], probe_setups),) = path(
@@ -1945,14 +2005,14 @@ def main() -> int:
 
     # The probe-table contract cases (their own counts).
     contracts_launches = {}
-    path(("batched_find", "batched_count", "match_bitmap", "compact_positions"),
+    path(("batched_find", "batched_count", "match_bitmap", "item_ranks", "compact_window"),
          (phase_contracts, (torch, device)), into=contracts_launches)
 
     timed(phase_queue_big, torch, device, big)
     # The huge-needle path (its own counts), then the CLI in processes of
     # its own.
     huge_launches = {}
-    (i386_huge,) = path(("batched_count", "match_bitmap", "compact_positions"), (phase_huge, (
+    (i386_huge,) = path(("batched_count", "match_bitmap", "item_ranks", "compact_window"), (phase_huge, (
         torch, device, card, hay, words, i386_dh, (i386_firsts, i386_counts, i386_positions), big)),
         into=huge_launches)
     # Streams (their own counts): the 256 MiB corpus's 41 needles with
@@ -1961,28 +2021,32 @@ def main() -> int:
     big_firsts = np.array([p[0] if p.size else -1 for p in big_positions])
     big_answers = (big[2] + [BIG_PERIODIC], big_firsts, big_counts, big_positions)
     ((stream_per_window, stream_times, stream_windows),) = path(
-        ("batched_find", "batched_count", "match_bitmap", "compact_positions"), (phase_stream, (
+        ("batched_find", "batched_count", "match_bitmap", "item_ranks", "compact_window"), (phase_stream, (
             torch, device, card, hay, words, (i386_firsts, i386_counts, i386_positions), big, big_answers,
             i386_huge)), into=stream_launches)
     per_stream_window = {"batched_find": stream_per_window["find"]["find"],
                          "batched_count": stream_per_window["count"]["count"],
                          "match_bitmap": stream_per_window["positions"]["bitmap"],
-                         "compact_positions": stream_per_window["positions"]["compaction"]}
+                         "item_ranks": stream_per_window["positions"]["ranks"],
+                         "compact_window": stream_per_window["positions"]["compaction"]}
     timed(phase_stream_times, torch, device, card, big, big_answers[0], stream_times, stream_windows)
     # Sharded corpora (their own counts): the meshes of cells on the card in
     # an NCCL group of one, then two processes under gloo.
     sharded_launches = {}
-    path(("batched_find", "batched_count", "match_bitmap", "compact_positions"), (phase_sharded, (
+    path(("batched_find", "batched_count", "match_bitmap", "item_ranks", "compact_window"), (phase_sharded, (
         torch, device, card, hay, words, i386_dh, (i386_firsts, i386_counts, i386_positions), big, big_answers,
         i386_huge)), into=sharded_launches)
     per_sharded_sweep = timed(phase_sharded_times, torch, device, card, words, i386_dh, big)
     timed(phase_cli, hay)
     # The harness and the bench (their own counts), the host oracles passed in.
     harness_launches = {}
-    path(("batched_find", "memchr_find", "batched_count", "pair_block", "match_bitmap", "compact_positions"),
+    path(("batched_find", "memchr_find", "batched_count", "pair_block", "match_bitmap", "item_ranks",
+          "compact_window"),
          (phase_harness, (torch, device, card, i386_firsts, pair_exp)), into=harness_launches)
-    times, bounds, per_sweep = timed(phase_times, torch, device, card, i386_dh, bs, big[0], count_bs,
-                                     ps, pos_bs, probe_setups)
+    times, bounds, per_sweep, pos_device = timed(phase_times, torch, device, card, i386_dh, bs, big[0],
+                                                 count_bs, ps, pos_bs, probe_setups)
+    device_ms = {"item_ranks": pos_device["item_ranks_packed"],
+                 "compact_window": pos_device["compact_window_packed"]}
     kernels = [
         ("batched_find", FIND_SOURCE, "sliceslice_tpu/ops/scan_kernel.py:266"),
         ("memchr_find", FIND_SOURCE, "sliceslice_tpu/ops/scan_kernel.py:720"),
@@ -1990,17 +2054,21 @@ def main() -> int:
         ("pair_block", PAIR_SOURCE, "sliceslice_tpu/ops/pairwise.py:103"),
         ("probe", PROBE_SOURCE, "scripts/kernel_probe.py:64"),
         ("match_bitmap", FIND_SOURCE, "sliceslice_tpu/ops/xla_backend.py:140 (XLA, not Pallas)"),
-        ("compact_positions", POSITIONS_SOURCE, "sliceslice_tpu/ops/xla_backend.py:195 (XLA, not Pallas)"),
+        ("item_ranks", POSITIONS_SOURCE,
+         "sliceslice_tpu/ops/xla_backend.py:195 (XLA, not Pallas: its counts and ranks)"),
+        ("compact_window", POSITIONS_SOURCE, "sliceslice_tpu/ops/xla_backend.py:195 (XLA, not Pallas)"),
     ]
     # No single PyTorch call computes any of these functions (a first
     # match, an overlapping count, a match bitmap, a first byte, a pair
-    # matrix of first matches, the first `cap` set bits of each bitmap row),
-    # so library_ms is null throughout.
+    # matrix of first matches, per-row counts and ranks of item counts, the
+    # set bits of each bitmap row in a window of ranks), so library_ms is
+    # null throughout.
     no_library = "no single PyTorch call computes this function"
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errs[name], "ms": times[name][0],
          "plain_ms": times[name][1], "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "device_ms": device_ms.get(name),
          "launches_per_sweep": per_sweep[name], "huge_path_launches": huge_launches.get(name),
          "stream_path_launches": stream_launches.get(name),
          "launches_per_stream_window": per_stream_window.get(name),

@@ -308,15 +308,17 @@ class BatchedSearcher:
         sparse_cap: int = torch_backend.SPARSE_POSITIONS_CAP,
     ) -> List[np.ndarray]:
         """ALL (overlapping) match offsets per needle, in input order — the
-        batched ``find_iter`` capability, in the JAX package's two tiers:
-        per width group, as many rows at a time as the positions budget
-        holds (at most ``batch`` when given; ``torch_backend.
-        position_batches``), one bitmap launch and one compaction launch
-        each on the layout's device; a row with at most ``sparse_cap``
-        matches reads back its offsets, a denser one its bitmap (corpus/8
-        bytes) for a host decode.  A flat layout on the card is re-laid
-        there; one elsewhere is scanned on the host, as in the JAX
-        package."""
+        batched ``find_iter`` capability, with the answers of the JAX
+        package's two tiers: per width group, as many rows at a time as the
+        positions budget holds (at most ``batch`` when given;
+        ``torch_backend.position_batches``), one bitmap and one rank launch
+        each on the layout's device, then every row compacted there, sparse
+        and dense alike, and read back as packed offsets
+        (``torch_backend.two_tier_positions``).  ``sparse_cap`` is the JAX
+        signature's: a negative one is refused, and it changes nothing
+        else, since no row falls back to its bitmap.  A flat layout on the
+        card is re-laid there; one elsewhere is scanned on the host, as in
+        the JAX package."""
         base = self._layout(hay)
         dh = self._full_scan_layout(base)
         if not dh.tiled:
@@ -328,7 +330,7 @@ class BatchedSearcher:
         for g in self.groups:
             g.sync_host()  # indices in the device tables' row order
             ends = g.ends_dev(dh.length)
-            batches = torch_backend.position_batches(g.n, dh.flat.numel(), g.t, sparse_cap, batch)
+            batches = torch_backend.position_batches(g.n, dh.flat.numel(), g.t, batch)
             for i0, i1 in batches:
                 res = torch_backend.two_tier_positions(
                     dh.flat, g.values_dev[i0:i1], g.masks_dev[i0:i1], ends[i0:i1], sparse_cap

@@ -9,9 +9,9 @@ in the kernel with a table whose width grows with the needle; past
   needle's first ``PREFIX_LEN`` bytes occur, one full scan and one scalar
   read.  A 64-byte prefix is a strong filter, so candidates are rare;
 * **sparse verify (host)**: when there are at most ``HOST_VERIFY_MAX``
-  candidates and the caller's host bytes are at hand, the match-bitmap and
-  compaction kernels list them (one launch each, one readback of the used
-  slots), and the host compares the whole needle at each;
+  candidates and the caller's host bytes are at hand, the match-bitmap,
+  rank and compaction kernels list them (one launch each, one readback of
+  the used slots), and the host compares the whole needle at each;
 * **dense verify (device)**: otherwise (a prefix repeated through the
   corpus), the chained match bitmap (``ops/chained.py``): the needle's
   ``CHUNK``-byte chunks scanned by the match-bitmap kernel, their bitmaps
@@ -118,8 +118,8 @@ class HugeNeedleSearcher(SearcherBase):
         return self._prefix.count_in(dh)
 
     def _host_candidates(self, dh: DeviceHaystack, ncand: int) -> np.ndarray:
-        """The ``ncand`` candidate offsets, ascending: one bitmap and one
-        compaction launch at cap ``HOST_VERIFY_MAX``, then one readback of
+        """The ``ncand`` candidate offsets, ascending: one bitmap, one rank
+        and one compaction launch at cap ``HOST_VERIFY_MAX``, then one readback of
         the used slots (the caller has checked ``ncand <= HOST_VERIFY_MAX``)."""
         pk = self.needle.size
         dh2 = dh.ensure_kh(pk)

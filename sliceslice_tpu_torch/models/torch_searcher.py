@@ -1,8 +1,8 @@
 """Portable torch-ops searcher — the counterpart of the JAX package's
 ``XlaSearcher``: the same probe algorithm as plain tensor code on any
 device, with no kernel.  The differential path the kernels are held
-against.  Its count and its positions (the match bitmap and its
-compaction) run as plain torch ops on the layout's device, so a layout on
+against.  Its count and its positions (the match bitmap, its ranks and
+its compaction) run as plain torch ops on the layout's device, so a layout on
 the card is never counted or scanned on the host."""
 
 from __future__ import annotations

@@ -87,7 +87,7 @@ def chained_match_bitmap(flat, uniq_tables, uniq_lens, chunk_map, offsets, hay_l
     n_words = scan_kernel.bitmap_words(flat.numel(), t)
     shifts = [o // 32 for o in offsets]
     acc = None
-    for u0, u1 in torch_backend.position_batches(len(uniq_tables), flat.numel(), t, 0):
+    for u0, u1 in torch_backend.position_batches(len(uniq_tables), flat.numel(), t):
         words = bitmap(flat, values[u0:u1], masks[u0:u1], ends[u0:u1])[0]
         for u, d in zip(chunk_map, shifts):
             if not u0 <= u < u1:

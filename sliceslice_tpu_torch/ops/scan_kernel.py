@@ -1,6 +1,7 @@
 """Kernel wrappers of the find, count and positions paths:
 ``batched_find``, ``batched_count``, ``match_bitmap_counted`` (and
-``match_bitmap``), ``compact_positions`` and ``memchr_find``.
+``match_bitmap``), ``item_ranks``, ``compact_window`` (capped as
+``compact_positions``) and ``memchr_find``.
 
 Each wrapper launches its hand-written CUDA kernel (``csrc/find.cu``,
 ``csrc/positions.cu``) for a tensor on a CUDA device and runs its plain
@@ -14,7 +15,9 @@ attribute, ``launches``.
 ``batched_count_cols`` over the Pallas count kernel, ``memchr_find`` its
 ``memchr_find_cols``, ``match_bitmap_counted`` the plain-XLA
 ``xla_backend.match_bitmap_batched`` of the positions path (linear here)
-and ``compact_positions`` its ``compact_positions_batched``.  The find,
+and ``item_ranks`` with ``compact_window`` its ``compact_positions_batched``
+(``compact_positions`` keeps that contract; ``compact_window`` also packs
+every row's offsets into one buffer).  The find,
 count and bitmap kernels take work items (row, chunk of positions) from a
 queue in chunk-major order (:func:`plan_queue`).  The haystack is the flat
 layout of :mod:`.layout`: positions are byte offsets into it, and its zero
@@ -74,6 +77,9 @@ BITMAP_CHUNK = COUNT_CHUNK
 #: Widest table the queue kernels hold in registers (csrc/scan_common.cuh
 #: kMaxRegT); wider ones share one instantiation.
 MAX_REG_T = 4
+#: Rows a block of the rank kernel takes at once (csrc/positions.cu: a warp
+#: per row).
+RANK_ROWS = 8
 #: The queue kernels' modes (csrc/find.cu ``Mode``).
 FIND, COUNT, BITMAP = 0, 1, 2
 
@@ -386,8 +392,8 @@ def match_bitmap_counted(hay, values, masks, ends, base=0, n_real=None):
     item_counts int32[n_chunks, N], chunk)``, where ``item_counts[c, n]``
     is the number of set bits of row ``n`` at positions ``[c * chunk, (c +
     1) * chunk)``.  A row's total is the sum over ``c``; the exclusive
-    cumsum over ``c`` ranks each item's first match within its row, which
-    is what :func:`compact_positions` needs."""
+    cumsum over ``c`` ranks each item's first match within its row: both
+    are :func:`item_ranks`'."""
     base, values, masks, ends = _operands(hay, values, masks, ends, base)
     device = hay.device
     if device.type == "cpu":
@@ -416,18 +422,172 @@ def compact_positions_plain(words, item_counts, chunk, cap):
     then bits), so a dense row costs no more than a sparse one."""
     n = words.shape[0]
     cap = int(cap)
+    offsets = torch.full((n, cap), SENTINEL, dtype=torch.int32, device=words.device)
+    compact_window_plain(words, item_counts, None, chunk, offsets, cap=cap)
+    return popcount32(words).sum(dim=1, dtype=torch.int32), offsets
+
+
+def _check_compaction(words, item_counts, chunk) -> None:
+    """The operands every compaction wrapper takes: :func:`match_bitmap_counted`'s
+    words, item counts and chunk, on one device."""
+    if (words.dim() != 2 or words.dtype != torch.int32 or item_counts.dtype != torch.int32
+            or item_counts.dim() != 2 or item_counts.shape[1] != words.shape[0]
+            or words.shape[1] % 4 or int(chunk) % WIDE_TILE or item_counts.device != words.device):
+        raise ValueError("the compaction takes match_bitmap_counted's words, item counts and chunk")
+
+
+def _cuda_operand(x, what: str, shape: tuple, dtype=torch.int32, device=None) -> None:
+    """A kernel operand: contiguous, of ``dtype`` and ``shape``, on ``device``."""
+    if (x.dtype != dtype or tuple(x.shape) != tuple(shape) or not x.is_contiguous()
+            or (device is not None and x.device != device)):
+        raise ValueError(f"{what} must be a contiguous {dtype} tensor of shape {tuple(shape)} "
+                         f"on {device}")
+
+
+def item_ranks_plain(item_counts, offsets=None):
+    """Plain PyTorch version of :func:`item_ranks` (same signature and
+    answers)."""
+    counts = item_counts.sum(dim=0, dtype=torch.int32)
+    first = torch.cumsum(item_counts, dim=0, dtype=torch.int32) - item_counts
+    if offsets is not None:
+        cols = torch.arange(offsets.shape[1], device=offsets.device)
+        offsets.masked_fill_(cols[None, :] >= counts[:, None], SENTINEL)
+    return counts, first
+
+
+def item_ranks(item_counts, offsets=None):
+    """``(counts int32[N], first_rank int32[n_chunks, N])`` of the bitmap
+    kernel's per-item match counts (``item_counts`` int32[n_chunks, N] of
+    :func:`match_bitmap_counted`): each row's match count, and each item's
+    first rank within its row, the exclusive cumsum of its row's earlier
+    items.  With ``offsets`` (int32[N, cap]), each row's tail past its
+    count, ``offsets[n, min(counts[n], cap):]``, is set to SENTINEL in
+    place: the rest is the capped compaction's (:func:`compact_positions`).
+    One launch of the rank kernel (``csrc/positions.cu``) on the card."""
+    device = item_counts.device
+    if device.type == "cpu":
+        return item_ranks_plain(item_counts, offsets)
+    if device.type != "cuda":
+        raise ValueError(f"no rank kernel for device {device}")
+    if item_counts.dim() != 2:
+        raise ValueError("item_counts must be int32[n_chunks, N]")
+    n_chunks, n = item_counts.shape
+    _cuda_operand(item_counts, "item_counts", (n_chunks, n))
+    if offsets is not None:
+        _cuda_operand(offsets, "offsets", (n, offsets.shape[-1]), device=device)
+    counts = torch.empty((n,), dtype=torch.int32, device=device)
+    first = torch.empty((n_chunks, n), dtype=torch.int32, device=device)
+    if n == 0:
+        return counts, first
+    grid = min(-(-n // RANK_ROWS), BLOCKS_PER_SM * _sm_count(device.index))
+    with torch.cuda.device(device):
+        err = cuda_lib.load().ssf_item_ranks(
+            item_counts.data_ptr(), n_chunks, n, counts.data_ptr(), first.data_ptr(),
+            0 if offsets is None else offsets.data_ptr(), 0 if offsets is None else offsets.shape[1],
+            grid, torch.cuda.current_stream().cuda_stream,
+        )
+    cuda_lib.check(err, "ssf_item_ranks")
+    item_ranks.launches += 1
+    return counts, first
+
+
+item_ranks.launches = 0
+
+
+def _rank_windows(n: int, cap, row_base, window, device):
+    """Per row, int64 ``(lo, hi, dst)``: the row's window of ranks ``[lo,
+    hi)`` and where its rank 0 would go in the flat output."""
+    if cap is not None:
+        rows = torch.arange(n, dtype=torch.int64, device=device)
+        return torch.zeros_like(rows), torch.full_like(rows, int(cap)), rows * int(cap)
+    base = row_base.to(device=device, dtype=torch.int64)
+    lo, hi = window
+    return lo - base, hi - base, base - lo
+
+
+def compact_window_plain(words, item_counts, first_rank, chunk, out, cap=None, row_base=None,
+                         window=(0, 0)):
+    """Plain PyTorch version of :func:`compact_window` (same signature and
+    answers).  It reads only ``words``: ranks are popcounts, and only the
+    words holding a rank in their row's window are expanded (nonzero words,
+    then bits)."""
+    lo, hi, dst = _rank_windows(words.shape[0], cap, row_base, window, words.device)
+    pc = popcount32(words).to(torch.int64)
+    before = torch.cumsum(pc, dim=1) - pc  # the row's matches in earlier words
+    r, w = torch.nonzero((words != 0) & (before < hi[:, None]) & (before + pc > lo[:, None]),
+                         as_tuple=True)
+    shifts = torch.arange(32, dtype=torch.int64, device=words.device)
+    bits = (words[r, w].to(torch.int64)[:, None] >> shifts) & 1
+    rank = before[r, w][:, None] + torch.cumsum(bits, dim=1) - bits
+    k, b = torch.nonzero((bits != 0) & (rank >= lo[r][:, None]) & (rank < hi[r][:, None]),
+                         as_tuple=True)
+    out.view(-1)[dst[r[k]] + rank[k, b]] = (32 * w[k] + b).to(torch.int32)
+    return out
+
+
+def compact_window(words, item_counts, first_rank, chunk, out, cap=None, row_base=None,
+                   window=(0, 0)):
+    """Write into ``out`` the match offsets of each row's window of ranks,
+    from the linear bitmaps ``words`` and their ``item_counts`` and
+    ``chunk`` (:func:`match_bitmap_counted`'s) and ``first_rank``
+    (:func:`item_ranks`'), in one of two modes:
+
+    * capped (``cap`` given): ranks ``[0, cap)`` of row ``n`` at ``out[n,
+      r]``, ``out`` int32[N, cap]; slots past the row's count are left as
+      they are (:func:`item_ranks` fills them);
+    * packed (``row_base`` given, int64[N], the exclusive cumsum of the
+      rows' counts): rank ``r`` of row ``n`` is packed rank ``row_base[n] +
+      r``, and the packed ranks ``[lo, hi) = window`` go to ``out[0 : hi -
+      lo]``, ``out`` int32[hi - lo]: every row's offsets, ascending, row
+      after row, a window at a time.
+
+    One launch of the compaction kernel (``csrc/positions.cu``) on the
+    card; returns ``out``."""
+    if (cap is None) == (row_base is None):
+        raise ValueError("compact_window takes cap (capped mode) or row_base (packed mode)")
+    _check_compaction(words, item_counts, chunk)
+    n = words.shape[0]
+    lo, hi = (int(x) for x in window)
+    if cap is not None:
+        cap = int(cap)
+        if cap < 0:
+            raise ValueError(f"cap={cap} is negative")
+        shape = (n, cap)
+    elif not 0 <= lo <= hi:
+        raise ValueError(f"window {window} is not a range of ranks")
+    else:
+        shape = (hi - lo,)
+    if tuple(out.shape) != shape or out.dtype != torch.int32:
+        raise ValueError(f"out must be int32 of shape {shape}")
     device = words.device
-    pc = popcount32(words)
-    counts = pc.sum(dim=1, dtype=torch.int32)
-    before = torch.cumsum(pc, dim=1, dtype=torch.int32) - pc  # matches in earlier words
-    r, w = torch.nonzero((words != 0) & (before < cap), as_tuple=True)
-    shifts = torch.arange(32, dtype=torch.int64, device=device)
-    bits = ((words[r, w].to(torch.int64)[:, None] >> shifts) & 1).to(torch.int32)
-    rank = before[r, w][:, None] + torch.cumsum(bits, dim=1, dtype=torch.int32) - bits
-    k, b = torch.nonzero((bits != 0) & (rank < cap), as_tuple=True)
-    offsets = torch.full((n, cap), SENTINEL, dtype=torch.int32, device=device)
-    offsets[r[k], rank[k, b]] = (32 * w[k] + b).to(torch.int32)
-    return counts, offsets
+    if device.type == "cpu":
+        return compact_window_plain(words, item_counts, first_rank, chunk, out, cap, row_base, window)
+    if device.type != "cuda":
+        raise ValueError(f"no compaction kernel for device {device}")
+    for x, what, want in ((words, "words", words.shape), (item_counts, "item_counts", item_counts.shape),
+                          (first_rank, "first_rank", item_counts.shape), (out, "out", shape)):
+        _cuda_operand(x, what, want, device=device)
+    if row_base is not None:
+        _cuda_operand(row_base, "row_base", (n,), torch.int64, device)
+    if words.data_ptr() % 16:
+        raise ValueError("bitmap buffer must be 16-byte aligned")
+    n_items = item_counts.numel()
+    if n_items == 0 or (hi == lo if cap is None else cap == 0):
+        return out
+    grid = min(n_items, BLOCKS_PER_SM * _sm_count(device.index))
+    with torch.cuda.device(device):
+        err = cuda_lib.load().ssf_compact_positions(
+            words.data_ptr(), words.shape[1], n, n_items, int(chunk), item_counts.data_ptr(),
+            first_rank.data_ptr(), 0 if cap is None else cap,
+            0 if row_base is None else row_base.data_ptr(), lo, hi, out.data_ptr(), grid,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    cuda_lib.check(err, "ssf_compact_positions")
+    compact_window.launches += 1
+    return out
+
+
+compact_window.launches = 0
 
 
 def compact_positions(words, item_counts, chunk, cap):
@@ -435,9 +595,10 @@ def compact_positions(words, item_counts, chunk, cap):
     (the JAX ``compact_positions_batched`` contract): each row's match
     count and its ``cap`` earliest offsets, ascending, SENTINEL past the
     count, on the bitmaps' device.  ``words``, ``item_counts`` and
-    ``chunk`` are :func:`match_bitmap_counted`'s; the kernel takes each
-    row's count from ``item_counts`` and each item's first rank from their
-    exclusive cumsum over chunks."""
+    ``chunk`` are :func:`match_bitmap_counted`'s.  On the card: one
+    :func:`item_ranks` launch (counts, first ranks, the SENTINEL tail) and
+    one capped :func:`compact_window` launch, into buffers from
+    ``torch.empty``."""
     cap = int(cap)
     if cap < 0:
         raise ValueError(f"cap={cap} is negative")
@@ -446,33 +607,11 @@ def compact_positions(words, item_counts, chunk, cap):
         return compact_positions_plain(words, item_counts, chunk, cap)
     if device.type != "cuda":
         raise ValueError(f"no compaction kernel for device {device}")
-    n, row_words = words.shape
-    if (words.dtype != torch.int32 or item_counts.dtype != torch.int32 or item_counts.dim() != 2
-            or item_counts.shape[1] != n or row_words % 4 or chunk % WIDE_TILE
-            or item_counts.device != device):
-        raise ValueError("compact_positions takes match_bitmap_counted's words, item counts and chunk")
-    words, item_counts = words.contiguous(), item_counts.contiguous()
-    if words.data_ptr() % 16:
-        raise ValueError("bitmap buffer must be 16-byte aligned")
-    counts = item_counts.sum(dim=0, dtype=torch.int32)
-    first = torch.cumsum(item_counts, dim=0, dtype=torch.int32) - item_counts
-    offsets = torch.full((n, cap), SENTINEL, dtype=torch.int32, device=device)
-    n_items = item_counts.numel()
-    if n_items == 0 or cap == 0:
-        return counts, offsets
-    grid = min(n_items, BLOCKS_PER_SM * _sm_count(device.index))
-    with torch.cuda.device(device):
-        err = cuda_lib.load().ssf_compact_positions(
-            words.data_ptr(), row_words, n, n_items, chunk, item_counts.data_ptr(),
-            first.data_ptr(), cap, offsets.data_ptr(), grid,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    cuda_lib.check(err, "ssf_compact_positions")
-    compact_positions.launches += 1
+    _check_compaction(words, item_counts, chunk)
+    offsets = torch.empty((words.shape[0], cap), dtype=torch.int32, device=device)
+    counts, first = item_ranks(item_counts, offsets)
+    compact_window(words, item_counts, first, chunk, offsets, cap=cap)
     return counts, offsets
-
-
-compact_positions.launches = 0
 
 
 def memchr_find_plain(hay, byte, end, base=0) -> torch.Tensor:

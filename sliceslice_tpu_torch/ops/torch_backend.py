@@ -5,9 +5,10 @@ short-haystack rung (on any device), the differential path behind
 ``TorchSearcher``, whose count (:func:`count_cols`) keeps a layout on the
 card from being counted on the host, and the two-tier positions protocol.
 These were plain XLA in the JAX package, so they stay plain tensor code
-here, but for the match bitmap and its compaction under the positions,
-which are kernels (``scan_kernel.match_bitmap_counted`` and
-``scan_kernel.compact_positions``); the hand-written kernels live in
+here, but for the match bitmap, its ranks and its compaction under the
+positions, which are kernels (``scan_kernel.match_bitmap_counted``,
+``scan_kernel.item_ranks`` and ``scan_kernel.compact_window``, capped as
+``scan_kernel.compact_positions``); their wrappers live in
 :mod:`.scan_kernel`.
 """
 
@@ -97,28 +98,42 @@ def count_cols(flat, values, masks, end) -> torch.Tensor:
 #
 # The JAX package's two tiers: rows with at most ``cap`` matches read back
 # their ``cap`` earliest offsets, denser rows their packed bitmap for a host
-# decode.  Here both tiers come from one bitmap per row: the match-bitmap
-# kernel writes it with each queue item's match count, and the compaction
-# kernel cuts the compact offsets from it (their plain versions on the
-# CPU).  One launch of each per batch of rows, as many rows as
-# :data:`POSITIONS_BUDGET_BYTES` allows.
+# decode.  Here every row is compacted on the card: the match-bitmap kernel
+# writes one bitmap per row with each queue item's match count, the rank
+# kernel turns those into each row's count and each item's first rank, and
+# the compaction kernel packs every row's offsets into one buffer, row after
+# row (their plain versions on the CPU).  One bitmap and one rank launch per
+# batch of rows, as many rows as :data:`POSITIONS_BUDGET_BYTES` allows, and
+# one compaction launch per window of the packed offsets.
 
 #: Default sparse-positions budget of every two-tier positions path.
 SPARSE_POSITIONS_CAP = 4096
-#: Device bytes one launch batch of the positions protocol may hold: its
-#: rows' bitmaps, item counts and compact offsets.
+#: Device bytes the positions protocol may hold at once: one launch
+#: batch's bitmaps, item counts, ranks, counts and row bases, and one
+#: window of its packed offsets.
 POSITIONS_BUDGET_BYTES = 1 << 30
+#: The share of the budget one window of packed offsets takes (a quarter);
+#: the launch batch's rows hold the rest.
+WINDOW_SHARE = 4
 
 
-def position_batches(rows: int, nbytes: int, t: int, cap: int,
+def window_entries() -> int:
+    """Offsets (int32) per window of the packed compaction: a
+    :data:`WINDOW_SHARE` of the budget, at least one."""
+    return max(1, POSITIONS_BUDGET_BYTES // WINDOW_SHARE // 4)
+
+
+def position_batches(rows: int, nbytes: int, t: int,
                      batch: Optional[int] = None) -> List[Tuple[int, int]]:
     """Row ranges ``[i0, i1)`` of the launch batches of ``rows`` width-``t``
-    rows over an ``nbytes`` layout: as many rows per batch as
-    :data:`POSITIONS_BUDGET_BYTES` holds (each row's bitmap, item counts
-    and ``cap`` offsets), at most ``batch`` when given, at least one."""
+    rows over an ``nbytes`` layout: as many rows per batch as the budget
+    holds beside one window of packed offsets (each row's bitmap, its item
+    counts and first ranks, its count and its int64 row base), at most
+    ``batch`` when given, at least one."""
     words = scan_kernel.bitmap_words(nbytes, t)
     chunks = -(-position_limit(nbytes, t) // scan_kernel.BITMAP_CHUNK)
-    per = max(1, POSITIONS_BUDGET_BYTES // (4 * (words + chunks + max(int(cap), 0))))
+    room = POSITIONS_BUDGET_BYTES - 4 * window_entries()
+    per = max(1, room // (4 * (words + 2 * chunks + 3)))
     if batch is not None:
         per = min(per, max(1, int(batch)))
     return [(i0, min(i0 + per, rows)) for i0 in range(0, rows, per)]
@@ -138,56 +153,57 @@ def compact_positions_batched(flat, values, masks, ends, cap: int):
     """Size-bounded all-positions scan (the JAX contract): ``(counts
     int32[N], offsets int32[N, cap])`` ascending, SENTINEL-filled.  Rows
     with at most ``cap`` matches get all of them; denser rows their ``cap``
-    earliest, and the caller falls back to the bitmap for them."""
+    earliest."""
     words, item_counts, chunk = scan_kernel.match_bitmap_counted(flat, values, masks, ends)
     return scan_kernel.compact_positions(words, item_counts, chunk, int(cap))
 
 
 def two_tier_positions(flat, values, masks, ends, cap: int, plain: bool = False) -> List[np.ndarray]:
-    """The two-tier all-positions protocol over one launch batch: one
-    bitmap launch and one compaction launch on the layout's device (their
-    plain versions there when ``plain``); rows with at most ``cap`` matches
-    take their compact offsets, denser rows their bitmap (corpus/8 bytes
-    each), decoded on the host.  Three readbacks at most: the counts, the
-    sparse rows' used offsets packed on the device, and the dense rows'
-    bitmaps in one gathered copy.  Returns int64 ascending offset arrays,
-    one per row."""
-    _, values, masks, ends = scan_kernel._operands(flat, values, masks, ends, 0)
+    """Every match offset of each row of one launch batch, as int64
+    ascending arrays, one per row: the answers of the JAX package's two
+    tiers, with every row, sparse or dense, compacted on the layout's
+    device.  One bitmap launch and one rank launch, then readback 1, the
+    rows' counts; the packed bases on the host; then per window of
+    :func:`window_entries` packed offsets, one compaction launch and one
+    readback.  ``plain`` runs the kernels' plain versions on the layout's
+    device.  ``cap`` (the JAX sparse cap) is validated, a negative one
+    refused, and changes nothing else: no row falls back to its bitmap."""
     cap = int(cap)
+    if cap < 0:
+        raise ValueError(f"cap={cap} is negative")
+    _, values, masks, ends = scan_kernel._operands(flat, values, masks, ends, 0)
     if plain:
-        words, item_counts, chunk = scan_kernel.match_bitmap_counted_plain(flat, values, masks, ends)
-        counts, offsets = scan_kernel.compact_positions_plain(words, item_counts, chunk, cap)
+        bitmap = scan_kernel.match_bitmap_counted_plain
+        ranks, compact = scan_kernel.item_ranks_plain, scan_kernel.compact_window_plain
     else:
-        words, item_counts, chunk = scan_kernel.match_bitmap_counted(flat, values, masks, ends)
-        counts, offsets = scan_kernel.compact_positions(words, item_counts, chunk, cap)
-    n, device = words.shape[0], words.device
-    cnt = counts.cpu().numpy()
-    lens = np.where(cnt <= cap, cnt, 0).astype(np.int64)
-    total = int(lens.sum())
-    packed = np.zeros((0,), np.int64)
+        bitmap = scan_kernel.match_bitmap_counted
+        ranks, compact = scan_kernel.item_ranks, scan_kernel.compact_window
+    words, item_counts, chunk = bitmap(flat, values, masks, ends)
+    counts, first = ranks(item_counts)
+    cnt = counts.cpu().numpy().astype(np.int64)
+    if not cnt.size:
+        return []
+    stops = np.cumsum(cnt)
+    total = int(stops[-1])
+    packed = np.empty((total,), np.int64)
     if total:
-        # The sparse rows' used slots, row after row: slot j of the packed
-        # run of row r is offsets[r, j], flat index r * cap + j.
-        lens_dev = torch.from_numpy(lens).to(device)
-        starts = torch.cumsum(lens_dev, 0) - lens_dev
-        row0 = torch.arange(n, dtype=torch.int64, device=device) * cap - starts
-        idx = torch.repeat_interleave(row0, lens_dev, output_size=total)
-        idx += torch.arange(total, dtype=torch.int64, device=device)
-        packed = offsets.view(-1)[idx].cpu().numpy().astype(np.int64)
-    stops = np.cumsum(lens).tolist()
-    out = [packed[a:b] for a, b in zip([0] + stops[:-1], stops)]
-    dense = np.flatnonzero(cnt > cap)
-    if dense.size:
-        rows = words[torch.from_numpy(dense).to(device)].cpu().numpy()
-        for j, row in zip(dense, rows):
-            out[j] = decode_match_bitmap(row)
-    return out
+        row_base = torch.from_numpy(stops - cnt).to(words.device)
+        step = window_entries()
+        for lo in range(0, total, step):
+            hi = min(lo + step, total)
+            out = torch.empty((hi - lo,), dtype=torch.int32, device=words.device)
+            compact(words, item_counts, first, chunk, out, row_base=row_base, window=(lo, hi))
+            packed[lo:hi] = out.cpu().numpy()
+    bounds = [0] + stops.tolist()
+    # Row slices by hand: np.split costs several times more per row.
+    return [packed[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
 
 
 def decode_match_bitmap(words: np.ndarray) -> np.ndarray:
     """Decode one linear bitmap (int32 bit patterns or uint32) to ascending
-    int64 offsets: the native C++ decoder (csrc/swarscan.cpp) when it
-    builds, else :func:`decode_match_bitmap_numpy`."""
+    int64 offsets (the huge-needle dense tier's): the native C++ decoder
+    (csrc/swarscan.cpp) when it builds, else
+    :func:`decode_match_bitmap_numpy`."""
     from ..utils import native
 
     out = native.decode_bitmap(words)

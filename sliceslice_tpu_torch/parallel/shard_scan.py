@@ -3,7 +3,8 @@ over a corpus cut into shards along a mesh's data axis.
 
 Counterpart of ``sliceslice_tpu/parallel/shard_scan.py``.  Each cell of the
 mesh runs the port's kernels (``scan_kernel.batched_find``,
-``batched_count``, ``match_bitmap_counted``, ``compact_positions``) over its
+``batched_count``, ``match_bitmap_counted``, ``item_ranks``,
+``compact_window``) over its
 row's shard for its column's block of needle rows, with shard-local int32
 offsets and ``base = 0``; the shard's int64 base is added when the cells
 are combined, on the device, and one ``torch.distributed`` collective per
@@ -21,8 +22,8 @@ query batch combines the processes (none without a process group).
 * **Return types** are the JAX package's: a device int32 tensor
   (``SENTINEL`` absent) when the padded global corpus fits int32 and
   ``force_int64`` is off, else a host int64 ndarray (-1 absent).
-* **Positions** are two-tier per (needle, shard) cell: the bitmap and
-  compaction kernels of ``torch_backend.two_tier_positions``, the shard's
+* **Positions** are compacted per (needle, shard) cell: the bitmap, rank
+  and compaction kernels of ``torch_backend.two_tier_positions``, the shard's
   base added in int64, lists joined in shard order.  A process returns the
   offsets of its own shards (``gather_positions`` joins them).
 
@@ -282,13 +283,13 @@ def positions_of_cells(place: Placement, cells: Sequence[Cell], n: int, cap: int
                        batch: Optional[int] = None) -> List[np.ndarray]:
     """Every offset of each of ``n`` rows over this process's cells: per
     cell, launch batches of at most ``batch`` rows (and of the positions
-    budget, ``torch_backend.position_batches``), each one bitmap and one
-    compaction launch with the two-tier readback; the cell's base added in
-    int64, lists joined in shard order."""
+    budget, ``torch_backend.position_batches``), each compacted on the
+    cell's device by ``torch_backend.two_tier_positions``; the cell's base
+    added in int64, lists joined in shard order."""
     parts: List[list] = [[] for _ in range(n)]
     for c in sorted(cells, key=lambda c: c.d):
         shard = place.shards[(c.d, c.device)]
-        for i0, i1 in torch_backend.position_batches(c.rows, shard.numel(), c.values.shape[1], cap, batch):
+        for i0, i1 in torch_backend.position_batches(c.rows, shard.numel(), c.values.shape[1], batch):
             res = torch_backend.two_tier_positions(shard, c.values[i0:i1], c.masks[i0:i1], c.ends[i0:i1], cap)
             for k, p in enumerate(res):
                 if p.size:
@@ -298,10 +299,10 @@ def positions_of_cells(place: Placement, cells: Sequence[Cell], n: int, cap: int
 
 def sharded_positions(dh, values, masks, ends, mesh: Mesh, sparse_cap: Optional[int] = None) -> list:
     """ALL (overlapping) match offsets per needle over a sharded corpus,
-    int64 ascending: two tiers per (needle, shard) cell, a cell of at most
-    ``sparse_cap`` matches taking its compacted offsets and a denser one
-    its bitmap.  This process's shards only (``gather_positions`` joins
-    the processes)."""
+    int64 ascending, every (needle, shard) cell compacted on its device
+    (``torch_backend.two_tier_positions``: the answers of the JAX two
+    tiers; ``sparse_cap``, the JAX signature's, is only validated).  This
+    process's shards only (``gather_positions`` joins the processes)."""
     cap = torch_backend.SPARSE_POSITIONS_CAP if sparse_cap is None else int(sparse_cap)
     place = place_corpus(dh, mesh)
     v, m = _tables(values, masks, mesh.home)
@@ -590,7 +591,9 @@ class ShardedBatchedSearcher:
         """ALL (overlapping) match offsets per needle (int64[M] ascending,
         input order) across the sharded corpus.  ``batch`` caps the rows
         of one launch batch (default: the positions budget, as
-        ``BatchedSearcher.positions_all``).  In a group of processes each
+        ``BatchedSearcher.positions_all``); every cell's rows are compacted
+        on the card, sparse and dense alike, so ``sparse_cap`` (the JAX
+        signature's) is only validated.  In a group of processes each
         returns the offsets of its own shards; ``gather=True`` gives every
         process the global lists (two collectives)."""
         corpus = self._corpus(hay)

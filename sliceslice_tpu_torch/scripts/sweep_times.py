@@ -24,9 +24,13 @@ the same words after ``optimize_for`` (each call reads its answers back),
 ``--reps`` calls between two CUDA events, 5 samples, after checking every
 answer against the host positions scan; then a torch.profiler trace of 4
 calls (device µs per call, the card's idle share, device events per call,
-and the device µs per call of the match-bitmap and compaction kernels),
-and a cProfile run of 4 calls (the host functions with the most own time,
-ms per call; cProfile slows the host's Python).  One JSON line.
+and the device µs per call of the match-bitmap, rank and compaction
+kernels), a cProfile run of 4 calls (the host functions with the most own
+time, ms per call; cProfile slows the host's Python), and the positions
+functions over one sweep's bitmaps (``positions_kernel_times``: the
+kernels alone behind a spin kernel and their wrapper calls, capped at
+4,096 and packed, beside the first design's torch ops) with their bounds
+(``positions_bounds``).  One JSON line.
 
 ``--pairs`` times the all-pairs sweep of the length-sorted words instead
 (21,022,225 pairs), after checking the count against ``bytes.find``: the
@@ -145,10 +149,123 @@ def positions_times(torch, bs, hay: bytes, dh, device, reps: int = 4, samples: i
     m = measure(lambda: [bs.positions_all(dh) for _ in range(reps)], "positions sweep", warmup=1,
                 samples=samples, device=device)
     trace = trace_share(torch, lambda: bs.positions_all(dh), reps=4,
-                        groups={"match_bitmap": "match_bitmap_kernel", "compaction": "compact_kernel"})
+                        groups={"match_bitmap": "match_bitmap_kernel", "ranks": "rank_kernel",
+                                "compaction": "compact_kernel"})
+    calls = positions_calls(bs, dh)
     return {"sweep_ms": [x * 1e3 / reps for x in (m.low, m.estimate, m.high)],
             "matches": sum(len(p) for p in got), "trace": trace,
-            "host_ms": host_profile(torch, lambda: bs.positions_all(dh))}
+            "host_ms": host_profile(torch, lambda: bs.positions_all(dh)),
+            "kernels": positions_kernel_times(torch, calls, device),
+            "bounds": positions_bounds(torch, calls)}
+
+
+def positions_calls(bs, dh) -> list:
+    """The match-bitmap kernel's ``(words, item_counts, chunk)`` for each
+    width group of ``bs`` over ``dh``, in one launch batch each (as one
+    i386 positions sweep takes them)."""
+    from sliceslice_tpu_torch.ops import scan_kernel
+
+    return [scan_kernel.match_bitmap_counted(dh.flat, g.values_dev, g.masks_dev, g.ends_dev(dh.length))
+            for g in bs.groups]
+
+
+def positions_kernel_times(torch, calls, device, cap: int = 4096, reps: int = 32) -> dict:
+    """{name: {"device_ms", "call_ms"}} for one sweep's worth of ``calls``
+    (``positions_calls``): ``device_ms`` [low, median, high] is the device
+    time of ``reps`` sweeps queued behind a spin kernel long enough for the
+    host to enqueue them all (``device_ms``: the kernel alone where a call
+    launches nothing else), ``call_ms`` the same
+    sweeps between two CUDA events without the spin (host dispatch
+    included).  Both trees: the capped wrapper ``compact_positions`` (cap
+    ``cap``, fills included) and the torch ops of the first design's
+    wrapper around its kernel (the counts, the first ranks, the SENTINEL
+    fill); a tree with the rank kernel also: ``item_ranks`` packed (no
+    tail) and capped, ``compact_window`` capped (after the ranks) and
+    packed (every row, one window), and the plain versions of the packed
+    pair (``call_ms`` only)."""
+    import numpy as np
+
+    from sliceslice_tpu_torch.config import SENTINEL
+    from sliceslice_tpu_torch.ops import scan_kernel as sk
+    from sliceslice_tpu_torch.utils.profiling import measure
+
+    out = {}
+
+    def timed(name, fn, on_device=True):
+        m = measure(lambda: [fn() for _ in range(reps)], name, warmup=1, samples=5, device=device)
+        out[name] = {"call_ms": [x * 1e3 / reps for x in (m.low, m.estimate, m.high)]}
+        if on_device:  # a spin of ~50 ms: the host enqueues up to 12 wrapper calls a sweep
+            out[name]["device_ms"] = device_ms(torch, fn, reps=reps, spin_cycles=100_000_000)
+
+    def torch_ops():
+        for words, ic, _ in calls:
+            ic.sum(dim=0, dtype=torch.int32)
+            torch.cumsum(ic, dim=0, dtype=torch.int32) - ic
+            torch.full((words.shape[0], cap), SENTINEL, dtype=torch.int32, device=words.device)
+
+    timed("first_design_torch_ops", torch_ops)
+    timed("compact_positions_capped", lambda: [sk.compact_positions(*c, cap) for c in calls])
+    if not hasattr(sk, "item_ranks"):
+        return out
+    ranks = [sk.item_ranks(ic) for _, ic, _ in calls]
+    offsets = [torch.empty((w.shape[0], cap), dtype=torch.int32, device=w.device) for w, _, _ in calls]
+    packed = []
+    for (words, _, _), (counts, _) in zip(calls, ranks):
+        cnt = counts.cpu().numpy().astype(np.int64)
+        total = int(cnt.sum())
+        packed.append((torch.from_numpy(np.cumsum(cnt) - cnt).to(words.device), total,
+                       torch.empty((total,), dtype=torch.int32, device=words.device)))
+    timed("item_ranks_packed", lambda: [sk.item_ranks(ic) for _, ic, _ in calls])
+    timed("item_ranks_capped", lambda: [sk.item_ranks(ic, o) for (_, ic, _), o in zip(calls, offsets)])
+    timed("compact_window_capped", lambda: [sk.compact_window(w, ic, r[1], ch, o, cap=cap)
+                                            for (w, ic, ch), r, o in zip(calls, ranks, offsets)])
+    timed("compact_window_packed", lambda: [sk.compact_window(w, ic, r[1], ch, buf, row_base=b, window=(0, t))
+                                            for (w, ic, ch), r, (b, t, buf) in zip(calls, ranks, packed)])
+    timed("item_ranks_plain", lambda: [sk.item_ranks_plain(ic) for _, ic, _ in calls], on_device=False)
+    timed("compact_window_plain_packed",
+          lambda: [sk.compact_window_plain(w, ic, r[1], ch, buf, row_base=b, window=(0, t))
+                   for (w, ic, ch), r, (b, t, buf) in zip(calls, ranks, packed)], on_device=False)
+    return out
+
+
+def positions_bounds(torch, calls, cap: int = 4096) -> dict:
+    """{name: (bound ms, "bytes" or "operations")} of the positions
+    functions over ``calls`` (``positions_calls``), each input byte read
+    once and each output byte written once, for what these inputs need
+    (``utils.profiling.bound_ms``): the ranks (the item counts read, the
+    first ranks and counts written; capped, also the SENTINEL tail), the
+    packed compaction (every item's count and first rank, the row bases,
+    the words of every item holding a match, the offsets written: one op
+    per word read and per offset written), the capped one (the words of
+    items holding a rank below ``cap``, each row's first ``cap`` offsets),
+    and the JAX contract's capped function as a whole (the item counts and
+    live words read, counts and every ``N x cap`` slot written)."""
+    from sliceslice_tpu_torch.utils.profiling import bound_ms
+
+    acc = dict.fromkeys(("ranks", "ranks_tail", "packed", "packed_ops", "capped", "capped_ops",
+                         "contract"), 0)
+    for words, ic, chunk in calls:
+        n_chunks, n = ic.shape
+        cw = chunk // 32
+        per_item = (words.shape[1] - cw * torch.arange(n_chunks, device=ic.device)).clamp(0, cw)
+        first = torch.cumsum(ic, dim=0) - ic
+        counts = ic.sum(dim=0)
+        taken = torch.minimum(counts, torch.tensor(cap, device=ic.device))
+        live = int((per_item[:, None] * (ic > 0)).sum())
+        live_capped = int((per_item[:, None] * ((ic > 0) & (first < cap))).sum())
+        total, kept = int(counts.sum()), int(taken.sum())
+        acc["ranks"] += 4 * (2 * ic.numel() + n)
+        acc["ranks_tail"] += 4 * (n * cap - kept)
+        acc["packed"] += 4 * live + 8 * ic.numel() + 8 * n + 4 * total
+        acc["packed_ops"] += live + total
+        acc["capped"] += 4 * live_capped + 8 * ic.numel() + 4 * kept
+        acc["capped_ops"] += live_capped + kept
+        acc["contract"] += 4 * live_capped + 4 * ic.numel() + 4 * n + 4 * n * cap
+    return {"item_ranks_packed": bound_ms(0, acc["ranks"]),
+            "item_ranks_capped": bound_ms(0, acc["ranks"] + acc["ranks_tail"]),
+            "compact_window_packed": bound_ms(acc["packed_ops"], acc["packed"]),
+            "compact_window_capped": bound_ms(acc["capped_ops"], acc["capped"]),
+            "compact_positions_capped": bound_ms(acc["capped_ops"], acc["contract"])}
 
 
 def host_profile(torch, fn, reps: int = 4, top: int = 10) -> dict:

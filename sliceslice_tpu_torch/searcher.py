@@ -156,10 +156,12 @@ class SearcherBase:
     def positions(self, hay: HaystackLike) -> np.ndarray:
         """ALL (overlapping) match offsets, ascending (int64[M]) — the
         ``find_iter`` capability of memchr-class libraries.  Device path:
-        one match bitmap per needle and its compaction (the match-bitmap
-        and compaction kernels on the card), read back as the
-        ``SPARSE_POSITIONS_CAP`` earliest offsets when the needle has no
-        more, else the bitmap, whole and decoded on the host.  Host bytes
+        one match bitmap, its ranks and its compaction (the match-bitmap,
+        rank and compaction kernels on the card), every offset compacted
+        there and read back packed, however many there are
+        (``torch_backend.two_tier_positions``; the JAX package reads a
+        needle of more than ``SPARSE_POSITIONS_CAP`` matches back as its
+        bitmap, the port does not).  Host bytes
         of at most ``SHORT_HAY_BYTES`` are scanned on the host, as are a
         flat layout and a trivially short haystack off the card; a flat
         layout on the card is re-laid there (``kernel_layout``)."""
@@ -185,7 +187,7 @@ class SearcherBase:
         """Iterator over all (overlapping) match offsets, ascending."""
         return iter(self.positions(hay).tolist())
 
-    #: Whether :meth:`positions` runs the bitmap and compaction kernels'
+    #: Whether :meth:`positions` runs the bitmap, rank and compaction kernels'
     #: plain versions (on the layout's device) instead of the kernels.
     _plain_positions = False
 

@@ -8,8 +8,8 @@ peek so that every match lies whole in the window where it starts;
 per-window ``ends`` mask the overlap, so a match is counted once, in the
 window that holds its first byte (the final window takes the stream's true
 end).  Each window is scanned by the port's kernels: the find and count
-kernels (one launch per width group), the match-bitmap and compaction
-kernels for positions, and the huge needles' prefix filter and verify
+kernels (one launch per width group), the match-bitmap, rank and
+compaction kernels for positions, and the huge needles' prefix filter and verify
 (models/huge.py).  Kernel offsets stay window-local int32; the window's
 int64 base is added by the device folds (find, count) or on the host
 (positions), so offsets past 2^31 and 2^32 are exact.  With a ``mesh``,
@@ -761,15 +761,15 @@ class StreamingScanner:
 
     def _window_positions(self, dh, wlen: int, is_last: bool, cap: int):
         """``(needle index, window-local positions)`` of each kernel-group
-        needle with a match in the window: per width group, one bitmap and
-        one compaction launch per launch batch (per cell and launch batch
-        with a mesh)."""
+        needle with a match in the window: per width group and launch batch
+        (per cell and launch batch with a mesh), one bitmap, one rank and
+        one compaction launch (``torch_backend.two_tier_positions``)."""
         bs = self.batched
         if self.mesh is not None:
             place, cells = self._mesh_cells(dh, wlen, is_last)
             res = [shard_scan.positions_of_cells(place, gc, g.n, cap) for g, gc in zip(bs.groups, cells)]
         else:
-            res = [[p for i0, i1 in torch_backend.position_batches(g.n, dh.flat.numel(), g.t, cap)
+            res = [[p for i0, i1 in torch_backend.position_batches(g.n, dh.flat.numel(), g.t)
                     for p in torch_backend.two_tier_positions(
                         dh.flat, g.values_dev[i0:i1], g.masks_dev[i0:i1], ends[i0:i1], cap)]
                    for g, ends in zip(bs.groups, self._ends_dev(wlen, is_last))]
@@ -779,7 +779,7 @@ class StreamingScanner:
                     yield j, pos
 
     def _positions(self, factory, base0: int = 0) -> list:
-        """Per-window two-tier positions (one bitmap and one compaction
+        """Per-window positions (one bitmap, one rank and one compaction
         launch per launch batch of a width group), window-local clipped
         ends for the exactly-once rule, the int64 window base added on the
         host."""

@@ -108,12 +108,57 @@ def _check_positions_kernels(dh, v, m, e, base=0, n_real=None):
     for other in (again, plain):
         assert torch.equal(words, other[0]) and torch.equal(counts, other[1]) and chunk == other[2]
     for cap in CAPS:
-        before = scan_kernel.compact_positions.launches
+        before = _rank_launches()
         got = scan_kernel.compact_positions(words, counts, chunk, cap)
-        assert scan_kernel.compact_positions.launches == before + 1
+        assert _rank_launches() == (before[0] + 1, before[1] + 1)
         ref = scan_kernel.compact_positions_plain(words, counts, chunk, cap)
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), cap
+    _check_packed_windows(words, counts, chunk)
     return words, counts.sum(dim=0, dtype=torch.int32)
+
+
+def _rank_launches():
+    return scan_kernel.item_ranks.launches, scan_kernel.compact_window.launches
+
+
+def rank_windows(total: int) -> list:
+    """Windows of packed ranks to test: all of them at once, thirds, and
+    the first and last 20 windows of 7 and of 1,000 (windows that cut rows
+    and bitmap words)."""
+    out = {(0, total)}
+    for step in (7, 1000, max(total // 3, 1)):
+        starts = list(range(0, total, step))
+        out.update((lo, min(lo + step, total)) for lo in starts[:20] + starts[-20:])
+    return sorted(out)
+
+
+def _check_packed_windows(words, item_counts, chunk):
+    """The rank kernel and the packed compaction against their plain
+    versions, each window of ``rank_windows`` also against the same slice
+    of the whole packed buffer; a window launches once, an empty one
+    never."""
+    before = _rank_launches()
+    counts, first = scan_kernel.item_ranks(item_counts)
+    assert _rank_launches() == (before[0] + 1, before[1])
+    ref = scan_kernel.item_ranks_plain(item_counts)
+    assert torch.equal(counts, ref[0]) and torch.equal(first, ref[1])
+    cnt = counts.cpu().numpy().astype(np.int64)
+    row_base = torch.from_numpy(np.cumsum(cnt) - cnt).to(words.device)
+    whole = None
+    for lo, hi in rank_windows(int(cnt.sum())):
+        got = torch.full((hi - lo,), -1, dtype=torch.int32, device=words.device)
+        n0 = scan_kernel.compact_window.launches
+        scan_kernel.compact_window(words, item_counts, first, chunk, got, row_base=row_base, window=(lo, hi))
+        assert scan_kernel.compact_window.launches == n0 + (hi > lo)
+        exp = torch.full_like(got, -2)
+        scan_kernel.compact_window_plain(words, item_counts, first, chunk, exp, row_base=row_base,
+                                         window=(lo, hi))
+        assert torch.equal(got, exp), (lo, hi)
+        whole = got if lo == 0 and hi == int(cnt.sum()) else whole
+    for lo, hi in rank_windows(int(cnt.sum())):
+        part = torch.empty((hi - lo,), dtype=torch.int32, device=words.device)
+        scan_kernel.compact_window(words, item_counts, first, chunk, part, row_base=row_base, window=(lo, hi))
+        assert torch.equal(part, whole[lo:hi]), (lo, hi)
 
 
 def _check_queue_kernels(cuda, hay, dh, needles, t, ends, base=0, n_real=None):
@@ -437,6 +482,42 @@ def test_match_bitmap_kernel_equals_plain(cuda, t):
 
 
 
+@pytest.mark.parametrize("chunk", [4096, 65536])
+def test_rank_and_compaction_kernels_equal_plain(cuda, monkeypatch, chunk):
+    """The rank kernel and both compaction modes against their plain
+    versions on rows of 73 chunks (carries across a warp's 32) and of 5:
+    rows past every cap, absent rows, padded rows past ``n_real``; counts,
+    first ranks, the SENTINEL tail at every cap with the head left as it
+    was, the capped offsets and the packed windows."""
+    from sliceslice_tpu_torch.ops.scan_math import position_limit
+
+    monkeypatch.setattr(scan_kernel, "BITMAP_CHUNK", chunk)
+    hay = _hay(31, 300_000)
+    dh = preprocess(hay, kh=needed_halo_for_t(2), device=cuda)
+    needles = [b"a", b"ab", b"\x7f\x7f", hay[-5:], b"abcd", b"dcba", hay[1000:1003]]
+    vals, msks, lens = build_probe_table(needles, t_max=2)
+    vals, msks = np.pad(vals, ((0, 4), (0, 0))), np.pad(msks, ((0, 4), (0, 0)))
+    ends = np.pad(np.maximum(len(hay) - lens + 1, 0), (0, 4)).astype(np.int32)
+    v, m = table_bits(vals, cuda), table_bits(msks, cuda)
+    e = torch.from_numpy(ends).to(cuda)
+    n = vals.shape[0]
+    words, counts, got_chunk = scan_kernel.match_bitmap_counted(dh.flat, v, m, e, n_real=len(needles) + 1)
+    assert got_chunk == chunk and counts.shape == (-(-position_limit(dh.flat.numel(), 2) // chunk), n)
+    for cap in (0,) + CAPS + (16_384,):
+        got_off = torch.full((n, cap), -3, dtype=torch.int32, device=cuda)
+        ref_off = got_off.clone()
+        before = scan_kernel.item_ranks.launches
+        got = scan_kernel.item_ranks(counts, got_off)
+        assert scan_kernel.item_ranks.launches == before + 1
+        ref = scan_kernel.item_ranks_plain(counts, ref_off)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]) and torch.equal(got_off, ref_off), cap
+        got = scan_kernel.compact_positions(words, counts, got_chunk, cap)
+        ref = scan_kernel.compact_positions_plain(words, counts, got_chunk, cap)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), cap
+    assert int(got[0].max()) > 16_384 and int(got[0][len(needles):].sum()) == 0
+    _check_packed_windows(words, counts, got_chunk)
+
+
 def test_contract_tables_on_card(cuda):
     """The mixed-width, exotic-mask and prefix-mask tables of
     ``scripts/contract_cases.py`` (the first refused by the JAX package's
@@ -445,13 +526,13 @@ def test_contract_tables_on_card(cuda):
     through a 2x1 sharded sweep of cells on the card too."""
     from sliceslice_tpu_torch.parallel import make_mesh, sharded_find_cols
 
-    wrappers = (scan_kernel.batched_find, scan_kernel.batched_count,
-                scan_kernel.match_bitmap_counted, scan_kernel.compact_positions)
+    wrappers = (scan_kernel.batched_find, scan_kernel.batched_count, scan_kernel.match_bitmap_counted,
+                scan_kernel.item_ranks, scan_kernel.compact_window)
     for case in contract_cases.cases():
         dh, v, m, e = contract_cases.operands(case, cuda)
         before = [w.launches for w in wrappers]
         got = contract_cases.answers(dh.flat, v, m, e)
-        assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1, 1, 1], case.name
+        assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1, 1, 1, 1], case.name
         assert contract_cases.same(got, contract_cases.answers(dh.flat, v, m, e, plain=True)), case.name
         assert contract_cases.same(got, contract_cases.oracle(case)), case.name
         if case.name == "exotic_mask":
@@ -544,44 +625,81 @@ def test_probe_kernel_refuses_bad_variants(cuda):
 
 
 def _launches():
-    return scan_kernel.match_bitmap_counted.launches, scan_kernel.compact_positions.launches
+    return (scan_kernel.match_bitmap_counted.launches, scan_kernel.item_ranks.launches,
+            scan_kernel.compact_window.launches)
 
 
-def test_positions_on_card(cuda):
+def _sweep_launches(bs, exp, before):
+    """The launch counts after one ``positions_all`` of ``bs`` (one launch
+    batch a width group): a bitmap and a rank launch per group, and one
+    compaction launch per group that holds a match."""
+    live = sum(any(exp[j] for j in g.indices.tolist()) for g in bs.groups)
+    return before[0] + len(bs.groups), before[1] + len(bs.groups), before[2] + live
+
+
+def test_positions_on_card(cuda, monkeypatch):
     """Positions of card layouts: i386 words before and after
-    optimize_for, both tiers, one bitmap and one compaction launch per
-    width group (all 4,585 words, one launch batch each), every
-    DynamicSearcher arm, and a flat layout kept without host bytes,
-    scanned by the kernels on the card."""
+    optimize_for, rows past the cap and under it, one bitmap, one rank and
+    one packed compaction launch per width group (all 4,585 words, one
+    launch batch and one window each), every DynamicSearcher arm, and a
+    flat layout kept without host bytes, scanned by the kernels on the
+    card; no bitmap is decoded on the host."""
     hay = open(os.path.join(DATA, "i386.txt"), "rb").read()
     words = [w for w in open(os.path.join(DATA, "words.txt"), "rb").read().split(b"\n") if w]
     sample = words[::29] + [b"e", b"", hay[-3:] + b"\0"]
     dh = preprocess(hay, kh=24, device=cuda)
     bs = BatchedSearcher(sample, device=cuda)
     exp = [_host_positions(hay, w).tolist() for w in sample]
-    b0, c0 = _launches()
+    before = _launches()
     assert [p.tolist() for p in bs.positions_all(dh)] == exp
-    assert _launches() == (b0 + len(bs.groups), c0 + len(bs.groups))
+    assert _launches() == _sweep_launches(bs, exp, before)
     bs.optimize_for(dh)
     assert [p.tolist() for p in bs.positions_all(dh, batch=7, sparse_cap=64)] == exp
     full = BatchedSearcher(words, device=cuda)
-    b0, c0 = _launches()
-    got = full.positions_all(dh)
-    assert _launches() == (b0 + len(full.groups), c0 + len(full.groups)) and len(full.groups) == 6
+    full_exp = [_host_positions(hay, w).tolist() for w in words]
+    before = _launches()
+    with monkeypatch.context() as m:
+        m.setattr(torch_backend, "decode_match_bitmap", None)  # nothing is decoded on the host
+        got = full.positions_all(dh)
+    assert _launches() == _sweep_launches(full, full_exp, before) and len(full.groups) == 6
     assert [len(p) for p in got] == full.count_all(dh).tolist()
+    assert [p.tolist() for p in got] == full_exp
+    assert sum(len(p) > torch_backend.SPARSE_POSITIONS_CAP for p in got) == 32
     for nd in (b"", b"e", b"the", hay[-9:], b"Protected Mode", hay[-2:] + b"\0"):
         assert DynamicSearcher(nd, device=cuda).positions(dh).tolist() == _host_positions(hay, nd).tolist()
     small = _hay(11, 3000)
     flat = preprocess(small, keep_host=False, device=cuda)
     assert not flat.tiled
     for nd in (small[100:103], b"a", small[-5:], small[-2:] + b"\0", b"\x7f\x7f"):
-        b0, c0 = _launches()
+        before = _launches()
         assert DynamicSearcher(nd, device=cuda).positions(flat).tolist() == _host_positions(small, nd).tolist()
-        assert _launches() == (b0 + 1, c0 + 1)
+        made = tuple(a - b for a, b in zip(_launches(), before))
+        assert made == ((1, 1, 1) if len(_host_positions(small, nd)) else (1, 1, 0)), nd
         assert TorchSearcher(nd, device=cuda).positions(flat).tolist() == _host_positions(small, nd).tolist()
-        assert _launches() == (b0 + 1, c0 + 1)
+        assert tuple(a - b for a, b in zip(_launches(), before)) == made
     got = BatchedSearcher([b"a", small[7:12]], device=cuda).positions_all(flat)
     assert [p.tolist() for p in got] == [_host_positions(small, nd).tolist() for nd in (b"a", small[7:12])]
+
+
+def test_forced_rank_windows_on_card(cuda, monkeypatch):
+    """A budget of 1,000 packed offsets a window (and so one row a launch
+    batch): ``positions_all`` over i386 compacts each row in as many
+    windows as its matches need, one compaction launch each, dense rows
+    split across windows; every answer exact."""
+    hay = open(os.path.join(DATA, "i386.txt"), "rb").read()
+    words = [w for w in open(os.path.join(DATA, "words.txt"), "rb").read().split(b"\n") if w][::80]
+    words += [b"e", b"the", hay[-7:]]
+    dh = preprocess(hay, kh=24, device=cuda)
+    bs = BatchedSearcher(words, device=cuda)
+    exp = [_host_positions(hay, w) for w in words]
+    monkeypatch.setattr(torch_backend, "POSITIONS_BUDGET_BYTES", 4 * torch_backend.WINDOW_SHARE * 1000)
+    assert torch_backend.window_entries() == 1000
+    before = _launches()
+    got = bs.positions_all(dh)
+    assert [g.tolist() for g in got] == [e.tolist() for e in exp]
+    windows = sum(-(-len(e) // 1000) for e in exp)
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (len(words), len(words), windows)
+    assert max(len(e) for e in exp) > 10_000
 
 
 def test_chunk_bitmap_t128_equals_plain(cuda):
@@ -621,7 +739,7 @@ def test_chunk_bitmap_t128_equals_plain(cuda):
 
 def _tier_launches():
     return (scan_kernel.batched_count.launches, scan_kernel.match_bitmap_counted.launches,
-            scan_kernel.compact_positions.launches)
+            scan_kernel.item_ranks.launches, scan_kernel.compact_window.launches)
 
 
 def test_huge_tiers_on_card(cuda, monkeypatch):
@@ -639,8 +757,9 @@ def test_huge_tiers_on_card(cuda, monkeypatch):
     absent = present[:2048] + b"\xff" + present[2049:]
     period = b"a" * 300_000 + b"b" + b"a" * 90_000
     pdh = preprocess(period, device=cuda)
-    cases = [(present, dh, hay, "host", (1, 1, 1)), (absent, dh, hay, "host", (1, 1, 1)),
-             (b"a" * 4096, pdh, period, "dense", (1, 1, 0)), (b"a" * 3000 + b"c", pdh, period, "dense", (1, 1, 0))]
+    cases = [(present, dh, hay, "host", (1, 1, 1, 1)), (absent, dh, hay, "host", (1, 1, 1, 1)),
+             (b"a" * 4096, pdh, period, "dense", (1, 1, 0, 0)),
+             (b"a" * 3000 + b"c", pdh, period, "dense", (1, 1, 0, 0))]
     for nd, layout, h, tier, launches in cases:
         ds = DynamicSearcher(nd, device=cuda)
         assert ds.inner._route(layout, h)[0] == tier

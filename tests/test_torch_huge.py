@@ -319,7 +319,7 @@ def test_chained_budget_splits_rows(monkeypatch):
     plan = _plan(nd)
     whole = _chained_both(hay, plan)
     monkeypatch.setattr(torch_backend, "POSITIONS_BUDGET_BYTES", 4 * 2_000)
-    assert torch_backend.position_batches(len(plan[0]), 40_000, 128, 0)[0] == (0, 1)
+    assert torch_backend.position_batches(len(plan[0]), 40_000, 128)[0] == (0, 1)
     assert _chained_both(hay, plan) == whole == (1, 2_000, [2_000])
 
 

@@ -122,9 +122,9 @@ def test_plain_compaction_matches_jax(cap, rng):
     jcnt, jpos = (np.asarray(x) for x in
                   jxb.compact_positions_batched(jdh.require_cols(), values, masks, ends, jdh.s, cap))
     words, item_counts, chunk = tsk.match_bitmap_counted(tdh.flat, values, masks, ends)
-    before = tsk.compact_positions.launches
+    before = tsk.item_ranks.launches, tsk.compact_window.launches
     counts, offsets = tsk.compact_positions(words, item_counts, chunk, cap)
-    assert tsk.compact_positions.launches == before
+    assert (tsk.item_ranks.launches, tsk.compact_window.launches) == before
     assert counts.dtype == offsets.dtype == torch.int32 and offsets.shape == (len(needles), cap)
     assert counts.tolist() == jcnt.tolist()
     assert offsets.tolist() == jpos.tolist()
@@ -165,25 +165,27 @@ def test_position_batches_plan(words):
     """The launch-batch plan as a pure function: i386's 4,585 words take one
     batch per width group; 40 rows over a 256 MiB corpus (40 x 32 MiB of
     bitmap) take two; ``batch`` caps the rows per batch when given; every
-    plan covers its rows once, in order, one row at least per batch."""
+    plan covers its rows once, in order, one row at least per batch, and a
+    batch's rows (bitmap, item counts and first ranks, count, int64 row
+    base) fit the budget beside one window of packed offsets."""
     with open("data/i386.txt", "rb") as f:
         hay = f.read()
     dh = preprocess(hay, kh=24, device=CPU)
     bs = BatchedSearcher(words, device=CPU)
-    cap = torch_backend.SPARSE_POSITIONS_CAP
-    plans = [torch_backend.position_batches(g.n, dh.flat.numel(), g.t, cap) for g in bs.groups]
+    plans = [torch_backend.position_batches(g.n, dh.flat.numel(), g.t) for g in bs.groups]
     assert [len(p) for p in plans] == [1] * len(bs.groups) and sum(g.n for g in bs.groups) == 4585
     assert [p[0] for p in plans] == [(0, g.n) for g in bs.groups]
     big = (256 << 20) + 64
-    plan = torch_backend.position_batches(40, big, 16, cap)
+    plan = torch_backend.position_batches(40, big, 16)
     assert len(plan) == 2
     for rows, batch in ((4585, 5), (2206, 7), (40, 8), (3, 8), (1, None), (0, None)):
-        plan = torch_backend.position_batches(rows, dh.flat.numel(), 2, cap, batch)
+        plan = torch_backend.position_batches(rows, dh.flat.numel(), 2, batch)
         assert [i for r in plan for i in range(*r)] == list(range(rows))
         assert all(0 < i1 - i0 <= (batch or rows) for i0, i1 in plan)
-    assert torch_backend.position_batches(3, 1 << 34, 1, cap) == [(0, 1), (1, 2), (2, 3)]
-    per_row = 4 * (tsk.bitmap_words(big, 16) + cap + -(-tsk.position_limit(big, 16) // tsk.BITMAP_CHUNK))
-    assert all((i1 - i0) * per_row <= torch_backend.POSITIONS_BUDGET_BYTES for i0, i1 in plan)
+    assert torch_backend.position_batches(3, 1 << 34, 1) == [(0, 1), (1, 2), (2, 3)]
+    per_row = 4 * (tsk.bitmap_words(big, 16) + 2 * -(-tsk.position_limit(big, 16) // tsk.BITMAP_CHUNK) + 3)
+    window = 4 * torch_backend.window_entries()
+    assert all((i1 - i0) * per_row + window <= torch_backend.POSITIONS_BUDGET_BYTES for i0, i1 in plan)
 
 
 def test_positions_all_default_batch_matches_jax(i386_small, words):
@@ -235,3 +237,193 @@ def test_compaction_wrapper_refuses_other_devices():
     with pytest.raises(ValueError, match="no match-bitmap kernel"):
         tsk.match_bitmap_counted(torch.empty(1024, dtype=torch.uint8, device="meta"), values, masks,
                                  np.asarray([5], np.int32))
+
+
+# -- the rank kernel's and the windowed compaction's plain versions ----------
+
+
+def _ranked_table(rng):
+    """A corpus of three bitmap items a row and a table of rows past the
+    cap (a dense letter, a planted needle spread over the items), an absent
+    row, a zero-tail row and an empty-end row, with ``n_real`` cutting two
+    padded rows; the JAX package's compact counts and offsets at cap 4,096
+    and its two-tier answers beside the port's plain bitmap."""
+    hay = bytearray(_corpus(rng, 2 * tsk.BITMAP_CHUNK + 9_000))
+    for p in range(700, len(hay) - 100, 9_000):
+        hay[p : p + 5] = b"\xf0QRS\xf1"
+    hay = bytes(hay)
+    needles = [b"a", b"\xf0QRS\xf1", b"\xfe\xfd", hay[-3:] + b"\0", b"ab", b"cab", b"dd", b"b"]
+    values, masks, lengths = build_probe_table(needles, t_max=2)
+    values, masks = np.pad(values, ((0, 2), (0, 0))), np.pad(masks, ((0, 2), (0, 0)))
+    ends = np.pad(np.maximum(len(hay) - lengths + 1, 0), (0, 2)).astype(np.int32)
+    ends[4] = 0
+    jdh = jst.preprocess(hay, kh=needed_halo_for_t(2), force_cols=True)
+    tdh = preprocess(hay, kh=needed_halo_for_t(2), force_cols=True, device=CPU)
+    n_real = len(needles)
+    words, item_counts, chunk = tsk.match_bitmap_counted(tdh.flat, values, masks, ends, n_real=n_real)
+    cols = jdh.require_cols()
+    jxb_rows = (values[:n_real], masks[:n_real], ends[:n_real])
+    jcnt, jpos = (np.asarray(x) for x in jxb.compact_positions_batched(cols, *jxb_rows, jdh.s, 4096))
+    jtwo = jxb.two_tier_positions(cols, *jxb_rows, jdh.s, 16)
+    return hay, needles, (tdh, values, masks, ends), (words, item_counts, chunk), (jcnt, jpos, jtwo)
+
+
+@pytest.fixture(scope="module")
+def ranked():
+    return _ranked_table(np.random.default_rng(77))
+
+
+@pytest.mark.parametrize("cap", [0, 1, 7, 4096])
+def test_plain_ranks_match_jax(cap, ranked):
+    """The plain rank function: each row's count (the JAX compact count;
+    0 past ``n_real``), each item's first rank (the exclusive cumsum of
+    the JAX bitmap's per-item matches), and the SENTINEL tail it writes
+    into the capped offsets (the JAX offsets' own tail), the head left as
+    it was; no launch is counted on the CPU."""
+    hay, needles, _, (words, item_counts, chunk), (jcnt, jpos, _) = ranked
+    n, n_real = words.shape[0], len(needles)
+    before = tsk.item_ranks.launches
+    offsets = torch.full((n, cap), -5, dtype=torch.int32)
+    counts, first = tsk.item_ranks(item_counts, offsets)
+    assert tsk.item_ranks.launches == before
+    assert counts.dtype == first.dtype == torch.int32 and first.shape == item_counts.shape
+    assert counts.tolist() == jcnt.tolist() + [0] * (n - n_real)
+    assert torch.equal(tsk.item_ranks_plain(item_counts)[0], counts)
+    for j in range(n):
+        exp = _host_positions(hay, needles[j]) if j < n_real and j != 4 else np.zeros(0, np.int64)
+        per_item = np.bincount(exp // chunk, minlength=item_counts.shape[0])
+        assert first[:, j].tolist() == (np.cumsum(per_item) - per_item).tolist(), j
+        take = min(cap, exp.size)
+        assert (offsets[j, :take] == -5).all() and (offsets[j, take:] == SENTINEL).all(), j
+        if j < n_real and cap == jpos.shape[1]:
+            assert ((offsets[j] == SENTINEL).numpy() == (jpos[j] == SENTINEL)).all(), j
+    assert max(jcnt) > 4096 and min(jcnt) == 0
+
+
+@pytest.mark.parametrize("cap", [0, 1, 7, 4096])
+def test_plain_capped_window_matches_jax(cap, ranked):
+    """Capped mode of the plain windowed compaction after the plain ranks:
+    the JAX ``compact_positions_batched`` offsets at every cap, rows over
+    the cap cut at it, empty and padded rows all SENTINEL; the capped
+    wrapper ``compact_positions`` the same."""
+    _, needles, (tdh, values, masks, ends), (words, item_counts, chunk), _ = ranked
+    n_real = len(needles)
+    jdh = jst.preprocess(tdh.host_bytes, kh=needed_halo_for_t(2), force_cols=True)
+    jcnt, jpos = (np.asarray(x) for x in jxb.compact_positions_batched(
+        jdh.require_cols(), values[:n_real], masks[:n_real], ends[:n_real], jdh.s, cap))
+    offsets = torch.empty((words.shape[0], cap), dtype=torch.int32)
+    counts, first = tsk.item_ranks(item_counts, offsets)
+    before = tsk.compact_window.launches
+    assert tsk.compact_window(words, item_counts, first, chunk, offsets, cap=cap) is offsets
+    assert tsk.compact_window.launches == before
+    assert counts[:n_real].tolist() == jcnt.tolist()
+    assert offsets[:n_real].tolist() == jpos.tolist()
+    assert (offsets[n_real:] == SENTINEL).all()
+    wrapped = tsk.compact_positions(words, item_counts, chunk, cap)
+    assert torch.equal(wrapped[0], counts) and torch.equal(wrapped[1], offsets)
+
+
+def test_plain_packed_window_matches_jax(ranked):
+    """Packed mode: every row's offsets in one buffer, row after row, equal
+    to the JAX two tiers' answers joined in row order; any window of it is
+    the same slice of that buffer, including windows that start and end
+    inside a row and inside a bitmap word."""
+    _, needles, _, (words, item_counts, chunk), (jcnt, _, jtwo) = ranked
+    counts, first = tsk.item_ranks(item_counts)
+    cnt = counts.numpy().astype(np.int64)
+    row_base = torch.from_numpy(np.cumsum(cnt) - cnt)
+    total = int(cnt.sum())
+    whole = torch.empty((total,), dtype=torch.int32)
+    tsk.compact_window(words, item_counts, first, chunk, whole, row_base=row_base, window=(0, total))
+    assert whole.tolist() == np.concatenate(jtwo).tolist()
+    dense_end = int(cnt[0])
+    for lo, hi in ((0, 0), (3, 3 + 31), (dense_end - 5, dense_end + 7), (total - 9, total), (0, total)):
+        part = torch.full((hi - lo,), -1, dtype=torch.int32)
+        tsk.compact_window(words, item_counts, first, chunk, part, row_base=row_base, window=(lo, hi))
+        assert part.tolist() == whole[lo:hi].tolist(), (lo, hi)
+
+
+def test_forced_rank_windows_split_rows(ranked, monkeypatch):
+    """A budget of a few offsets per window: ``two_tier_positions`` packs
+    the batch in many windows, one compaction call each, a dense row split
+    across several, and answers as the JAX two tiers and the host scan."""
+    hay, needles, (tdh, values, masks, ends), _, (jcnt, _, jtwo) = ranked
+    n_real = len(needles)
+    monkeypatch.setattr(torch_backend, "POSITIONS_BUDGET_BYTES", 4 * torch_backend.WINDOW_SHARE * 997)
+    assert torch_backend.window_entries() == 997
+    windows = []
+    total = int(jcnt.sum())
+    for plain, name in ((False, "compact_window"), (True, "compact_window_plain")):
+        windows.clear()
+        real = getattr(tsk, name)
+
+        def compact(*args, real=real, **kw):
+            windows.append(kw["window"])
+            return real(*args, **kw)
+
+        with monkeypatch.context() as m:
+            m.setattr(tsk, name, compact)
+            got = torch_backend.two_tier_positions(tdh.flat, values[:n_real], masks[:n_real],
+                                                   ends[:n_real], 16, plain=plain)
+        assert [g.tolist() for g in got] == [j.tolist() for j in jtwo]
+        assert [g.tolist() for g in got[:4]] == [_host_positions(hay, nd).tolist() for nd in needles[:4]]
+        assert windows == [(lo, min(lo + 997, total)) for lo in range(0, total, 997)]
+        assert sum(hi <= jcnt[0] for _, hi in windows) > 3  # the dense row 0 spans several windows
+        assert any(lo < jcnt[0] < hi for lo, hi in windows)  # one window holds rows 0 and 1
+
+
+def test_positions_protocol_on_i386_small_and_period_one(i386_small, words):
+    """``two_tier_positions`` and ``positions_all`` over i386-small and a
+    period-1 corpus (every position a match of ``a``, ``aa``, ...): every
+    row exact against ``_host_positions`` and the JAX two tiers and
+    ``positions_all`` at caps 0 and the default."""
+    period = b"a" * 70_000
+    for hay, nds in ((i386_small, [w for w in words[:40] if w] + [b"e", b" ", b"\xfe\xfd"]),
+                     (period, [b"a", b"aa", b"a" * 7, b"a" * 13, b"ab", b"b"])):
+        jdh = jst.preprocess(hay, kh=24, force_cols=True)
+        tdh = preprocess(hay, kh=24, force_cols=True, device=CPU)
+        values, masks, lengths = build_probe_table(nds)
+        ends = np.maximum(len(hay) - lengths + 1, 0).astype(np.int32)
+        exp = [_host_positions(hay, nd).tolist() for nd in nds]
+        ref = jxb.two_tier_positions(jdh.require_cols(), values, masks, ends, jdh.s, 64)
+        assert [r.tolist() for r in ref] == exp
+        got = torch_backend.two_tier_positions(tdh.flat, values, masks, ends, 64)
+        assert [g.tolist() for g in got] == exp and all(g.dtype == np.int64 for g in got)
+        for cap in (0, torch_backend.SPARSE_POSITIONS_CAP):
+            jall = jst.BatchedSearcher(nds).positions_all(jdh, sparse_cap=cap)
+            tall = BatchedSearcher(nds, device=CPU).positions_all(tdh, sparse_cap=cap)
+            assert [g.tolist() for g in tall] == [r.tolist() for r in jall] == exp, cap
+    assert len(exp[0]) == len(period) and len(exp[1]) == len(period) - 1
+
+
+def test_rank_and_window_wrappers_refuse_bad_operands():
+    """The rank and compaction wrappers refuse a device they have no kernel
+    for, a call in neither or both modes, a negative cap, a window that is
+    not a range, and an output of the wrong shape; ``two_tier_positions``
+    refuses a negative cap, as the JAX package does."""
+    meta = torch.empty((3, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no rank kernel"):
+        tsk.item_ranks(meta)
+    words = torch.zeros((2, 8), dtype=torch.int32)
+    counts = torch.zeros((1, 2), dtype=torch.int32)
+    base = torch.zeros((2,), dtype=torch.int64)
+    out = torch.empty((2, 4), dtype=torch.int32)
+    chunk = tsk.BITMAP_CHUNK
+    with pytest.raises(ValueError, match="capped mode"):
+        tsk.compact_window(words, counts, counts, chunk, out)
+    with pytest.raises(ValueError, match="capped mode"):
+        tsk.compact_window(words, counts, counts, chunk, out, cap=4, row_base=base)
+    with pytest.raises(ValueError, match="negative"):
+        tsk.compact_window(words, counts, counts, chunk, out, cap=-1)
+    with pytest.raises(ValueError, match="not a range"):
+        tsk.compact_window(words, counts, counts, chunk, out, row_base=base, window=(5, 2))
+    with pytest.raises(ValueError, match="shape"):
+        tsk.compact_window(words, counts, counts, chunk, out, cap=3)
+    with pytest.raises(ValueError, match="item counts"):
+        tsk.compact_window(words, counts[:, :1], counts, chunk, out, cap=4)
+    with pytest.raises(ValueError, match="no compaction kernel"):
+        tsk.compact_window(words.to("meta"), counts.to("meta"), counts.to("meta"), chunk, out.to("meta"), cap=4)
+    values, masks, _ = build_probe_table([b"abc"])
+    flat = preprocess(b"abcabc" * 1000, kh=16, force_cols=True, device=CPU).flat
+    with pytest.raises(ValueError, match="negative"):
+        torch_backend.two_tier_positions(flat, values, masks, np.asarray([5998], np.int32), -1)

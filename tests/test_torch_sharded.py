@@ -21,7 +21,7 @@ from sliceslice_tpu_torch import BatchedSearcher, naive_find, preprocess
 from sliceslice_tpu_torch.config import SENTINEL
 from sliceslice_tpu_torch.needle import MAX_NEEDLE_LEN, build_probe_table
 from sliceslice_tpu_torch.ops import layout as layout_mod
-from sliceslice_tpu_torch.ops import torch_backend
+from sliceslice_tpu_torch.ops import scan_kernel, torch_backend
 from sliceslice_tpu_torch.parallel import (
     ShardedBatchedSearcher,
     corpus_sharding,
@@ -353,8 +353,9 @@ def test_sharded_huge_dense_local_layout_cached(monkeypatch):
 
 
 def test_sharded_positions_two_tier_cap_split(corpus, monkeypatch):
-    """At sparse_cap=8 a needle dense in one shard takes that cell's
-    bitmap and its compacted offsets elsewhere; both packages exact."""
+    """At sparse_cap=8 a needle dense in one shard (the JAX package reads
+    that cell's bitmap back) is compacted whole on the device like every
+    other cell, with no host decode; both packages exact."""
     hay = bytearray(corpus[:200_000])
     for i in range(40):  # a dense cluster early, in shard 0
         hay[100 + i * 37 : 104 + i * 37] = b"ZZZQ"
@@ -362,11 +363,19 @@ def test_sharded_positions_two_tier_cap_split(corpus, monkeypatch):
     dh = preprocess(hay, force_cols=True, device=CPU)
     needles = [b"ZZZQ", hay[150_000:150_009], b"NOPE!", hay[0:2]]
     values, masks, ends = _tables(needles, dh.length)
-    decoded = []
-    real = torch_backend.decode_match_bitmap
-    monkeypatch.setattr(torch_backend, "decode_match_bitmap", lambda w: decoded.append(1) or real(w))
+    decoded, counts = [], []
+    real_decode, real_ranks = torch_backend.decode_match_bitmap, scan_kernel.item_ranks
+    monkeypatch.setattr(torch_backend, "decode_match_bitmap", lambda w: decoded.append(1) or real_decode(w))
+
+    def ranks(item_counts, offsets=None):
+        out = real_ranks(item_counts, offsets)
+        counts.extend(out[0].tolist())
+        return out
+
+    monkeypatch.setattr(scan_kernel, "item_ranks", ranks)
     got = sharded_positions(dh, values, masks, ends, mesh((4, 2)), sparse_cap=8)
-    assert decoded, "no cell took the bitmap tier"
+    assert max(counts) > 8, "no cell held more matches than the cap"
+    assert not decoded, "a cell's bitmap was decoded on the host"
     ref = jpar.sharded_positions(jax_preprocess(hay, force_cols=True, seg_rows=64), values, masks, ends,
                                  jpar.make_mesh((4, 2)), sparse_cap=8)
     for nd, g, r in zip(needles, got, ref):
