@@ -98,8 +98,9 @@ line and its seconds; any failure raises and exits non-zero.  The
 next-to-last lines are a JSON object describing the kernels (times, bound
 and what sets it, launches per sweep) and the card's name and power
 limit; the last line is ``{"ok": true, "device": ...}``.  Imports nothing
-of JAX.  Each main path's launch counts start at 0 just before it and are
-read just after; the huge-needle, stream, sharded and harness paths have
+of JAX.  Each main path's launches are the differences of the program's
+``launches.<wrapper>`` counters (``utils/tracing.py``) from just before
+it to just after; the huge-needle, stream, sharded and harness paths have
 their own (``huge_path_launches``, ``stream_path_launches``,
 ``sharded_path_launches``, ``harness_path_launches``,
 ``contracts_path_launches``).
@@ -159,6 +160,14 @@ def check(cond: bool, what: str) -> None:
 
 def say(phase: str, **fields) -> None:
     print(f"[{phase}] " + json.dumps(fields, default=str), flush=True)
+
+
+def counter(name: str) -> int:
+    """The program's counter ``name`` so far (``utils/tracing.py``):
+    ``launches.<wrapper>``, ``uploads.pair_block``, ..."""
+    from sliceslice_tpu_torch.utils import tracing
+
+    return tracing.counters().get(name, 0)
 
 
 def timed(fn, *args):
@@ -538,13 +547,12 @@ def phase_i386(torch, device, hay, words):
 
 def phase_dynamic(torch, device, hay):
     from sliceslice_tpu_torch import DynamicSearcher, preprocess
-    from sliceslice_tpu_torch.ops import scan_kernel
 
     rng = np.random.default_rng(7)
     small = hay[100_000:106_000]          # bytes, 4096 < len <= 8192: flat rung
     tiny = preprocess(hay[:3000], device=device)   # DeviceHaystack, flat rung
     big = preprocess(hay, kh=64, device=device)    # kernel layout
-    m0 = scan_kernel.memchr_find.launches
+    m0 = counter("launches.memchr_find")
     lengths = [1, 2, 3, 5, 8, 12, 16, 17, 24, 32, 33, 40, 100, 1000]
     checked = 0
     for k in lengths:
@@ -555,7 +563,7 @@ def phase_dynamic(torch, device, hay):
                 f = h_bytes.find(nd)
                 check(got == (None if f < 0 else f), f"DynamicSearcher k={k} differs")
                 checked += 1
-    memchr_runs = scan_kernel.memchr_find.launches - m0
+    memchr_runs = counter("launches.memchr_find") - m0
     check(memchr_runs > 0, "the 1-byte arm never launched the memchr kernel")
     say("dynamic", lengths=lengths, checks=checked, memchr_launches=memchr_runs,
         parity=True)
@@ -655,11 +663,10 @@ def _huge_calls(torch, device, cases, what):
     layout, (first, count, positions), tier)`` case, exact, each call on
     its tier with that tier's launches."""
     from sliceslice_tpu_torch import DynamicSearcher
-    from sliceslice_tpu_torch.ops import scan_kernel
 
     def counts():
-        return (scan_kernel.batched_count.launches, scan_kernel.match_bitmap_counted.launches,
-                scan_kernel.item_ranks.launches, scan_kernel.compact_window.launches)
+        return (counter("launches.batched_count"), counter("launches.match_bitmap_counted"),
+                counter("launches.item_ranks"), counter("launches.compact_window"))
 
     for nd, dh, (first, count, positions), tier in cases:
         ds = DynamicSearcher(nd, device=device)
@@ -885,7 +892,6 @@ def phase_stream(torch, device, card, hay, words, i386_answers, big, big_answers
     import tempfile
 
     from sliceslice_tpu_torch import StreamingScanner, overlapping_count
-    from sliceslice_tpu_torch.ops import scan_kernel
     from sliceslice_tpu_torch.scripts.bigscan_check import expected, make_plants
     from sliceslice_tpu_torch.scripts.multihost_check import plant_chunks
     from sliceslice_tpu_torch.searcher import _host_positions
@@ -919,9 +925,8 @@ def phase_stream(torch, device, card, hay, words, i386_answers, big, big_answers
         made = sc.buffer_allocations
         windows = _stream_held(sc, big_path, big_firsts, big_counts, big_positions, "256 MiB, 32 MiB windows")
         # Times on a warm page cache, and the launches of one window.
-        names = {"find": scan_kernel.batched_find, "count": scan_kernel.batched_count,
-                 "bitmap": scan_kernel.match_bitmap_counted, "ranks": scan_kernel.item_ranks,
-                 "compaction": scan_kernel.compact_window}
+        names = {"find": "batched_find", "count": "batched_count", "bitmap": "match_bitmap_counted",
+                 "ranks": "item_ranks", "compaction": "compact_window"}
 
         def file_times(sc, label, samples):
             """Host-clock seconds (median) and GB/s of each mode's stream
@@ -931,10 +936,10 @@ def phase_stream(torch, device, card, hay, words, i386_answers, big, big_answers
             for mode, call in (("find", lambda: sc.find_in_file(big_path, early_stop=False)),
                                ("count", lambda: sc.count_in_file(big_path)),
                                ("positions", lambda: sc.positions_in_file(big_path))):
-                before = {k: w.launches for k, w in names.items()}
+                before = {k: counter("launches." + w) for k, w in names.items()}
                 m = measure(call, f"stream {mode}", warmup=0, samples=samples)
                 runs = samples * sc.stats["windows"]
-                per_window[mode] = {k: (w.launches - before[k]) / runs for k, w in names.items()}
+                per_window[mode] = {k: (counter("launches." + w) - before[k]) / runs for k, w in names.items()}
                 times[f"file 256 MiB, {label}, {mode}"] = {
                     "s": m.estimate, "low_s": m.low, "GBps": len(big_hay) / m.estimate / 1e9,
                     "stats": sc.stats_summary()}
@@ -1292,14 +1297,14 @@ def phase_sharded_times(torch, device, card, words, i386_dh, big):
         per_sweep_collectives = all_reduce.calls - c0
     finally:
         dist.destroy_process_group()
-    names = {"batched_find": scan_kernel.batched_find, "batched_count": scan_kernel.batched_count,
-             "match_bitmap": scan_kernel.match_bitmap_counted, "item_ranks": scan_kernel.item_ranks,
-             "compact_window": scan_kernel.compact_window}
+    names = {"batched_find": "batched_find", "batched_count": "batched_count",
+             "match_bitmap": "match_bitmap_counted", "item_ranks": "item_ranks",
+             "compact_window": "compact_window"}
     per_sweep = {}
     for run in (lambda: sb4.find_all(i386_dh), lambda: sb4.count_all(i386_dh), lambda: sb4.positions_all(i386_dh)):
-        before = {k: w.launches for k, w in names.items()}
+        before = {k: counter("launches." + w) for k, w in names.items()}
         run()
-        per_sweep.update({k: w.launches - before[k] for k, w in names.items() if w.launches > before[k]})
+        per_sweep.update({k: counter("launches." + w) - before[k] for k, w in names.items() if counter("launches." + w) > before[k]})
     scaling = measure_scaling(i386_dh, words, device_counts=[1, 2, 4], samples=5)
     # The count kernel's one-row rate over 256 MiB (an absent needle: every
     # position tested).
@@ -1408,7 +1413,6 @@ def phase_count(torch, device, hay, words, i386_dh, big):
     optimize_for, DynamicSearcher.count_in on every arm, and the 256 MiB
     corpus's planted needles and one periodic needle."""
     from sliceslice_tpu_torch import BatchedSearcher, DynamicSearcher, overlapping_count, preprocess
-    from sliceslice_tpu_torch.ops import scan_kernel
 
     t0 = time.perf_counter()
     exp = np.array([overlapping_count(hay, w) for w in words])
@@ -1427,29 +1431,29 @@ def phase_count(torch, device, hay, words, i386_dh, big):
     tiny = preprocess(hay[:3000], keep_host=False, device=device)
     check(not tiny.tiled, "the 3,000-byte layout is not the flat rung")
     flat_words = words[::15]
-    c0 = scan_kernel.batched_count.launches
+    c0 = counter("launches.batched_count")
     flat_bs = BatchedSearcher(flat_words, device=device)
     got = flat_bs.count_all(tiny)
     check(np.array_equal(got, [overlapping_count(hay[:3000], w) for w in flat_words]),
           "counts over the flat rung on the card differ")
-    check(scan_kernel.batched_count.launches == c0 + len(flat_bs.groups),
+    check(counter("launches.batched_count") == c0 + len(flat_bs.groups),
           "count_all over the flat rung on the card did not launch the count kernel per group")
     lengths = [0, 1, 2, 3, 5, 8, 12, 16, 17, 24, 32, 33, 40, 100, 1000]
     checks = 0
-    c0 = scan_kernel.batched_count.launches
+    c0 = counter("launches.batched_count")
     for k in lengths:
         for h_bytes, h in ((small, small), (hay[:3000], tiny), (hay, i386_dh), (hay, hay)):
             start = int(rng.integers(0, len(h_bytes) - k))
             for nd in (h_bytes[start:start + k], h_bytes[-k:] if k else b"", b"\xfe" * k):
-                before = scan_kernel.batched_count.launches
+                before = counter("launches.batched_count")
                 got = DynamicSearcher(nd, device=device).count_in(h)
                 check(got == overlapping_count(h_bytes, nd), f"DynamicSearcher.count_in k={k} differs")
                 if k and h is tiny:
-                    check(scan_kernel.batched_count.launches == before + 1,
+                    check(counter("launches.batched_count") == before + 1,
                           f"count_in k={k} over the flat rung on the card did not launch the count kernel")
                 checks += 1
         if k == 1:
-            check(scan_kernel.batched_count.launches > c0, "the 1-byte arm never launched the count kernel")
+            check(counter("launches.batched_count") > c0, "the 1-byte arm never launched the count kernel")
 
     big_dh, big_hay, big_needles = big
     periodic = BIG_PERIODIC
@@ -1475,7 +1479,7 @@ def phase_positions(torch, device, hay, words, i386_dh, big, i386_counts, big_co
     without host bytes, and the 256 MiB corpus's needles and periodic run;
     totals against the count phase."""
     from sliceslice_tpu_torch import BatchedSearcher, DynamicSearcher, preprocess
-    from sliceslice_tpu_torch.ops import scan_kernel, torch_backend
+    from sliceslice_tpu_torch.ops import torch_backend
     from sliceslice_tpu_torch.searcher import _host_positions
 
     cap = torch_backend.SPARSE_POSITIONS_CAP
@@ -1489,8 +1493,8 @@ def phase_positions(torch, device, hay, words, i386_dh, big, i386_counts, big_co
         check(len(got) == len(exp_rows) and bad == 0, f"{what}: {bad} rows differ")
 
     def launches():
-        return (scan_kernel.match_bitmap_counted.launches, scan_kernel.item_ranks.launches,
-                scan_kernel.compact_window.launches)
+        return (counter("launches.match_bitmap_counted"), counter("launches.item_ranks"),
+                counter("launches.compact_window"))
 
     def sweep_launches(searcher, exp_rows):
         """A bitmap and a rank launch per width group (one launch batch
@@ -1657,8 +1661,6 @@ def phase_pairwise(torch, device, words):
     """All 21,022,225 pairs of the length-sorted words, as bench.py sorts
     them, against bytes.find."""
     from sliceslice_tpu_torch import PairwiseSearcher
-    from sliceslice_tpu_torch.ops import pairwise
-
     from sliceslice_tpu_torch.scripts.conformance import pair_oracle
 
     ws = sorted(words, key=len)
@@ -1673,12 +1675,11 @@ def phase_pairwise(torch, device, words):
     total = int(ps.count_matches_device())
     check(total == int(contains.sum()), "pair sweep: count_matches_device != contains.sum()")
     # The cached launch plan: a repeated sweep is one launch, no upload.
-    launches, uploads = pairwise.pair_block.launches, pairwise.pair_block.uploads
+    made, sent = counter("launches.pair_block"), counter("uploads.pair_block")
     totals = [ps.count_matches_device() for _ in range(SWEEPS)]
-    check(pairwise.pair_block.launches == launches + SWEEPS,
-          f"{SWEEPS} count_matches_device calls made {pairwise.pair_block.launches - launches} launches")
-    check(pairwise.pair_block.uploads == uploads,
-          f"{SWEEPS} count_matches_device calls uploaded {pairwise.pair_block.uploads - uploads} plans")
+    made, sent = counter("launches.pair_block") - made, counter("uploads.pair_block") - sent
+    check(made == SWEEPS, f"{SWEEPS} count_matches_device calls made {made} launches")
+    check(sent == 0, f"{SWEEPS} count_matches_device calls uploaded {sent} plans")
     check({int(x) for x in totals} == {total}, "pair sweep: repeated counts differ")
     plan = ps._plan(None)
     say("pairwise", words=len(ws), pairs=exp.size, matches=total,
@@ -1884,19 +1885,19 @@ def phase_times(torch, device, card, i386_dh, bs, big_dh, count_bs, ps, pos_bs, 
     # Launches per sweep: one run of each kernel's sweep, counted.
     per_sweep = {}
     sweeps_of = {
-        "batched_find": (scan_kernel.batched_find, lambda: bs.find_all_device(i386_dh)),
-        "batched_count": (scan_kernel.batched_count, lambda: count_bs.count_all_device(i386_dh)),
-        "match_bitmap": (scan_kernel.match_bitmap_counted, lambda: pos_bs.positions_all(i386_dh)),
-        "item_ranks": (scan_kernel.item_ranks, lambda: pos_bs.positions_all(i386_dh)),
-        "compact_window": (scan_kernel.compact_window, lambda: pos_bs.positions_all(i386_dh)),
-        "memchr_find": (scan_kernel.memchr_find, lambda: scan_kernel.memchr_find(big_dh.flat, 255, big_end)),
-        "pair_block": (pairwise.pair_block, ps.count_matches_device),
-        "probe": (kp.probe, lambda: kp.probe("count", flat, v, m_, e, n_real=n)),
+        "batched_find": ("batched_find", lambda: bs.find_all_device(i386_dh)),
+        "batched_count": ("batched_count", lambda: count_bs.count_all_device(i386_dh)),
+        "match_bitmap": ("match_bitmap_counted", lambda: pos_bs.positions_all(i386_dh)),
+        "item_ranks": ("item_ranks", lambda: pos_bs.positions_all(i386_dh)),
+        "compact_window": ("compact_window", lambda: pos_bs.positions_all(i386_dh)),
+        "memchr_find": ("memchr_find", lambda: scan_kernel.memchr_find(big_dh.flat, 255, big_end)),
+        "pair_block": ("pair_block", ps.count_matches_device),
+        "probe": ("probe", lambda: kp.probe("count", flat, v, m_, e, n_real=n)),
     }
-    for name, (wrapper, run) in sweeps_of.items():
-        before = wrapper.launches
+    for name, (kernel, run) in sweeps_of.items():
+        before = counter("launches." + kernel)
         run()
-        per_sweep[name] = wrapper.launches - before
+        per_sweep[name] = counter("launches." + kernel) - before
     torch.cuda.synchronize()
     bounds = sweep_bounds(torch, i386_dh, bs, pos_bs, big_end, ps, probe_setups[2], pos_bounds)
     say("bounds", card=card, means="least ms for the run's work: max(INT32 ops / 16.7 T op/s, "
@@ -1966,27 +1967,23 @@ def main() -> int:
     timed(phase_build)
     errs = timed(phase_kernels, torch, device)
 
-    from sliceslice_tpu_torch.ops import pairwise, scan_kernel
-    from sliceslice_tpu_torch.scripts import kernel_probe
-
     hay = open(os.path.join(REPO, "data/i386.txt"), "rb").read()
     words = [w for w in open(os.path.join(REPO, "data/words.txt"), "rb").read().split(b"\n") if w]
     check(len(words) == 4585 and len(hay) == 857425, "unexpected corpus files")
-    wrappers = {"batched_find": scan_kernel.batched_find, "memchr_find": scan_kernel.memchr_find,
-                "batched_count": scan_kernel.batched_count, "pair_block": pairwise.pair_block,
-                "match_bitmap": scan_kernel.match_bitmap_counted, "item_ranks": scan_kernel.item_ranks,
-                "compact_window": scan_kernel.compact_window, "probe": kernel_probe.probe}
+    wrappers = {"batched_find": "batched_find", "memchr_find": "memchr_find",
+                "batched_count": "batched_count", "pair_block": "pair_block",
+                "match_bitmap": "match_bitmap_counted", "item_ranks": "item_ranks",
+                "compact_window": "compact_window", "probe": "probe"}
     launches = {}
 
     def path(names, *phases, into=launches):
-        """Drive one main path: its kernels' counts start at 0 just before
-        and are read just after."""
-        for name in names:
-            wrappers[name].launches = 0
+        """Drive one main path: its kernels' launches, counted from just
+        before to just after."""
+        before = {name: counter("launches." + wrappers[name]) for name in names}
         outs = [timed(fn, *args) for fn, args in phases]
         torch.cuda.synchronize()
         for name in names:
-            into[name] = wrappers[name].launches
+            into[name] = counter("launches." + wrappers[name]) - before[name]
             check(into[name] > 0, f"{name} was never launched by its main path")
         return outs
 

@@ -25,6 +25,10 @@ Public API::
 
 from . import config
 from .config import SENTINEL
+
+# First of the subpackages: the kernel wrappers import ``utils.tracing``,
+# and ``utils`` imports ``utils.streaming``, which needs the models whole.
+from .utils import tracing
 from .models import (
     BatchedSearcher,
     CudaSearcher,

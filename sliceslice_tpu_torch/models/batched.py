@@ -12,6 +12,12 @@ The per-needle early exit of find lives inside the kernel; a count scans
 everything, and is exact in any row order.  Needles longer than
 ``MAX_NEEDLE_LEN`` stay out of the groups: each takes the huge-needle
 filter and verify (models/huge.py), as in the JAX package.
+
+Each of the three calls is a span (``sliceslice.find_all``,
+``sliceslice.count_all``, ``sliceslice.positions_all``;
+:mod:`..utils.tracing`), the program's root of a request, with the
+scatter, the placing of each batch's positions in input order and the
+huge needles as spans inside it.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from ..needle import (
 from ..ops import scan_kernel, torch_backend
 from ..ops.layout import DeviceHaystack, preprocess
 from ..ops.scan_math import table_bits
+from ..ops.transfer import to_device, to_host
 from ..searcher import (
     DeviceLike,
     HaystackLike,
@@ -40,6 +47,7 @@ from ..searcher import (
     overlapping_count,
     resolve_device,
 )
+from ..utils.tracing import span
 from .huge import PREFIX_LEN, HugeNeedleSearcher
 
 #: Widths beyond the exact-width limit are bucketed.
@@ -101,7 +109,7 @@ class _Group:
         row order)."""
         if self._host_perm_pending is None:
             return
-        perm = self._host_perm_pending[: self.n].cpu().numpy()
+        perm = to_host(self._host_perm_pending[: self.n])
         self._host_perm_pending = None
         self.indices = self.indices[perm]
         self.lengths = self.lengths[perm]
@@ -127,7 +135,7 @@ class _Group:
             self.sync_host()
             ends = np.maximum(hay_len - self.lengths.astype(np.int64) + 1, 0)
             ends = np.pad(ends.astype(np.int32), (0, self.n_pad - self.n))
-            e = torch.from_numpy(ends).to(self.device)
+            e = to_device(ends, self.device)
             self._ends_cache[hay_len] = e
             while len(self._ends_cache) > self._ENDS_CACHE_CAP:
                 self._ends_cache.pop(next(iter(self._ends_cache)))
@@ -213,12 +221,15 @@ class BatchedSearcher:
         n = len(self.needles)
         if n == 0:
             return np.zeros((0,), np.int64)
-        dh = self._layout(hay)  # one layout for the groups and the huge needles
-        out = self.find_all_device(dh, _allow_huge=True).cpu().numpy().astype(np.int64)
-        out[out >= SENTINEL] = -1
-        for i, hs in self._huge:
-            f = hs.find(dh)
-            out[i] = -1 if f is None else f
+        with span("sliceslice.find_all"):
+            dh = self._layout(hay)  # one layout for the groups and the huge needles
+            out = to_host(self.find_all_device(dh, _allow_huge=True)).astype(np.int64)
+            out[out >= SENTINEL] = -1
+            if self._huge:
+                with span("sliceslice.huge"):
+                    for i, hs in self._huge:
+                        f = hs.find(dh)
+                        out[i] = -1 if f is None else f
         return out
 
     def _fence_huge(self, what: str, use: str) -> None:
@@ -287,18 +298,21 @@ class BatchedSearcher:
     def count_all(self, hay: HaystackLike) -> np.ndarray:
         """Overlapping occurrence count per needle (int64[N]); a flat
         layout on the CPU counts on the host, as in the JAX package."""
-        base = self._layout(hay)
-        dh = self._full_scan_layout(base)
-        if not dh.tiled:
-            data = dh.host_bytes
-            if data is None:
-                raise ValueError("counting on a flat DeviceHaystack requires host bytes")
-            return np.array([overlapping_count(data, nd) for nd in self.needles], dtype=np.int64)
-        out = self.count_all_device(dh, _allow_huge=True).cpu().numpy().astype(np.int64)
-        # A huge needle takes the layout before any re-lay: a flat rung on
-        # the card is re-laid with the halo of its dense tier.
-        for i, hs in self._huge:
-            out[i] = hs.count_in(base)
+        with span("sliceslice.count_all"):
+            base = self._layout(hay)
+            dh = self._full_scan_layout(base)
+            if not dh.tiled:
+                data = dh.host_bytes
+                if data is None:
+                    raise ValueError("counting on a flat DeviceHaystack requires host bytes")
+                return np.array([overlapping_count(data, nd) for nd in self.needles], dtype=np.int64)
+            out = to_host(self.count_all_device(dh, _allow_huge=True)).astype(np.int64)
+            # A huge needle takes the layout before any re-lay: a flat rung on
+            # the card is re-laid with the halo of its dense tier.
+            if self._huge:
+                with span("sliceslice.huge"):
+                    for i, hs in self._huge:
+                        out[i] = hs.count_in(base)
         return out
 
     def positions_all(
@@ -319,26 +333,30 @@ class BatchedSearcher:
         else, since no row falls back to its bitmap.  A flat layout on the
         card is re-laid there; one elsewhere is scanned on the host, as in
         the JAX package."""
-        base = self._layout(hay)
-        dh = self._full_scan_layout(base)
-        if not dh.tiled:
-            data = dh.host_bytes
-            if data is None:
-                raise ValueError("positions on a flat DeviceHaystack requires host bytes")
-            return [_host_positions(data, nd) for nd in self.needles]
-        out: List[Optional[np.ndarray]] = [None] * len(self.needles)
-        for g in self.groups:
-            g.sync_host()  # indices in the device tables' row order
-            ends = g.ends_dev(dh.length)
-            batches = torch_backend.position_batches(g.n, dh.flat.numel(), g.t, batch)
-            for i0, i1 in batches:
-                res = torch_backend.two_tier_positions(
-                    dh.flat, g.values_dev[i0:i1], g.masks_dev[i0:i1], ends[i0:i1], sparse_cap
-                )
-                for j, p in zip(g.indices[i0:i1].tolist(), res):
-                    out[j] = p
-        for i, hs in self._huge:
-            out[i] = hs.positions(base)
+        with span("sliceslice.positions_all"):
+            base = self._layout(hay)
+            dh = self._full_scan_layout(base)
+            if not dh.tiled:
+                data = dh.host_bytes
+                if data is None:
+                    raise ValueError("positions on a flat DeviceHaystack requires host bytes")
+                return [_host_positions(data, nd) for nd in self.needles]
+            out: List[Optional[np.ndarray]] = [None] * len(self.needles)
+            for g in self.groups:
+                g.sync_host()  # indices in the device tables' row order
+                ends = g.ends_dev(dh.length)
+                batches = torch_backend.position_batches(g.n, dh.flat.numel(), g.t, batch)
+                for i0, i1 in batches:
+                    res = torch_backend.two_tier_positions(
+                        dh.flat, g.values_dev[i0:i1], g.masks_dev[i0:i1], ends[i0:i1], sparse_cap
+                    )
+                    with span("sliceslice.positions.place"):
+                        for j, p in zip(g.indices[i0:i1].tolist(), res):
+                            out[j] = p
+            if self._huge:
+                with span("sliceslice.huge"):
+                    for i, hs in self._huge:
+                        out[i] = hs.positions(base)
         return out  # type: ignore[return-value]
 
     def optimize_for(
@@ -400,8 +418,10 @@ class BatchedSearcher:
 
 def _scatter(n: int, sizes: tuple, order: torch.Tensor, parts: list) -> torch.Tensor:
     """Unpad the group results, concatenate them, and scatter them back to
-    input order with one indexed assignment."""
-    out = torch.zeros((n,), dtype=torch.int32, device=order.device)
-    if parts:
-        out[order] = torch.cat([p[:sz] for p, sz in zip(parts, sizes)])
+    input order with one indexed assignment (the span
+    ``sliceslice.scatter``)."""
+    with span("sliceslice.scatter"):
+        out = torch.zeros((n,), dtype=torch.int32, device=order.device)
+        if parts:
+            out[order] = torch.cat([p[:sz] for p, sz in zip(parts, sizes)])
     return out

@@ -36,6 +36,7 @@ import torch
 
 from ..needle import build_probe_table
 from ..searcher import DeviceLike, resolve_device
+from ..utils import tracing
 from . import cuda_lib
 from .scan_math import packed_windows, table_bits
 
@@ -141,8 +142,8 @@ class PairLaunch(NamedTuple):
 
 def plan_launch(values, masks, ln, hay, lh, plan, block: int) -> PairLaunch:
     """Check :func:`pair_block`'s operands and plan and put the plan's table
-    on their device.  ``pair_block.uploads`` counts the tables sent to a
-    card."""
+    on their device.  The counter ``uploads.pair_block``
+    (:mod:`..utils.tracing`) counts the tables sent to a card."""
     device = hay.device
     for name, x, dim in (("values", values, 2), ("masks", masks, 2), ("ln", ln, 1), ("lh", lh, 1)):
         _check_int32(name, x, dim)
@@ -163,7 +164,7 @@ def plan_launch(values, masks, ln, hay, lh, plan, block: int) -> PairLaunch:
     if device.type == "cuda" and operands[3].data_ptr() % 4:
         raise ValueError("hay must be 4-byte aligned")
     if device.type == "cuda":
-        pair_block.uploads += 1
+        tracing.count("uploads.pair_block")
     return PairLaunch(operands, block, live, torch.from_numpy(live).to(device))
 
 
@@ -181,29 +182,31 @@ def _resident_blocks(index: int) -> int:
 def run_launch(launch: PairLaunch, count: bool = False):
     """One sweep of a checked launch plan: :func:`pair_block`'s answers.  On
     a card: one zeroed (total, tile counter) pair, in matrix mode the output
-    filled with -1, one launch."""
+    filled with -1, one launch, all in the span
+    ``sliceslice.launch.pair_block``."""
     values, masks, ln, hay, lh = launch.operands
     block = launch.block
     device = hay.device
     if device.type == "cpu":
         return _pair_blocks_plain(values, masks, ln, hay, lh, launch.live.tolist(), block, count)
-    n, tn = values.shape
-    h = lh.shape[0]
-    state = torch.zeros((2,), dtype=torch.int32, device=device)  # total, tile counter
-    first = None if count else torch.full((n, h), -1, dtype=torch.int32, device=device)
-    entries = launch.live.shape[0]
-    if entries == 0:
-        return state[0] if count else first
-    with torch.cuda.device(device):
-        err = cuda_lib.load().ssf_pair_block(
-            values.data_ptr(), masks.data_ptr(), ln.data_ptr(), n, tn, hay.data_ptr(),
-            lh.data_ptr(), h, hay.shape[1] // 4, launch.table.data_ptr(), entries, block,
-            _resident_blocks(device.index), None if count else first.data_ptr(),
-            state.data_ptr() if count else None, state.data_ptr() + 4,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    cuda_lib.check(err, "ssf_pair_block")
-    pair_block.launches += 1
+    with tracing.span("sliceslice.launch.pair_block"):
+        n, tn = values.shape
+        h = lh.shape[0]
+        state = torch.zeros((2,), dtype=torch.int32, device=device)  # total, tile counter
+        first = None if count else torch.full((n, h), -1, dtype=torch.int32, device=device)
+        entries = launch.live.shape[0]
+        if entries == 0:
+            return state[0] if count else first
+        with torch.cuda.device(device):
+            err = cuda_lib.load().ssf_pair_block(
+                values.data_ptr(), masks.data_ptr(), ln.data_ptr(), n, tn, hay.data_ptr(),
+                lh.data_ptr(), h, hay.shape[1] // 4, launch.table.data_ptr(), entries, block,
+                _resident_blocks(device.index), None if count else first.data_ptr(),
+                state.data_ptr() if count else None, state.data_ptr() + 4,
+                torch.cuda.current_stream().cuda_stream,
+            )
+        cuda_lib.check(err, "ssf_pair_block")
+    tracing.count("launches.pair_block")
     return state[0] if count else first
 
 
@@ -225,10 +228,6 @@ def pair_block(values, masks, ln, hay, lh, plan, block: int, count: bool = False
     keeps the :class:`PairLaunch` and calls :func:`run_launch`, as
     :class:`PairwiseSearcher` does."""
     return run_launch(plan_launch(values, masks, ln, hay, lh, plan, block), count)
-
-
-pair_block.launches = 0
-pair_block.uploads = 0
 
 
 class PairwiseSearcher:

@@ -7,8 +7,10 @@ Each wrapper launches its hand-written CUDA kernel (``csrc/find.cu``,
 ``csrc/positions.cu``) for a tensor on a CUDA device and runs its plain
 PyTorch version, defined beside it with the same signature, for a tensor
 on the CPU.  Any other device raises; nothing falls back from the card to
-the CPU.  Each wrapper counts its kernel launches in a plain integer
-attribute, ``launches``.
+the CPU.  On the card each wrapper's call is the span
+``sliceslice.launch.<wrapper>`` (:mod:`..utils.tracing`), from its entry to
+its kernel's return: operand checks, output buffers, the queue plan and
+the launch; each launch counts ``launches.<wrapper>``.
 
 ``batched_find`` replaces ``sliceslice_tpu/ops/scan_kernel.py``'s
 ``batched_find_cols`` over the Pallas find kernel, ``batched_count`` its
@@ -37,6 +39,7 @@ import torch
 
 from .. import config
 from ..config import SENTINEL
+from ..utils import tracing
 from . import cuda_lib
 from .scan_math import (
     first_offsets,
@@ -186,6 +189,21 @@ def _cuda_ready(*tensors: torch.Tensor) -> None:
         raise ValueError("haystack buffer must be 16-byte aligned and sized")
 
 
+def _launch_span(wrapper):
+    """``wrapper`` whose calls on a CUDA tensor run in the span
+    ``sliceslice.launch.<wrapper>``; its plain versions' are not spans."""
+    name = "sliceslice.launch." + wrapper.__name__
+
+    @functools.wraps(wrapper)
+    def call(x, *args, **kwargs):
+        if tracing.enabled() and getattr(x, "is_cuda", False):
+            with tracing.span(name):
+                return wrapper(x, *args, **kwargs)
+        return wrapper(x, *args, **kwargs)
+
+    return call
+
+
 def _n_real(n_real, n: int) -> int:
     return n if n_real is None else max(0, min(int(n_real), n))
 
@@ -238,7 +256,6 @@ def _launch_queue(mode: int, plan: QueuePlan, hay, values, masks, ends, out, bas
     return True
 
 
-
 def batched_find_plain(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor:
     """Plain PyTorch version of :func:`batched_find` (same signature and
     answers; tables as int32 bit-pattern tensors on ``hay``'s device)."""
@@ -254,6 +271,7 @@ def batched_find_plain(hay, values, masks, ends, base=0, n_real=None) -> torch.T
     return out
 
 
+@_launch_span
 def batched_find(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor:
     """First-match offsets (int32[N], SENTINEL when absent) of N probe
     programs over the flat haystack ``hay``.
@@ -282,11 +300,8 @@ def batched_find(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor:
     out = torch.full((n,), SENTINEL, dtype=torch.int32, device=device)
     plan = _queue_plan(FIND, hay, t, n_real)
     if _launch_queue(FIND, plan, hay, values, masks, ends, out, base, n_real):
-        batched_find.launches += 1
+        tracing.count("launches.batched_find")
     return out
-
-
-batched_find.launches = 0
 
 
 def batched_count_plain(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor:
@@ -303,6 +318,7 @@ def batched_count_plain(hay, values, masks, ends, base=0, n_real=None) -> torch.
     return out
 
 
+@_launch_span
 def batched_count(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor:
     """Overlapping match counts (int32[N]) of N probe programs over the
     flat haystack ``hay``, with the operands of :func:`batched_find`.
@@ -325,11 +341,8 @@ def batched_count(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor
     out = torch.zeros((n,), dtype=torch.int32, device=device)
     plan = _queue_plan(COUNT, hay, t, n_real)
     if _launch_queue(COUNT, plan, hay, values, masks, ends, out, base, n_real):
-        batched_count.launches += 1
+        tracing.count("launches.batched_count")
     return out
-
-
-batched_count.launches = 0
 
 
 def bitmap_words(nbytes: int, t: int) -> int:
@@ -386,6 +399,7 @@ def match_bitmap_counted_plain(hay, values, masks, ends, base=0, n_real=None):
     return words, item_counts_of(words, plan.chunk, plan.n_chunks), plan.chunk
 
 
+@_launch_span
 def match_bitmap_counted(hay, values, masks, ends, base=0, n_real=None):
     """:func:`match_bitmap`'s bitmaps and the match count of each of the
     bitmap kernel's queue items, from one launch: ``(words int32[N, W],
@@ -406,13 +420,10 @@ def match_bitmap_counted(hay, values, masks, ends, base=0, n_real=None):
     words = torch.zeros((n, bitmap_words(hay.numel(), t)), dtype=torch.int32, device=device)
     counts = torch.zeros((plan.n_chunks, n_real), dtype=torch.int32, device=device)
     if _launch_queue(BITMAP, plan, hay, values, masks, ends, counts, base, n_real, words):
-        match_bitmap_counted.launches += 1
+        tracing.count("launches.match_bitmap_counted")
     if n_real < n:
         counts = torch.nn.functional.pad(counts, (0, n - n_real))
     return words, counts, plan.chunk
-
-
-match_bitmap_counted.launches = 0
 
 
 def compact_positions_plain(words, item_counts, chunk, cap):
@@ -455,6 +466,7 @@ def item_ranks_plain(item_counts, offsets=None):
     return counts, first
 
 
+@_launch_span
 def item_ranks(item_counts, offsets=None):
     """``(counts int32[N], first_rank int32[n_chunks, N])`` of the bitmap
     kernel's per-item match counts (``item_counts`` int32[n_chunks, N] of
@@ -487,11 +499,8 @@ def item_ranks(item_counts, offsets=None):
             grid, torch.cuda.current_stream().cuda_stream,
         )
     cuda_lib.check(err, "ssf_item_ranks")
-    item_ranks.launches += 1
+    tracing.count("launches.item_ranks")
     return counts, first
-
-
-item_ranks.launches = 0
 
 
 def _rank_windows(n: int, cap, row_base, window, device):
@@ -525,6 +534,7 @@ def compact_window_plain(words, item_counts, first_rank, chunk, out, cap=None, r
     return out
 
 
+@_launch_span
 def compact_window(words, item_counts, first_rank, chunk, out, cap=None, row_base=None,
                    window=(0, 0)):
     """Write into ``out`` the match offsets of each row's window of ranks,
@@ -583,11 +593,8 @@ def compact_window(words, item_counts, first_rank, chunk, out, cap=None, row_bas
             torch.cuda.current_stream().cuda_stream,
         )
     cuda_lib.check(err, "ssf_compact_positions")
-    compact_window.launches += 1
+    tracing.count("launches.compact_window")
     return out
-
-
-compact_window.launches = 0
 
 
 def compact_positions(words, item_counts, chunk, cap):
@@ -624,6 +631,7 @@ def memchr_find_plain(hay, byte, end, base=0) -> torch.Tensor:
     return torch.where(hit.any(), first + base, SENTINEL).to(torch.int32)
 
 
+@_launch_span
 def memchr_find(hay, byte, end, base=0) -> torch.Tensor:
     """First offset (0-d int32, SENTINEL when absent) of one byte value in
     the flat haystack: the smallest ``p`` with ``p + base < end`` and
@@ -648,8 +656,6 @@ def memchr_find(hay, byte, end, base=0) -> torch.Tensor:
             out.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     cuda_lib.check(err, "ssf_memchr_find")
-    memchr_find.launches += 1
+    tracing.count("launches.memchr_find")
     return out[0]
 
-
-memchr_find.launches = 0

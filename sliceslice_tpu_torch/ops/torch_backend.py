@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..config import SENTINEL
+from ..utils.tracing import span
 from . import scan_kernel
 from .scan_math import (
     first_offsets,
@@ -28,6 +29,7 @@ from .scan_math import (
     position_limit,
     table_bits,
 )
+from .transfer import to_device, to_host
 
 
 def _rolled_windows(flat: torch.Tensor) -> torch.Tensor:
@@ -167,36 +169,42 @@ def two_tier_positions(flat, values, masks, ends, cap: int, plain: bool = False)
     :func:`window_entries` packed offsets, one compaction launch and one
     readback.  ``plain`` runs the kernels' plain versions on the layout's
     device.  ``cap`` (the JAX sparse cap) is validated, a negative one
-    refused, and changes nothing else: no row falls back to its bitmap."""
+    refused, and changes nothing else: no row falls back to its bitmap.
+    The call is the span ``sliceslice.positions.batch``, with the bases
+    (``sliceslice.positions.bases``), the row slices
+    (``sliceslice.positions.split``) and the copies of
+    :mod:`.transfer` inside it."""
     cap = int(cap)
     if cap < 0:
         raise ValueError(f"cap={cap} is negative")
-    _, values, masks, ends = scan_kernel._operands(flat, values, masks, ends, 0)
-    if plain:
-        bitmap = scan_kernel.match_bitmap_counted_plain
-        ranks, compact = scan_kernel.item_ranks_plain, scan_kernel.compact_window_plain
-    else:
-        bitmap = scan_kernel.match_bitmap_counted
-        ranks, compact = scan_kernel.item_ranks, scan_kernel.compact_window
-    words, item_counts, chunk = bitmap(flat, values, masks, ends)
-    counts, first = ranks(item_counts)
-    cnt = counts.cpu().numpy().astype(np.int64)
-    if not cnt.size:
-        return []
-    stops = np.cumsum(cnt)
-    total = int(stops[-1])
-    packed = np.empty((total,), np.int64)
-    if total:
-        row_base = torch.from_numpy(stops - cnt).to(words.device)
+    with span("sliceslice.positions.batch"):
+        _, values, masks, ends = scan_kernel._operands(flat, values, masks, ends, 0)
+        if plain:
+            bitmap = scan_kernel.match_bitmap_counted_plain
+            ranks, compact = scan_kernel.item_ranks_plain, scan_kernel.compact_window_plain
+        else:
+            bitmap = scan_kernel.match_bitmap_counted
+            ranks, compact = scan_kernel.item_ranks, scan_kernel.compact_window
+        words, item_counts, chunk = bitmap(flat, values, masks, ends)
+        counts, first = ranks(item_counts)
+        cnt = to_host(counts).astype(np.int64)
+        if not cnt.size:
+            return []
+        with span("sliceslice.positions.bases"):
+            stops = np.cumsum(cnt)
+            total = int(stops[-1])
+            packed = np.empty((total,), np.int64)
+            row_base = to_device(stops - cnt, words.device) if total else None
         step = window_entries()
         for lo in range(0, total, step):
             hi = min(lo + step, total)
             out = torch.empty((hi - lo,), dtype=torch.int32, device=words.device)
             compact(words, item_counts, first, chunk, out, row_base=row_base, window=(lo, hi))
-            packed[lo:hi] = out.cpu().numpy()
-    bounds = [0] + stops.tolist()
-    # Row slices by hand: np.split costs several times more per row.
-    return [packed[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+            packed[lo:hi] = to_host(out)
+        with span("sliceslice.positions.split"):
+            bounds = [0] + stops.tolist()
+            # Row slices by hand: np.split costs several times more per row.
+            return [packed[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
 
 
 def decode_match_bitmap(words: np.ndarray) -> np.ndarray:

@@ -43,9 +43,10 @@ prefilter     —           ``batched_count`` (a ``__vcmpeq4`` test of the
                           walk, which runs only on candidates)
 ============  ==========  ==================================================
 
-:func:`probe` launches the kernel for a CUDA haystack and runs
-:func:`probe_plain` for a CPU one; :func:`make_tables` builds the JAX
-script's tables.  Run it as::
+:func:`probe` launches the kernel for a CUDA haystack (counting
+``launches.probe``, :mod:`..utils.tracing`) and runs :func:`probe_plain`
+for a CPU one; :func:`make_tables` builds the JAX script's tables.  Run it
+as::
 
     python -m sliceslice_tpu_torch.scripts.kernel_probe [t=K] [r=N] [k=SWEEPS] [n=ROWS] [device=D] [variant ...]
 
@@ -72,6 +73,7 @@ from ..config import SENTINEL
 from ..needle import needed_halo_for_t
 from ..ops import cuda_lib, scan_kernel
 from ..ops.scan_math import match_counts, packed_windows, position_limit
+from ..utils import tracing
 
 #: Variant names, in the order of ``csrc/probe.cu``'s ``Variant`` codes.
 VARIANTS = ("count", "first", "nomin", "noprobe", "empty", "nomask", "branchless",
@@ -223,11 +225,8 @@ def probe(variant, hay, values, masks, ends, base=0, n_real=None, rows=4) -> tor
             torch.cuda.current_stream().cuda_stream,
         )
     cuda_lib.check(err, f"ssf_probe({variant})")
-    probe.launches += 1
+    tracing.count("launches.probe")
     return out
-
-
-probe.launches = 0
 
 
 def main(argv: Optional[list] = None) -> int:

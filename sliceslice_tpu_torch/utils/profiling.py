@@ -142,8 +142,9 @@ def trace(fn: Callable[[], object], logdir: Optional[str] = None) -> str:
     """Capture a torch.profiler trace of one call of ``fn`` (the card's
     kernels and copies too when a CUDA device is present) and export it as
     a Chrome trace, ``trace.json``, into ``logdir`` (default: a directory
-    under the system's temporary directory, never the repository).  Returns
-    ``logdir``."""
+    under the system's temporary directory, never the repository).  The
+    program's spans (:mod:`.tracing`) appear in it beside the kernels.
+    Returns ``logdir``."""
     from torch.profiler import ProfilerActivity, profile
 
     if logdir is None:

@@ -27,6 +27,7 @@ from sliceslice_tpu_torch import (
     preprocess,
 )
 from sliceslice_tpu_torch.needle import build_probe_table, needed_halo_for_t
+from sliceslice_tpu_torch.utils import tracing
 
 #: The CPU tests run the kernels' plain versions: the port's entry points
 #: take the card unless asked for the CPU.
@@ -138,11 +139,11 @@ def test_cpu_count_takes_plain_and_counts_no_launch(rng):
     dh = tl.preprocess(hay, kh=16, force_cols=True, device=CPU)
     values, masks, lengths = build_probe_table([hay[50:53], hay[9000:9008]])
     ends = (len(hay) - lengths + 1).astype(np.int32)
-    before = tsk.batched_count.launches
+    before = tracing.counters()
     got = tsk.batched_count(dh.flat, values, masks, ends)
     v, m = torch.from_numpy(values.view(np.int32)), torch.from_numpy(masks.view(np.int32))
     assert torch.equal(got, tsk.batched_count_plain(dh.flat, v, m, torch.from_numpy(ends)))
-    assert tsk.batched_count.launches == before
+    assert tracing.counters() == before
 
 
 def test_count_wrapper_checks_and_other_devices():
@@ -215,9 +216,9 @@ def test_count_searchers_agree(rng):
     for nd, c in zip(nds, batched):
         assert CudaSearcher(nd, device=CPU).count_in(dh) == TorchSearcher(nd, device=CPU).count_in(dh) == c == oracle_count(hay, nd)
     assert MemchrSearcher(b"c", device=CPU).count_in(dh) == hay.count(b"c")
-    before = tsk.batched_count.launches
+    before = tracing.counters()
     assert MemchrSearcher(b"b", device=CPU).count_in(hay) == hay.count(b"b")
-    assert tsk.batched_count.launches == before  # CPU: the plain version
+    assert tracing.counters() == before  # CPU: the plain version
 
 
 def test_count_all_words_matches_jax(words, i386_small, rng):

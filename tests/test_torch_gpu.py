@@ -32,11 +32,16 @@ from sliceslice_tpu_torch.ops import pairwise, scan_kernel, torch_backend
 from sliceslice_tpu_torch.ops.scan_math import table_bits
 from sliceslice_tpu_torch.scripts import contract_cases, kernel_probe, pair_cases
 from sliceslice_tpu_torch.searcher import _host_positions
-from sliceslice_tpu_torch.utils import streaming
+from sliceslice_tpu_torch.utils import streaming, tracing
 
 pytestmark = pytest.mark.gpu
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
+
+
+def _n(name: str) -> int:
+    """The program's counter ``name`` (``utils/tracing.py``)."""
+    return tracing.counters().get(name, 0)
 
 
 @pytest.fixture
@@ -68,9 +73,9 @@ def test_find_kernel_equals_plain(cuda, t):
     for base, n_real in ((0, n), (1 << 20, n - 6)):
         e = torch.from_numpy(np.where(ends > 0, ends + base, 0).astype(np.int32)).to(cuda)
         v, m = table_bits(vals, cuda), table_bits(msks, cuda)
-        before = scan_kernel.batched_find.launches
+        before = _n("launches.batched_find")
         got = scan_kernel.batched_find(dh.flat, v, m, e, base=base, n_real=n_real)
-        assert scan_kernel.batched_find.launches == before + 1
+        assert _n("launches.batched_find") == before + 1
         plain = scan_kernel.batched_find_plain(dh.flat, v, m, e, base=base, n_real=n_real)
         assert torch.equal(got, plain), (t, base)
         exp = [hay.find(nd) for nd in needles[:n_real]]
@@ -100,9 +105,9 @@ def _check_positions_kernels(dh, v, m, e, base=0, n_real=None):
     kernel at every cap against their plain versions on one table, each
     launch counted; two bitmap launches give the same answers.  Returns the
     kernel's words and row totals."""
-    before = scan_kernel.match_bitmap_counted.launches
+    before = _n("launches.match_bitmap_counted")
     words, counts, chunk = scan_kernel.match_bitmap_counted(dh.flat, v, m, e, base=base, n_real=n_real)
-    assert scan_kernel.match_bitmap_counted.launches == before + 1
+    assert _n("launches.match_bitmap_counted") == before + 1
     again = scan_kernel.match_bitmap_counted(dh.flat, v, m, e, base=base, n_real=n_real)
     plain = scan_kernel.match_bitmap_counted_plain(dh.flat, v, m, e, base=base, n_real=n_real)
     for other in (again, plain):
@@ -118,7 +123,7 @@ def _check_positions_kernels(dh, v, m, e, base=0, n_real=None):
 
 
 def _rank_launches():
-    return scan_kernel.item_ranks.launches, scan_kernel.compact_window.launches
+    return _n("launches.item_ranks"), _n("launches.compact_window")
 
 
 def rank_windows(total: int) -> list:
@@ -147,9 +152,9 @@ def _check_packed_windows(words, item_counts, chunk):
     whole = None
     for lo, hi in rank_windows(int(cnt.sum())):
         got = torch.full((hi - lo,), -1, dtype=torch.int32, device=words.device)
-        n0 = scan_kernel.compact_window.launches
+        n0 = _n("launches.compact_window")
         scan_kernel.compact_window(words, item_counts, first, chunk, got, row_base=row_base, window=(lo, hi))
-        assert scan_kernel.compact_window.launches == n0 + (hi > lo)
+        assert _n("launches.compact_window") == n0 + (hi > lo)
         exp = torch.full_like(got, -2)
         scan_kernel.compact_window_plain(words, item_counts, first, chunk, exp, row_base=row_base,
                                          window=(lo, hi))
@@ -245,9 +250,9 @@ def test_memchr_kernel_equals_plain(cuda):
     dh = preprocess(hay, device=cuda)
     for byte in (97, 128, 255, 0):
         for end, base in ((len(hay), 0), (len(hay) // 2, 0), (len(hay) + 99, 99)):
-            before = scan_kernel.memchr_find.launches
+            before = _n("launches.memchr_find")
             got = scan_kernel.memchr_find(dh.flat, byte, end, base)
-            assert scan_kernel.memchr_find.launches == before + 1
+            assert _n("launches.memchr_find") == before + 1
             plain = scan_kernel.memchr_find_plain(dh.flat, byte, end, base)
             f = hay.find(bytes([byte]), 0, end - base)
             assert int(got) == int(plain) == (SENTINEL if f < 0 else f + base)
@@ -270,9 +275,9 @@ def test_i386_sweep_on_card(cuda):
     dh = preprocess(hay, kh=24, device=cuda)
     bs = BatchedSearcher(words, device=cuda)
     exp = np.array([hay.find(w) for w in words])
-    before = scan_kernel.batched_find.launches
+    before = _n("launches.batched_find")
     assert np.array_equal(bs.find_all(dh), exp)
-    assert scan_kernel.batched_find.launches == before + len(bs.groups)
+    assert _n("launches.batched_find") == before + len(bs.groups)
     bs.optimize_for(dh)
     assert np.array_equal(bs.find_all(dh), exp)
 
@@ -281,13 +286,13 @@ def test_dynamic_arms_on_card(cuda):
     hay = _hay(5, 100_000)
     big = preprocess(hay, device=cuda)
     small = preprocess(hay[:5000], device=cuda)
-    before = scan_kernel.memchr_find.launches
+    before = _n("launches.memchr_find")
     for k in (1, 2, 7, 16, 17, 40, 300):
         for nd in (hay[5000 : 5000 + k], hay[-k:], b"\x01" * k):
             for h, data in ((big, hay), (small, hay[:5000])):
                 f = data.find(nd)
                 assert DynamicSearcher(nd, device=cuda).find(h) == (None if f < 0 else f)
-    assert scan_kernel.memchr_find.launches > before
+    assert _n("launches.memchr_find") > before
 
 
 @pytest.mark.parametrize("t", list(range(1, 9)) + [16, 32, 512])
@@ -309,9 +314,9 @@ def test_count_kernel_equals_plain(cuda, t):
     for base, n_real in ((0, n), (4096, n - 6)):
         e = torch.from_numpy(np.where(ends > 0, ends + base, 0).astype(np.int32)).to(cuda)
         v, m = table_bits(vals, cuda), table_bits(msks, cuda)
-        before = scan_kernel.batched_count.launches
+        before = _n("launches.batched_count")
         got = scan_kernel.batched_count(dh.flat, v, m, e, base=base, n_real=n_real)
-        assert scan_kernel.batched_count.launches == before + 1
+        assert _n("launches.batched_count") == before + 1
         plain = scan_kernel.batched_count_plain(dh.flat, v, m, e, base=base, n_real=n_real)
         assert torch.equal(got, plain), (t, base)
         assert got.cpu().tolist() == exp_all[:n_real] + [0] * (n - n_real)
@@ -324,9 +329,9 @@ def test_i386_counts_on_card(cuda):
     dh = preprocess(hay, kh=24, device=cuda)
     bs = BatchedSearcher(sample, device=cuda)
     exp = np.array([overlapping_count(hay, w) for w in sample])
-    before = scan_kernel.batched_count.launches
+    before = _n("launches.batched_count")
     assert np.array_equal(bs.count_all(dh), exp)
-    assert scan_kernel.batched_count.launches == before + len(bs.groups)
+    assert _n("launches.batched_count") == before + len(bs.groups)
     bs.optimize_for(dh)
     assert np.array_equal(bs.count_all(dh), exp)
     for nd in (b"e", b"the", hay[-9:], b"\xfe\xfe"):
@@ -342,16 +347,16 @@ def test_flat_layout_counts_on_card(cuda):
     needles = [hay[100:103], b"a", hay[-5:], hay[-2:] + b"\0", b"\x7f\x7f", hay[7:40]]
     exp = [overlapping_count(hay, nd) for nd in needles]
     bs = BatchedSearcher(needles, device=cuda)
-    before = scan_kernel.batched_count.launches
+    before = _n("launches.batched_count")
     assert bs.count_all(flat).tolist() == exp
     assert bs.count_all_device(flat).cpu().tolist() == exp
-    assert scan_kernel.batched_count.launches == before + 2 * len(bs.groups)
+    assert _n("launches.batched_count") == before + 2 * len(bs.groups)
     for nd, c in zip(needles, exp):
-        before = scan_kernel.batched_count.launches
+        before = _n("launches.batched_count")
         assert DynamicSearcher(nd, device=cuda).count_in(flat) == c
-        assert scan_kernel.batched_count.launches == before + 1
+        assert _n("launches.batched_count") == before + 1
         assert TorchSearcher(nd, device=cuda).count_in(flat) == c
-        assert scan_kernel.batched_count.launches == before + 1
+        assert _n("launches.batched_count") == before + 1
 
 
 def _words(rng, count, max_len, alpha=(97, 100)):
@@ -370,10 +375,10 @@ def test_pair_kernel_equals_plain(cuda, max_len, block, count):
     ps = PairwiseSearcher(ws, block=block, device=cuda)
     hay, lh, _, _ = ps._pack_hay(hs)
     args = (ps._values, ps._masks, ps._ln, hay, lh, ps._plan(hs), block)
-    before = pairwise.pair_block.launches
+    before = _n("launches.pair_block")
     got = pairwise.pair_block(*args)
     count = pairwise.pair_block(*args, count=True)
-    assert pairwise.pair_block.launches == before + 2
+    assert _n("launches.pair_block") == before + 2
     assert torch.equal(got, pairwise.pair_block_plain(*args))
     assert int(count) == int(pairwise.pair_block_plain(*args, count=True)) == int((got >= 0).sum())
     exp = np.array([[h.find(n) for h in hs] for n in ws], dtype=np.int32)
@@ -391,10 +396,10 @@ def test_pair_kernel_hard_cases(cuda, name):
     args, exp = pair_cases.operands(case, cuda)
     plain = pairwise.pair_block_plain(*args)
     assert np.array_equal(plain.cpu().numpy(), exp)
-    before = pairwise.pair_block.launches
+    before = _n("launches.pair_block")
     got, again = pairwise.pair_block(*args), pairwise.pair_block(*args)
     cnt, cnt2 = pairwise.pair_block(*args, count=True), pairwise.pair_block(*args, count=True)
-    assert pairwise.pair_block.launches == before + 4
+    assert _n("launches.pair_block") == before + 4
     assert torch.equal(got, plain) and torch.equal(got, again)
     assert int(cnt) == int(cnt2) == int((exp >= 0).sum())
 
@@ -409,13 +414,13 @@ def test_pair_launch_plan_is_uploaded_once(cuda):
     for hay, words in ((None, ws), (hs, hs)):
         exp = sum(h.find(n) >= 0 for n in ws for h in words)
         assert int(ps.count_matches_device(hay)) == exp
-        launches, uploads = pairwise.pair_block.launches, pairwise.pair_block.uploads
+        launches, uploads = _n("launches.pair_block"), _n("uploads.pair_block")
         totals = [ps.count_matches_device(hay) for _ in range(32)]
-        assert pairwise.pair_block.launches == launches + 32
-        assert pairwise.pair_block.uploads == uploads
+        assert _n("launches.pair_block") == launches + 32
+        assert _n("uploads.pair_block") == uploads
         assert {int(x) for x in totals} == {exp}
         assert np.array_equal(ps.contains_matrix(hay).sum(), exp)
-        assert pairwise.pair_block.uploads == uploads
+        assert _n("uploads.pair_block") == uploads
 
 
 def test_pair_kernel_padded_rows_never_match(cuda):
@@ -506,9 +511,9 @@ def test_rank_and_compaction_kernels_equal_plain(cuda, monkeypatch, chunk):
     for cap in (0,) + CAPS + (16_384,):
         got_off = torch.full((n, cap), -3, dtype=torch.int32, device=cuda)
         ref_off = got_off.clone()
-        before = scan_kernel.item_ranks.launches
+        before = _n("launches.item_ranks")
         got = scan_kernel.item_ranks(counts, got_off)
-        assert scan_kernel.item_ranks.launches == before + 1
+        assert _n("launches.item_ranks") == before + 1
         ref = scan_kernel.item_ranks_plain(counts, ref_off)
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]) and torch.equal(got_off, ref_off), cap
         got = scan_kernel.compact_positions(words, counts, got_chunk, cap)
@@ -526,13 +531,12 @@ def test_contract_tables_on_card(cuda):
     through a 2x1 sharded sweep of cells on the card too."""
     from sliceslice_tpu_torch.parallel import make_mesh, sharded_find_cols
 
-    wrappers = (scan_kernel.batched_find, scan_kernel.batched_count, scan_kernel.match_bitmap_counted,
-                scan_kernel.item_ranks, scan_kernel.compact_window)
+    wrappers = ("batched_find", "batched_count", "match_bitmap_counted", "item_ranks", "compact_window")
     for case in contract_cases.cases():
         dh, v, m, e = contract_cases.operands(case, cuda)
-        before = [w.launches for w in wrappers]
+        before = [_n("launches." + w) for w in wrappers]
         got = contract_cases.answers(dh.flat, v, m, e)
-        assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1, 1, 1, 1], case.name
+        assert [_n("launches." + w) - b for w, b in zip(wrappers, before)] == [1, 1, 1, 1, 1], case.name
         assert contract_cases.same(got, contract_cases.answers(dh.flat, v, m, e, plain=True)), case.name
         assert contract_cases.same(got, contract_cases.oracle(case)), case.name
         if case.name == "exotic_mask":
@@ -554,9 +558,9 @@ def test_probe_kernel_equals_plain(cuda, t):
     first = scan_kernel.batched_find(dh.flat, v, m, e, n_real=600)
     for variant in kernel_probe.VARIANTS:
         for rows in (kernel_probe.ROWS if variant == "rows" else (4,)):
-            before = kernel_probe.probe.launches
+            before = _n("launches.probe")
             got = kernel_probe.probe(variant, dh.flat, v, m, e, n_real=600, rows=rows)
-            assert kernel_probe.probe.launches == before + 1
+            assert _n("launches.probe") == before + 1
             plain = kernel_probe.probe_plain(variant, dh.flat, v, m, e, n_real=600, rows=rows)
             assert torch.equal(got, plain), (variant, rows)
             if variant in kernel_probe.COUNTING:
@@ -625,8 +629,8 @@ def test_probe_kernel_refuses_bad_variants(cuda):
 
 
 def _launches():
-    return (scan_kernel.match_bitmap_counted.launches, scan_kernel.item_ranks.launches,
-            scan_kernel.compact_window.launches)
+    return (_n("launches.match_bitmap_counted"), _n("launches.item_ranks"),
+            _n("launches.compact_window"))
 
 
 def _sweep_launches(bs, exp, before):
@@ -738,8 +742,8 @@ def test_chunk_bitmap_t128_equals_plain(cuda):
 
 
 def _tier_launches():
-    return (scan_kernel.batched_count.launches, scan_kernel.match_bitmap_counted.launches,
-            scan_kernel.item_ranks.launches, scan_kernel.compact_window.launches)
+    return (_n("launches.batched_count"), _n("launches.match_bitmap_counted"),
+            _n("launches.item_ranks"), _n("launches.compact_window"))
 
 
 def test_huge_tiers_on_card(cuda, monkeypatch):
@@ -855,9 +859,9 @@ def test_sharded_4x1_mesh_equals_the_single_layout(cuda):
     dh = preprocess(hay, kh=32, device=cuda)
     bs = BatchedSearcher(needles, device=cuda)
     sb = ShardedBatchedSearcher(needles, make_mesh((4, 1), device=cuda))
-    launches = scan_kernel.batched_find.launches
+    launches = _n("launches.batched_find")
     got = sb.find_all(dh).tolist()
-    assert scan_kernel.batched_find.launches == launches + 4 * len(sb.inner.groups)
+    assert _n("launches.batched_find") == launches + 4 * len(sb.inner.groups)
     assert got == bs.find_all(dh).tolist() == [hay.find(nd) for nd in needles]
     assert sb.count_all(dh).tolist() == bs.count_all(dh).tolist()
     assert [p.tolist() for p in sb.positions_all(dh)] == [p.tolist() for p in bs.positions_all(dh)]

@@ -29,6 +29,7 @@ from sliceslice_tpu_torch import overlapping_count, preprocess
 from sliceslice_tpu_torch.config import SENTINEL
 from sliceslice_tpu_torch.needle import needed_halo_for_t
 from sliceslice_tpu_torch.scripts import kernel_probe as kp
+from sliceslice_tpu_torch.utils import tracing
 
 #: The CPU tests run the kernels' plain versions: the port's entry points
 #: take the card unless asked for the CPU.
@@ -140,7 +141,7 @@ def test_plain_variants_equal_their_columns(rng, t):
         assert int(first[row]) == hay.find(nd) and int(count[row]) == overlapping_count(hay, nd)
     bound = tsk.position_limit(dh.flat.numel(), t)
     lim = np.minimum(ends.astype(np.int64), bound)
-    before = kp.probe.launches
+    before = tracing.counters()
     for variant in kp.VARIANTS:
         for rows in (kp.ROWS if variant == "rows" else (4,)):
             got = kp.probe(variant, dh.flat, values, masks, ends, n_real=37, rows=rows)
@@ -164,7 +165,7 @@ def test_plain_variants_equal_their_columns(rng, t):
                         x ^= j
                     exp.append(x)
                 assert got.tolist() == exp + [0] * (kp.NBLK - 37)
-    assert kp.probe.launches == before  # the CPU takes the plain versions
+    assert tracing.counters() == before  # the CPU takes the plain versions
 
 
 def test_probe_refuses_what_it_has_no_kernel_for(rng):

@@ -21,6 +21,7 @@ import sliceslice_tpu_torch.ops.pairwise as tpw
 from sliceslice_tpu_torch import PairwiseSearcher, interop, pairwise_contains_all
 from sliceslice_tpu_torch.ops.scan_math import table_bits
 from sliceslice_tpu_torch.scripts import pair_cases
+from sliceslice_tpu_torch.utils import tracing
 
 #: The CPU tests run the kernels' plain versions: the port's entry points
 #: take the card unless asked for the CPU.
@@ -191,9 +192,9 @@ def test_pair_block_cpu_plain_no_launch_and_checks():
     ps = PairwiseSearcher([b"ab", b"abc", b""], device=CPU)
     hay, lh, _, _ = ps._pack_hay(None)
     args = (ps._values, ps._masks, ps._ln, hay, lh, ps._plan(None), ps.block)
-    before = tpw.pair_block.launches
+    before = tracing.counters()
     assert torch.equal(tpw.pair_block(*args), tpw.pair_block_plain(*args))
-    assert tpw.pair_block.launches == before
+    assert tracing.counters() == before
     meta = hay.to("meta")
     with pytest.raises(ValueError, match="no pair-block kernel"):
         tpw.pair_block(ps._values.to("meta"), ps._masks.to("meta"), ps._ln.to("meta"), meta,
@@ -261,7 +262,8 @@ def test_launch_plan_is_cached_per_haystack_list(rng):
     assert (ps.first_matrix(hs) == f_exp).all()
     assert ps._cache_get("launch", hs) is launch
     assert ps._launch_plan(None) is ps._launch_plan(None) is not launch
-    assert tpw.pair_block.uploads == 0 and tpw.pair_block.launches == 0  # the CPU sends nothing to a card
+    counts = tracing.counters()
+    assert counts.get("uploads.pair_block", 0) == counts.get("launches.pair_block", 0) == 0  # the CPU sends nothing to a card
     # Blocks the plan leaves out stay -1, as do skipped ones.
     pk, lh, _, _ = ps._pack_hay(hs)
     part = tpw.plan_launch(ps._values, ps._masks, ps._ln, pk, lh, plan[1:], 8)

@@ -20,6 +20,7 @@ from sliceslice_tpu_torch.config import SENTINEL
 from sliceslice_tpu_torch.needle import build_probe_table, needed_halo_for_t
 from sliceslice_tpu_torch.ops import torch_backend
 from sliceslice_tpu_torch.searcher import _host_positions
+from sliceslice_tpu_torch.utils import tracing
 
 #: The CPU tests run the kernels' plain versions: the port's entry points
 #: take the card unless asked for the CPU.
@@ -73,7 +74,7 @@ def test_plain_bitmap_counted_matches_jax(t, rng):
     cols = jdh.require_cols()
     jwords = np.asarray(jxb.match_bitmap_batched(cols, values, masks, ends, jdh.s))
     jcounts = np.asarray(jxb.compact_positions_batched(cols, values, masks, ends, jdh.s, 64)[0])
-    before = tsk.match_bitmap_counted.launches
+    before = tracing.counters()
     for base, n_real in ((0, None), (4096, n - 5)):
         e = np.where(ends > 0, ends + base, 0).astype(np.int32)
         words, counts, chunk = tsk.match_bitmap_counted(tdh.flat, values, masks, e, base=base, n_real=n_real)
@@ -89,7 +90,7 @@ def test_plain_bitmap_counted_matches_jax(t, rng):
             per_item = np.bincount(exp // chunk, minlength=n_chunks)
             assert counts[:, j].tolist() == per_item.tolist(), (t, base, j)
             assert int(counts[:, j].sum()) == (int(jcounts[j]) if j < real else 0), (t, base, j)
-    assert tsk.match_bitmap_counted.launches == before
+    assert tracing.counters() == before
 
 
 @pytest.mark.parametrize("cap", [1, 7, 64, 4096])
@@ -122,9 +123,9 @@ def test_plain_compaction_matches_jax(cap, rng):
     jcnt, jpos = (np.asarray(x) for x in
                   jxb.compact_positions_batched(jdh.require_cols(), values, masks, ends, jdh.s, cap))
     words, item_counts, chunk = tsk.match_bitmap_counted(tdh.flat, values, masks, ends)
-    before = tsk.item_ranks.launches, tsk.compact_window.launches
+    before = tracing.counters()
     counts, offsets = tsk.compact_positions(words, item_counts, chunk, cap)
-    assert (tsk.item_ranks.launches, tsk.compact_window.launches) == before
+    assert tracing.counters() == before
     assert counts.dtype == offsets.dtype == torch.int32 and offsets.shape == (len(needles), cap)
     assert counts.tolist() == jcnt.tolist()
     assert offsets.tolist() == jpos.tolist()
@@ -282,10 +283,10 @@ def test_plain_ranks_match_jax(cap, ranked):
     it was; no launch is counted on the CPU."""
     hay, needles, _, (words, item_counts, chunk), (jcnt, jpos, _) = ranked
     n, n_real = words.shape[0], len(needles)
-    before = tsk.item_ranks.launches
+    before = tracing.counters()
     offsets = torch.full((n, cap), -5, dtype=torch.int32)
     counts, first = tsk.item_ranks(item_counts, offsets)
-    assert tsk.item_ranks.launches == before
+    assert tracing.counters() == before
     assert counts.dtype == first.dtype == torch.int32 and first.shape == item_counts.shape
     assert counts.tolist() == jcnt.tolist() + [0] * (n - n_real)
     assert torch.equal(tsk.item_ranks_plain(item_counts)[0], counts)
@@ -313,9 +314,9 @@ def test_plain_capped_window_matches_jax(cap, ranked):
         jdh.require_cols(), values[:n_real], masks[:n_real], ends[:n_real], jdh.s, cap))
     offsets = torch.empty((words.shape[0], cap), dtype=torch.int32)
     counts, first = tsk.item_ranks(item_counts, offsets)
-    before = tsk.compact_window.launches
+    before = tracing.counters()
     assert tsk.compact_window(words, item_counts, first, chunk, offsets, cap=cap) is offsets
-    assert tsk.compact_window.launches == before
+    assert tracing.counters() == before
     assert counts[:n_real].tolist() == jcnt.tolist()
     assert offsets[:n_real].tolist() == jpos.tolist()
     assert (offsets[n_real:] == SENTINEL).all()

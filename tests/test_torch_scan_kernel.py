@@ -14,6 +14,7 @@ import sliceslice_tpu_torch.ops.layout as tl
 import sliceslice_tpu_torch.ops.scan_kernel as tsk
 from sliceslice_tpu_torch.config import SENTINEL
 from sliceslice_tpu_torch.needle import build_probe_table, needed_halo_for_t
+from sliceslice_tpu_torch.utils import tracing
 
 #: The CPU tests run the kernels' plain versions: the port's entry points
 #: take the card unless asked for the CPU.
@@ -113,13 +114,13 @@ def test_cpu_takes_plain_and_counts_no_launch(rng):
     dh = tl.preprocess(hay, kh=16, force_cols=True, device=CPU)
     values, masks, lengths = build_probe_table([hay[50:53], hay[9000:9008]])
     ends = (len(hay) - lengths + 1).astype(np.int32)
-    before = (tsk.batched_find.launches, tsk.memchr_find.launches)
+    before = tracing.counters()
     got = tsk.batched_find(dh.flat, values, masks, ends)
     v, m = torch.from_numpy(values.view(np.int32)), torch.from_numpy(masks.view(np.int32))
     plain = tsk.batched_find_plain(dh.flat, v, m, torch.from_numpy(ends))
     assert torch.equal(got, plain)
     assert int(tsk.memchr_find(dh.flat, 98, len(hay))) == hay.find(b"b")
-    assert (tsk.batched_find.launches, tsk.memchr_find.launches) == before
+    assert tracing.counters() == before
 
 
 def test_other_devices_raise_instead_of_falling_back(rng):
