@@ -21,8 +21,9 @@
 // (and its batched vmap): for each row n < rows, bit b of word w of
 // bits[n] is set iff position p = 32w + b satisfies every slot with p +
 // base < ends[n].  The bitmap is linear, where the TPU's is laid out by
-// lane.  In the same pass it writes each queue item's match count, which
-// the compaction kernel (positions.cu) turns into ranks.
+// lane.  In the same pass it writes each row's match count in each chunk
+// of positions, which the compaction kernel (positions.cu) turns into
+// ranks.
 //
 // ssf_memchr_find replaces sliceslice_tpu/ops/scan_kernel.py::_memchr_call
 // (wrapped by memchr_find_cols): the first p with p + base < end at which
@@ -44,9 +45,9 @@
 // design answers that:
 //   * the wide step: 256 threads each evaluate 16 consecutive positions
 //     from one 16-byte load plus one word per slot (probe_wide in
-//     scan_common.cuh), with 32-bit offsets; tables of t <= 4 slots (all
-//     but 4 of the 4,585 i386 words) live in registers, one instantiation
-//     per width, wider ones in shared memory;
+//     scan_common.cuh), with 32-bit offsets; one instantiation per table
+//     width up to 4 slots (all but 4 of the 4,585 i386 words), which find
+//     holds in registers, and one for wider tables, in shared memory;
 //   * the chunk-major work queue: a persistent grid sized to the card
 //     (blocks resident per SM x SMs) takes items (row, chunk of `chunk`
 //     positions) from one counter, chunk c of every row before chunk c+1
@@ -61,16 +62,27 @@
 //     per tile), takes its first position by a shared atomicMin and merges
 //     it into out[row] by a global atomicMin.  Work is the positions up to
 //     each row's first match, plus at most the chunks in flight;
-//   * count: the same queue with no skip; each thread sums its positions'
-//     popcounts in a register and the block adds its sum once per item
-//     (block_add).  Integer sums and minima in any order are exact;
+//   * count and bitmap: every position of every row is tested, and at
+//     slot 0 almost every test fails, so what a row recomputes per
+//     position is what costs: the loads, the funnel shifts and the
+//     per-position bit updates.  An item is a group of R consecutive rows
+//     (R = kGroupRows, or 1 where the launch is too small to keep the card
+//     busy with groups, or the table is wider than kMaxRegT; the wrapper
+//     chooses) and one chunk, chunk c of every group before chunk c+1 of
+//     any group (next_group).  A thread forms its 16 positions' slot-0
+//     windows once and each row of the group tests them by one compare a
+//     window (AND and compare under a partial mask), accumulated into one
+//     flag (slot0_hits); only a row and 16 positions with a slot-0 hit run
+//     the exact walk (row_bits).  Each thread sums a row's matches in a
+//     register and each warp adds them once per item (warp_add).  Integer
+//     sums and minima in any order are exact;
 //   * bitmap: count's walk, where each pair of neighbouring lanes holds the
-//     two 16-bit halves of one linear word (their 32 positions start at a
-//     multiple of 32, since chunks are whole wide tiles); one
+//     two 16-bit halves of one linear word of a row (their 32 positions
+//     start at a multiple of 32, since chunks are whole wide tiles); one
 //     __shfl_xor_sync merges them and the even lane stores the word when it
 //     is nonzero (the wrapper zeroes the bitmap).  A word never straddles
-//     two items, so no store races another.  The item's popcount goes to
-//     item_counts[item] by block_add, one block per item.
+//     two items, so no store races another.  Each row's matches in the
+//     item go to item_counts[c, row].
 // The kernels allocate nothing (the wrapper zeroes the queue counter) and
 // never synchronise; each entry point returns cudaGetLastError() so the
 // caller sees a refused launch.
@@ -87,18 +99,18 @@ constexpr int kCheckEvery = 8;               // steps between cross-span checks
 
 template <int T>
 __global__ void __launch_bounds__(kThreads) batched_find_kernel(SSF_QUEUE_PARAMS) {
-  queue_loop<kFindMode, T>(SSF_QUEUE_ARGS, nullptr, 0);
+  find_loop<T>(SSF_QUEUE_ARGS);
 }
 
-template <int T>
-__global__ void __launch_bounds__(kThreads) count_kernel(SSF_QUEUE_PARAMS) {
-  queue_loop<kCountMode, T>(SSF_QUEUE_ARGS, nullptr, 0);
+template <int T, int R>
+__global__ void __launch_bounds__(kThreads, kGroupMinBlocks) count_kernel(SSF_QUEUE_PARAMS) {
+  group_loop<kCountMode, T, R>(SSF_QUEUE_ARGS, nullptr, 0);
 }
 
-template <int T>
-__global__ void __launch_bounds__(kThreads)
+template <int T, int R>
+__global__ void __launch_bounds__(kThreads, kGroupMinBlocks)
 match_bitmap_kernel(SSF_QUEUE_PARAMS, uint32_t* bits, long long row_words) {
-  queue_loop<kBitmapMode, T>(SSF_QUEUE_ARGS, bits, row_words);
+  group_loop<kBitmapMode, T, R>(SSF_QUEUE_ARGS, bits, row_words);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -145,26 +157,37 @@ memchr_kernel(const uint4* __restrict__ hay, long long lim, uint32_t byte,
   }
 }
 
-// The width-T instantiation of a queue kernel: T = t for tables of up to
-// kMaxRegT slots (held in registers), else 0.
+// The width-T instantiation of a queue kernel taking `group` rows an item:
+// T = t for tables of up to kMaxRegT slots (held in registers), else 0;
+// find takes one row an item, count and bitmap one or, at T > 0,
+// kGroupRows (nullptr for any other).
 template <int T>
-void* queue_fn(int mode) {
-  switch (mode) {
-    case kFindMode: return reinterpret_cast<void*>(batched_find_kernel<T>);
-    case kCountMode: return reinterpret_cast<void*>(count_kernel<T>);
-    case kBitmapMode: return reinterpret_cast<void*>(match_bitmap_kernel<T>);
+void* queue_fn(int mode, int group) {
+  if (mode == kFindMode) {
+    return group == 1 ? reinterpret_cast<void*>(batched_find_kernel<T>) : nullptr;
+  }
+  if (group == 1) {
+    return mode == kCountMode ? reinterpret_cast<void*>(count_kernel<T, 1>)
+                              : reinterpret_cast<void*>(match_bitmap_kernel<T, 1>);
+  }
+  if constexpr (T > 0) {
+    if (group == kGroupRows) {
+      return mode == kCountMode ? reinterpret_cast<void*>(count_kernel<T, kGroupRows>)
+                                : reinterpret_cast<void*>(match_bitmap_kernel<T, kGroupRows>);
+    }
   }
   return nullptr;
 }
 
-void* queue_kernel_for(int mode, int t) {
+void* queue_kernel_for(int mode, int t, int group) {
+  if (mode < kFindMode || mode > kBitmapMode || t < 1 || t > kMaxT) return nullptr;
   switch (t) {
-    case 1: return queue_fn<1>(mode);
-    case 2: return queue_fn<2>(mode);
-    case 3: return queue_fn<3>(mode);
-    case 4: return queue_fn<4>(mode);
+    case 1: return queue_fn<1>(mode, group);
+    case 2: return queue_fn<2>(mode, group);
+    case 3: return queue_fn<3>(mode, group);
+    case 4: return queue_fn<4>(mode, group);
   }
-  return queue_fn<0>(mode);
+  return queue_fn<0>(mode, group);
 }
 
 }  // namespace
@@ -176,19 +199,21 @@ extern "C" {
 // positions whose t windows lie inside hay, 4 * (n_words - t).  values,
 // masks: uint32[rows.., t], pre-masked.  ends: int32[rows..].  out: find,
 // int32[rows..] holding SENTINEL on entry; count, int32[rows..] holding 0;
-// bitmap, the item counts int32[n_items] holding 0.  chunk: positions per
-// item, a multiple of 4,096; n_items: rows * ceil(n_pos / chunk); grid:
-// blocks, at most the resident ones (ssf_queue_blocks x SMs); queue: one
-// int32 holding 0 on entry.  bits, row_words (bitmap only; find and count
-// ignore them): uint32[rows.., row_words] with row_words >= ceil(n_pos /
-// 32), holding 0 on entry.
+// bitmap, the item counts int32[ceil(n_pos / chunk), rows] holding 0.
+// chunk: positions per item, a multiple of 4,096; group: rows per item, 1
+// or (count and bitmap, t <= 4) 8; n_items: ceil(rows / group) *
+// ceil(n_pos / chunk); grid: blocks, at most the resident ones
+// (ssf_queue_blocks x SMs); queue: one int32 holding 0 on entry.  bits,
+// row_words (bitmap only; find and count ignore them): uint32[rows..,
+// row_words] with row_words >= ceil(n_pos / 32), holding 0 on entry.
 int ssf_queue(int mode, const void* hay, int n_words, int n_pos, const void* values,
               const void* masks, const void* ends, void* out, int rows, int t, int base,
-              int chunk, int n_items, int grid, void* queue, void* bits, long long row_words,
-              void* stream) {
-  if (mode < kFindMode || mode > kBitmapMode) return static_cast<int>(cudaErrorInvalidValue);
+              int chunk, int group, int n_items, int grid, void* queue, void* bits,
+              long long row_words, void* stream) {
+  void* fn = queue_kernel_for(mode, t, group);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (rows <= 0 || n_pos <= 0 || n_items <= 0) return static_cast<int>(cudaGetLastError());
-  if (t < 1 || t > kMaxT || chunk <= 0 || chunk % kWideTile || grid <= 0 ||
+  if (chunk <= 0 || chunk % kWideTile || grid <= 0 ||
       n_pos > 4LL * (n_words - t) ||
       (mode == kBitmapMode && (bits == nullptr || row_words * 32 < n_pos))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -204,19 +229,18 @@ int ssf_queue(int mode, const void* hay, int n_words, int n_pos, const void* val
   void* args[] = {&h, &n_words, &n_pos, &v, &m, &e, &o, &rows, &t, &base, &chunk, &n_items, &q,
                   &b, &row_words};
   const cudaError_t err =
-      cudaLaunchKernel(queue_kernel_for(mode, t), dim3(static_cast<unsigned>(grid)),
-                       dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
+      cudaLaunchKernel(fn, dim3(static_cast<unsigned>(grid)), dim3(kThreads), args, 0,
+                       static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// Blocks of the mode's width-t queue kernel that one SM holds at once,
-// into *per_sm.
-int ssf_queue_blocks(int mode, int t, void* per_sm) {
-  if (t < 1 || t > kMaxT || mode < kFindMode || mode > kBitmapMode) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      static_cast<int*>(per_sm), queue_kernel_for(mode, t), kThreads, 0));
+// Blocks of the mode's width-t queue kernel taking `group` rows an item
+// that one SM holds at once, into *per_sm.
+int ssf_queue_blocks(int mode, int t, int group, void* per_sm) {
+  void* fn = queue_kernel_for(mode, t, group);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(static_cast<int*>(per_sm), fn, kThreads, 0));
 }
 
 // hay: 16-byte aligned corpus bytes; lim: bytes to scan (end - base, at

@@ -13,8 +13,9 @@
 // `span` and `word` runs on that queue with the count kernel's chunk; each
 // asks the question of one JAX variant, or one that only this loop has:
 //
-//   count       queue_loop<kCountMode, T> itself, the count kernel's loop
-//               (baseline)                                    = batched_count
+//   count       group_loop<kCountMode, T, R> itself, the count kernel's
+//               loop at the rows per item the kernel's plan takes (the
+//               launch's `param`; baseline)                  = batched_count
 //   first       JAX full: the probes, a first-offset min per thread, a block
 //               min and atomicMin, no skip and no early exit  = batched_find
 //   nomin       JAX nomin: the probes, OR of the alive bits, one flag per row
@@ -106,6 +107,20 @@ __device__ __forceinline__ void block_xor(unsigned v, int32_t* out, unsigned* s_
   }
 }
 
+// The matches of one item, as this thread's share of the sum: probe_wide
+// over the item's positions, each slot evaluated as S says.
+template <int T, int S = kSlotPlain>
+__device__ __forceinline__ unsigned count_item(const uint32_t* __restrict__ hay, int n_words,
+                                               Item it, const uint32_t* val,
+                                               const uint32_t* msk, int t) {
+  const int len = it.stop - it.start;
+  unsigned count = 0u;
+  for (int rel = 16 * static_cast<int>(threadIdx.x); rel < len; rel += kWideTile) {
+    count += __popc(probe_wide<T, S>(hay, n_words, it.start + rel, it.stop, val, msk, t));
+  }
+  return count;
+}
+
 // prefilter: the matches of one count item.  A group of 16 positions first
 // takes two byte tests, 4 positions per __vcmpeq4: the needle's first byte
 // against the bytes at the positions themselves and, when the needle has a
@@ -187,8 +202,8 @@ __device__ __forceinline__ unsigned prefilter_item(const uint32_t* __restrict__ 
   return count;
 }
 
-// One variant over the chunk-major queue, with queue_loop's draw and
-// barriers: the block takes items until the queue is empty.
+// One variant over the chunk-major queue of single rows, with find_loop's
+// draw and barriers: the block takes items until the queue is empty.
 template <int V, int T>
 __device__ __forceinline__ void variant_loop(SSF_QUEUE_PARAMS) {
   constexpr bool kTable = V != kEmpty && V != kNoprobe;
@@ -245,11 +260,7 @@ __device__ __forceinline__ void variant_loop(SSF_QUEUE_PARAMS) {
       block_add(prefilter_item<T>(hay, n_words, it, tv, tm, t), out + it.row, s_warp);
     } else {  // kNomask, kBranchless
       constexpr int kSlot = V == kNomask ? kSlotNomask : kSlotBranchless;
-      unsigned count = 0u;
-      for (int rel = rel0; rel < len; rel += kWideTile) {
-        count += __popc(probe_wide<T, kSlot>(hay, n_words, it.start + rel, it.stop, tv, tm, t));
-      }
-      block_add(count, out + it.row, s_warp);
+      block_add(count_item<T, kSlot>(hay, n_words, it, tv, tm, t), out + it.row, s_warp);
     }
     __syncthreads();
   }
@@ -391,13 +402,18 @@ __device__ __forceinline__ void rows_loop(SSF_QUEUE_PARAMS) {
 
 template <int V, int T, int R>
 __global__ void __launch_bounds__(kThreads) variant_kernel(SSF_QUEUE_PARAMS) {
-  if constexpr (V == kCount) {
-    queue_loop<kCountMode, T>(SSF_QUEUE_ARGS, nullptr, 0);
-  } else if constexpr (V == kRows) {
+  if constexpr (V == kRows) {
     rows_loop<R, T>(SSF_QUEUE_ARGS);
   } else {
     variant_loop<V, T>(SSF_QUEUE_ARGS);
   }
+}
+
+// count: the count kernel's loop, built as csrc/find.cu builds count_kernel.
+template <int T, int R>
+__global__ void __launch_bounds__(kThreads, kGroupMinBlocks)
+count_variant_kernel(SSF_QUEUE_PARAMS) {
+  group_loop<kCountMode, T, R>(SSF_QUEUE_ARGS, nullptr, 0);
 }
 
 // span and word: the first design's plan, one block per (row, span), grid
@@ -437,11 +453,17 @@ span_kernel(const uint32_t* __restrict__ hay, long long n_pos,
 }
 
 // The width-T instantiation of a queue variant; rows<R> holds R tables, in
-// registers only while they fit without spilling, else in shared memory.
+// registers only while they fit without spilling, else in shared memory;
+// count takes R > 1 only for tables of up to kMaxRegT slots (nullptr
+// otherwise), as the count kernel does.
 template <int V, int T, int R>
 void* variant_at() {
   if constexpr (V == kRows && R * T > kRowsRegWords) {
     return reinterpret_cast<void*>(variant_kernel<V, 0, R>);
+  } else if constexpr (V == kCount && T == 0 && R > 1) {
+    return nullptr;
+  } else if constexpr (V == kCount) {
+    return reinterpret_cast<void*>(count_variant_kernel<T, R>);
   } else {
     return reinterpret_cast<void*>(variant_kernel<V, T, R>);
   }
@@ -461,7 +483,12 @@ void* queue_variant(int t) {
 // The kernel of a queue variant at width t (nullptr: no such kernel).
 void* variant_fn(int variant, int param, int t) {
   switch (variant) {
-    case kCount: return queue_variant<kCount>(t);
+    case kCount:
+      switch (param) {
+        case 1: return queue_variant<kCount>(t);
+        case kGroupRows: return queue_variant<kCount, kGroupRows>(t);
+      }
+      return nullptr;
     case kSmemtab: return queue_variant<kCount>(0);
     case kFirst: return queue_variant<kFirst>(t);
     case kNomin: return queue_variant<kNomin>(t);
@@ -499,14 +526,15 @@ void* span_fn(int variant, int t) {
 extern "C" {
 
 // One launch of an ablation variant.  variant: one of Variant; param: R for
-// rows (1, 2, 4, 8), ignored otherwise.  hay, n_words, n_pos, values, masks,
+// rows (1, 2, 4, 8) and for count (1, or kGroupRows at t <= kMaxRegT),
+// ignored otherwise.  hay, n_words, n_pos, values, masks,
 // ends, base are ssf_queue's; `rows` the real rows.  out: int32[rows..]
 // holding SENTINEL on entry for first and 0 for every other variant.
 // Queue variants: step is the chunk (a multiple of 4,096), n_steps the
-// items (row groups of R rows for rows, else rows, times chunks), grid the
-// blocks, queue one int32 holding 0.  span and word: step is the span (a
-// multiple of 4,096 and 1,024), n_steps the spans per row; grid and queue
-// are ignored.
+// items (row groups of R rows for rows and count, else rows, times
+// chunks), grid the blocks, queue one int32 holding 0.  span and word:
+// step is the span (a multiple of 4,096 and 1,024), n_steps the spans per
+// row; grid and queue are ignored.
 int ssf_probe(int variant, int param, const void* hay, int n_words, int n_pos,
               const void* values, const void* masks, const void* ends, void* out, int rows,
               int t, int base, int step, int n_steps, int grid, void* queue, void* stream) {

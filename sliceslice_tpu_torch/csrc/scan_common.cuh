@@ -115,8 +115,9 @@ __device__ __forceinline__ void probe_slot16(const uint32_t* w, uint32_t m, uint
 
 // probe_wide's slot walk over a group whose words w[0..4] are loaded and
 // whose candidate positions are `alive`: slot i > 0 reads one more word,
-// hay[j + i + 4].  The caller has checked j + width + 4 <= n_words.
-template <int T = 0, int S = kSlotPlain>
+// hay[j + i + 4].  Slots below From are taken as already tested (alive
+// holds their survivors).  The caller has checked j + width + 4 <= n_words.
+template <int T = 0, int S = kSlotPlain, int From = 0>
 __device__ __forceinline__ unsigned probe_slots(const uint32_t* __restrict__ hay, int j,
                                                 uint32_t* w, unsigned alive,
                                                 const uint32_t* val, const uint32_t* msk,
@@ -131,11 +132,11 @@ __device__ __forceinline__ unsigned probe_slots(const uint32_t* __restrict__ hay
         for (int k = 0; k < 4; ++k) w[k] = w[k + 1];
         w[4] = __ldg(hay + j + i + 4);
       }
-      probe_slot16<S>(w, msk[i], val[i], &alive);
+      if (i >= From) probe_slot16<S>(w, msk[i], val[i], &alive);
     }
   } else {
     for (int i = 0;;) {
-      probe_slot16<S>(w, msk[i], val[i], &alive);
+      if (i >= From) probe_slot16<S>(w, msk[i], val[i], &alive);
       if (++i >= t || (kExit && !alive)) break;
 #pragma unroll
       for (int k = 0; k < 4; ++k) w[k] = w[k + 1];
@@ -194,6 +195,13 @@ __device__ __forceinline__ void load_table(const uint32_t* __restrict__ values,
     s_val[i] = values[static_cast<long long>(row) * t + i];
     s_msk[i] = masks[static_cast<long long>(row) * t + i];
   }
+}
+
+// Adds the sum of the warp's `v` to *out with one atomicAdd by lane 0
+// (none when it is 0).  Every lane of the warp calls it.
+__device__ __forceinline__ void warp_add(unsigned v, int32_t* out) {
+  v = __reduce_add_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0 && v != 0u) atomicAdd(out, static_cast<int>(v));
 }
 
 // Adds the sum of every thread's `v` to *out with one atomicAdd (none when

@@ -36,8 +36,8 @@ _LL = ctypes.c_longlong
 #: (restype, argtypes) of every entry point: each pointer and the stream
 #: as c_void_p, so ctypes never cuts a pointer to 32 bits.
 _SIGNATURES = {
-    "ssf_queue": (_I, [_I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _LL, _P]),
-    "ssf_queue_blocks": (_I, [_I, _I, _P]),
+    "ssf_queue": (_I, [_I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _LL, _P]),
+    "ssf_queue_blocks": (_I, [_I, _I, _I, _P]),
     "ssf_memchr_find": (_I, [_P, _LL, _I, _LL, _LL, _I, _P, _P]),
     "ssf_item_ranks": (_I, [_P, _I, _I, _P, _P, _P, _I, _I, _P]),
     "ssf_compact_positions": (_I, [_P, _LL, _I, _I, _I, _P, _P, _I, _P, _LL, _LL, _P, _I, _P]),

@@ -20,8 +20,9 @@ the launch; each launch counts ``launches.<wrapper>``.
 and ``item_ranks`` with ``compact_window`` its ``compact_positions_batched``
 (``compact_positions`` keeps that contract; ``compact_window`` also packs
 every row's offsets into one buffer).  The find,
-count and bitmap kernels take work items (row, chunk of positions) from a
-queue in chunk-major order (:func:`plan_queue`).  The haystack is the flat
+count and bitmap kernels take work items (a row, or for count and bitmap a
+group of rows, and a chunk of positions) from a queue in chunk-major order
+(:func:`plan_queue`, :func:`plan_grouped`).  The haystack is the flat
 layout of :mod:`.layout`: positions are byte offsets into it, and its zero
 halo must cover ``needed_halo_for_t(t)`` bytes past the last valid
 position.  Positions whose probe windows would run past the buffer are
@@ -80,6 +81,14 @@ BITMAP_CHUNK = COUNT_CHUNK
 #: Widest table the queue kernels hold in registers (csrc/scan_common.cuh
 #: kMaxRegT); wider ones share one instantiation.
 MAX_REG_T = 4
+#: Rows per item of the count and bitmap kernels when a launch groups its
+#: rows (csrc/queue.cuh kGroupRows; else 1): the rows of an item share each
+#: wide tile's corpus words and slot-0 windows.
+GROUP_ROWS = 8
+#: Items per resident block a launch keeps when it groups rows: with
+#: fewer, a launch takes fewer rows per item, so that it still spreads over
+#: the card.
+ITEMS_PER_BLOCK = 2
 #: Rows a block of the rank kernel takes at once (csrc/positions.cu: a warp
 #: per row).
 RANK_ROWS = 8
@@ -124,10 +133,11 @@ def plan_spans(n_pos: int, rows: int, tile: int, sms: int) -> tuple[int, int]:
 class QueuePlan(NamedTuple):
     """One launch of a queue kernel (csrc/find.cu): a persistent
     grid of ``grid`` blocks takes ``n_items`` items from a zeroed int32
-    counter; item ``i`` is positions ``[c * chunk, (c + 1) * chunk)`` of row
-    ``i % rows``, with ``c = i // rows``, cut at the row's limit
-    ``min(ends - base, n_pos)``, so chunk ``c`` of every row comes before
-    chunk ``c + 1`` of any row."""
+    counter; item ``i`` is positions ``[c * chunk, (c + 1) * chunk)`` of the
+    ``group`` rows ``group * (i % groups) ..``, with ``groups = ceil(rows /
+    group)`` and ``c = i // groups``, each cut at its row's limit ``min(ends
+    - base, n_pos)``, so chunk ``c`` of every group comes before chunk ``c +
+    1`` of any group."""
 
     n_words: int
     n_pos: int
@@ -135,30 +145,48 @@ class QueuePlan(NamedTuple):
     n_chunks: int
     n_items: int
     grid: int
+    group: int = 1
 
 
-def plan_queue(nbytes: int, t: int, rows: int, resident: int, chunk: int) -> QueuePlan:
-    """The work queue of ``rows`` width-``t`` rows over an ``nbytes``
-    haystack for a card that holds ``resident`` blocks at once: chunks are
-    ``chunk`` positions rounded up to whole wide tiles, doubled while the
-    item count would leave int32."""
+def plan_queue(nbytes: int, t: int, rows: int, resident: int, chunk: int,
+               group: int = 1) -> QueuePlan:
+    """The work queue of ``rows`` width-``t`` rows, ``group`` rows an item,
+    over an ``nbytes`` haystack for a card that holds ``resident`` blocks
+    at once: chunks are ``chunk`` positions rounded up to whole wide tiles,
+    doubled while the (row, chunk) count would leave int32 (the bitmap's
+    item counts hold one per row and chunk)."""
     n_pos = position_limit(nbytes, t)
     chunk = _round_up(max(int(chunk), 1), WIDE_TILE)
     while rows * -(-n_pos // chunk) + resident >= 2**31:
         chunk *= 2
     n_chunks = -(-n_pos // chunk)
-    n_items = rows * n_chunks
-    return QueuePlan(nbytes // 4, n_pos, chunk, n_chunks, n_items, max(1, min(resident, n_items)))
+    n_items = -(-rows // group) * n_chunks
+    return QueuePlan(nbytes // 4, n_pos, chunk, n_chunks, n_items, max(1, min(resident, n_items)),
+                     group)
 
 
-@functools.lru_cache(maxsize=32)
-def _resident_blocks(index: int, mode: int, t_class: int) -> int:
+def plan_grouped(nbytes: int, t: int, rows: int, chunk: int, resident) -> QueuePlan:
+    """The count and bitmap kernels' queue (:func:`plan_queue`):
+    :data:`GROUP_ROWS` rows per item where the launch's shape allows it (a
+    table of at most :data:`MAX_REG_T` slots, at least that many rows, and
+    still :data:`ITEMS_PER_BLOCK` items per resident block), else one.
+    ``resident(group)`` is the blocks the card holds at once of the kernel
+    taking ``group`` rows per item."""
+    if t <= MAX_REG_T and rows >= GROUP_ROWS:
+        plan = plan_queue(nbytes, t, rows, resident(GROUP_ROWS), chunk, GROUP_ROWS)
+        if plan.n_items >= ITEMS_PER_BLOCK * resident(GROUP_ROWS):
+            return plan
+    return plan_queue(nbytes, t, rows, resident(1), chunk)
+
+
+@functools.lru_cache(maxsize=64)
+def _resident_blocks(index: int, mode: int, t_class: int, group: int) -> int:
     """Blocks of the ``mode`` queue kernel's width-``t_class``
-    instantiation that CUDA device ``index`` holds at once (blocks per SM
-    times SMs)."""
+    instantiation taking ``group`` rows per item that CUDA device ``index``
+    holds at once (blocks per SM times SMs)."""
     per_sm = ctypes.c_int(0)
     with torch.cuda.device(index):
-        err = cuda_lib.load().ssf_queue_blocks(mode, t_class, ctypes.byref(per_sm))
+        err = cuda_lib.load().ssf_queue_blocks(mode, t_class, group, ctypes.byref(per_sm))
     cuda_lib.check(err, "ssf_queue_blocks")
     return per_sm.value * _sm_count(index)
 
@@ -230,9 +258,12 @@ def _operands(hay, values, masks, ends, base):
 
 def _queue_plan(mode: int, hay, t: int, rows: int) -> QueuePlan:
     """The work queue of one ``mode`` launch over ``rows`` rows, for the
-    card that holds ``hay``."""
-    resident = _resident_blocks(hay.device.index, mode, min(t, MAX_REG_T + 1))
-    return plan_queue(hay.numel(), t, rows, resident, chunk_of(mode))
+    card that holds ``hay``: find takes one row per item, count and bitmap
+    as many as :func:`plan_grouped` allows."""
+    resident = functools.partial(_resident_blocks, hay.device.index, mode, min(t, MAX_REG_T + 1))
+    if mode == FIND:
+        return plan_queue(hay.numel(), t, rows, resident(1), chunk_of(mode))
+    return plan_grouped(hay.numel(), t, rows, chunk_of(mode), resident)
 
 
 def _launch_queue(mode: int, plan: QueuePlan, hay, values, masks, ends, out, base: int,
@@ -248,7 +279,7 @@ def _launch_queue(mode: int, plan: QueuePlan, hay, values, masks, ends, out, bas
     with torch.cuda.device(hay.device):
         err = cuda_lib.load().ssf_queue(
             mode, hay.data_ptr(), plan.n_words, plan.n_pos, values.data_ptr(), masks.data_ptr(),
-            ends.data_ptr(), out.data_ptr(), n_real, values.shape[1], base, plan.chunk,
+            ends.data_ptr(), out.data_ptr(), n_real, values.shape[1], base, plan.chunk, plan.group,
             plan.n_items, plan.grid, queue.data_ptr(), 0 if bits is None else bits.data_ptr(),
             0 if bits is None else bits.shape[1], torch.cuda.current_stream().cuda_stream,
         )
@@ -342,6 +373,8 @@ def batched_count(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor
     plan = _queue_plan(COUNT, hay, t, n_real)
     if _launch_queue(COUNT, plan, hay, values, masks, ends, out, base, n_real):
         tracing.count("launches.batched_count")
+        if plan.group > 1:
+            tracing.count("tiled_rows.batched_count", n_real)
     return out
 
 
@@ -421,6 +454,8 @@ def match_bitmap_counted(hay, values, masks, ends, base=0, n_real=None):
     counts = torch.zeros((plan.n_chunks, n_real), dtype=torch.int32, device=device)
     if _launch_queue(BITMAP, plan, hay, values, masks, ends, counts, base, n_real, words):
         tracing.count("launches.match_bitmap_counted")
+        if plan.group > 1:
+            tracing.count("tiled_rows.match_bitmap_counted", n_real)
     if n_real < n:
         counts = torch.nn.functional.pad(counts, (0, n - n_real))
     return words, counts, plan.chunk

@@ -3,9 +3,11 @@ the JAX package's ``scripts/kernel_probe.py``.
 
 The JAX script strips its TPU find kernel one piece at a time to find which
 piece costs time.  This one does the same for the loop the port's find,
-count and match-bitmap kernels run (``queue_loop`` in ``csrc/queue.cuh``: a
-persistent grid over a chunk-major work queue, ``probe_wide``'s 16
-positions per thread, tables of up to 4 slots in registers), through one
+count and match-bitmap kernels run (``csrc/queue.cuh``: a persistent grid
+over a chunk-major work queue, ``probe_wide``'s 16 positions per thread,
+tables of up to 4 slots in registers; count's and the bitmap's
+``group_loop``, whose items group up to 8 rows that share each corpus tile
+and its slot-0 windows), through one
 CUDA source with one kernel instantiation per variant (``csrc/probe.cu``).
 Every variant but ``span`` and ``word`` runs on the count kernel's queue
 (``scan_kernel.plan_queue`` with ``COUNT_CHUNK``); those two keep the first
@@ -15,7 +17,8 @@ variant asks the question of one JAX variant, or one only this loop has:
 ============  ==========  ==================================================
 variant       JAX         result (equals) and what it strips or changes
 ============  ==========  ==================================================
-count         (baseline)  ``batched_count``: the count kernel's loop itself
+count         (baseline)  ``batched_count``: the count kernel's loop itself,
+                          at the rows per item its plan takes
 first         full        ``batched_find`` (the probes, per-thread and block
                           min, ``atomicMin``; no skip, no early exit)
 nomin         nomin       1 where ``batched_find`` finds the row, else 0
@@ -212,10 +215,17 @@ def probe(variant, hay, values, masks, ends, base=0, n_real=None, rows=4) -> tor
         step, n_steps = scan_kernel.plan_spans(n_pos, n_real, tile, scan_kernel._sm_count(index))
         grid = 0
     else:
-        resident = _resident_blocks(index, code, per_item, min(t, scan_kernel.MAX_REG_T + 1))
-        plan = scan_kernel.plan_queue(hay.numel(), t, -(-n_real // per_item), resident,
-                                      scan_kernel.COUNT_CHUNK)
-        step, n_steps, grid = plan.chunk, plan.n_items, plan.grid
+        t_class = min(t, scan_kernel.MAX_REG_T + 1)
+
+        def resident(group: int) -> int:
+            return _resident_blocks(index, code, group, t_class)
+
+        if variant == "count":  # the count kernel's plan, at its rows per item
+            plan = scan_kernel.plan_grouped(hay.numel(), t, n_real, scan_kernel.COUNT_CHUNK, resident)
+        else:
+            plan = scan_kernel.plan_queue(hay.numel(), t, n_real, resident(per_item),
+                                          scan_kernel.COUNT_CHUNK, per_item)
+        step, n_steps, grid, per_item = plan.chunk, plan.n_items, plan.grid, plan.group
         queue = torch.zeros((1,), dtype=torch.int32, device=hay.device)
     with torch.cuda.device(hay.device):
         err = cuda_lib.load().ssf_probe(

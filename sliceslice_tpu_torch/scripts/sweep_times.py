@@ -7,12 +7,14 @@
 
 All 4,585 words of ``data/words.txt`` over ``data/i386.txt`` on the first
 CUDA card, after ``optimize_for``, as the smoke's sweeps run them: per
-width group, ``batched_find`` and ``batched_count`` launched ``--reps``
-times between two CUDA events (5 samples: low, median, high ms per
-launch), then the sustained ``find_all_device`` and ``count_all_device``
-sweeps, one-row launches (the word i386 holds last, at 857,156, and an
-absent one), and a torch.profiler trace of 8 sweeps of each (device µs
-per sweep, the card's idle share, µs per kernel).  ``sliceslice_tpu_torch`` is imported from ``--tree``
+width group, ``batched_find``, ``batched_count`` and
+``match_bitmap_counted`` called ``--reps`` times between two CUDA events
+(5 samples: low, median, high ms per call), then the sustained
+``find_all_device`` and ``count_all_device`` sweeps, one-row launches (the
+word i386 holds last, at 857,156, and an absent one), and a torch.profiler
+trace of 8 sweeps of each and of 8 bitmap sweeps (every group's
+``match_bitmap_counted``; device µs per sweep, the card's idle share, µs
+per kernel, so per width group's instantiation).  ``sliceslice_tpu_torch`` is imported from ``--tree``
 (default: the checkout holding this script), so one call can time two
 checkouts one after the other on the same card.  ``--chunks`` times the find and
 count kernels with both work-queue chunks set to each value in turn (a
@@ -69,13 +71,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def group_times(torch, bs, dh, device, reps: int = 32, samples: int = 5) -> dict:
-    """{"find": {t: [low, median, high]}, "count": {...}}: ms per launch of
-    each width group's find and count kernel over ``dh``."""
+    """{"find": {t: [low, median, high]}, "count": {...}, "bitmap": {...}}:
+    ms per call of each width group's find, count and match-bitmap wrapper
+    over ``dh`` (the bitmap's call zeroes its words too)."""
     from sliceslice_tpu_torch.ops import scan_kernel
     from sliceslice_tpu_torch.utils.profiling import measure
 
     out = {}
-    for name, fn in (("find", scan_kernel.batched_find), ("count", scan_kernel.batched_count)):
+    for name, fn in (("find", scan_kernel.batched_find), ("count", scan_kernel.batched_count),
+                     ("bitmap", scan_kernel.match_bitmap_counted)):
         per = {}
         for g in bs.groups:
             args = (dh.flat, g.values_dev, g.masks_dev, g.ends_dev(dh.length), 0, g.n)
@@ -486,7 +490,8 @@ def main(argv=None) -> int:
                "sweep_ms": sweep_times(torch, bs, dh, device, args.reps),
                "one_row_ms": one_row_times(torch, hay, dh, device, args.reps),
                "trace": {"find": trace_share(torch, lambda: bs.find_all_device(dh)),
-                         "count": trace_share(torch, lambda: bs.count_all_device(dh))}}
+                         "count": trace_share(torch, lambda: bs.count_all_device(dh)),
+                         "bitmap": trace_share(torch, lambda: positions_calls(bs, dh))}}
         print(json.dumps(row), flush=True)
     return 0
 

@@ -18,7 +18,9 @@ apart: :func:`traced` returns both.
 
 ``count(name, n)`` adds to one of the program's counters, always;
 :func:`counters` returns a copy, which a caller subtracts from a later one.
-Names: ``launches.<kernel>`` (a kernel launched), ``uploads.pair_block``
+Names: ``launches.<kernel>`` (a kernel launched), ``tiled_rows.<wrapper>``
+(the rows of a count or bitmap launch whose items are groups of rows that
+share each corpus tile), ``uploads.pair_block``
 (a pair plan sent to a card), ``readbacks`` / ``readback_bytes`` and
 ``uploads`` / ``upload_bytes`` (the copies of :mod:`..ops.transfer`).
 """

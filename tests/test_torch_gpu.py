@@ -487,6 +487,101 @@ def test_match_bitmap_kernel_equals_plain(cuda, t):
 
 
 
+#: Masks of the exotic rows of ``_group_table``: mask-0, non-prefix and
+#: partial slots beside full ones.
+EXOTIC_MASKS = np.array([0, 0xFFFF0000, 0x00FF00FF, 0xFF, 0xFFFFFF, 0xFFFFFFFF], np.uint32)
+
+
+def _group_table(hay: bytes, t: int, rows: int = 41):
+    """uint32 ``(values, masks)`` and int32 ``ends`` of ``rows`` width-t rows
+    whose groups of 8 hold the group walk's hard cases: one needle on two
+    neighbouring rows whose ends fall just before and just after one of its
+    matches (a slot-0 hit past one row's limit but inside the other's);
+    1-byte ``a`` (a slot-0 hit in most 16-position groups, its later slots
+    mask-0) and a dense needle; needles of every length of the width
+    (partial final, and for t = 1 partial slot-0, masks) present, absent,
+    at the last position and ending in a zero byte; rows of random masks
+    from ``EXOTIC_MASKS`` per slot, valued from a corpus window so that
+    they match; padded rows (mask 0, end 0) last."""
+    rng = np.random.default_rng(900 + t)
+    k = 4 * t
+    p = int(rng.integers(len(hay) // 2, len(hay) - 2 * k))
+    needles = [hay[p : p + k], hay[p : p + k], b"a", b"a" * max(2, k - 3)]
+    for n in range(max(1, k - 3), k + 1):
+        s = int(rng.integers(0, len(hay) - n))
+        needles += [hay[s : s + n], b"\x7f" * n, hay[-n:], hay[len(hay) - n + 1 :] + b"\0"]
+    vals, msks, lens = build_probe_table(needles, t_max=t)
+    ends = np.maximum(len(hay) - lens + 1, 0).astype(np.int64)
+    ends[0], ends[1] = p, p + 1  # p is a match of rows 0 and 1; row 0 stops just before it
+    n_exotic = max(0, rows - 3 - len(needles))
+    xm = EXOTIC_MASKS[rng.integers(0, len(EXOTIC_MASKS), (n_exotic, t))]
+    at = rng.integers(0, len(hay) - k, n_exotic)
+    win = np.frombuffer(b"".join(hay[a : a + k] for a in at), np.uint32).reshape(n_exotic, t)
+    vals = np.concatenate([vals, win & xm])[: rows - 3]
+    msks = np.concatenate([msks, xm])[: rows - 3]
+    ends = np.concatenate([ends, np.full(n_exotic, len(hay) - k + 1)])[: rows - 3]
+    pad = ((0, rows - len(vals)), (0, 0))
+    return np.pad(vals, pad), np.pad(msks, pad), np.pad(ends, pad[0]).astype(np.int32)
+
+
+@pytest.mark.parametrize("t", [1, 2, 3, 4, 8, 512])
+def test_group_walk_equals_plain(cuda, monkeypatch, t):
+    """The count and bitmap kernels' group walk against their plain
+    versions on ``_group_table``'s 41 rows over 2 MiB at a chunk of 4,096
+    (so that the launch groups 8 rows an item where t <= 4, and
+    ``tiled_rows.<wrapper>`` counts them; wider tables take one row an
+    item), at base 0 and base > 0 with n_real < n, a match in the buffer's
+    last 16-position group among them; then one-row launches, which never
+    group."""
+    for name in ("COUNT_CHUNK", "BITMAP_CHUNK"):
+        monkeypatch.setattr(scan_kernel, name, scan_kernel.WIDE_TILE)
+    hay = _hay(950 + t, 2 << 20)
+    dh = preprocess(hay, kh=needed_halo_for_t(t), device=cuda)
+    vals, msks, ends = _group_table(hay, t)
+    v, m = table_bits(vals, cuda), table_bits(msks, cuda)
+    n = vals.shape[0]
+    grouped = t <= scan_kernel.MAX_REG_T
+    for base, n_real in ((0, n), (1 << 20, n - 5)):
+        e = torch.from_numpy(np.where(ends > 0, ends + base, 0).astype(np.int32)).to(cuda)
+        tiled = _n("tiled_rows.batched_count"), _n("tiled_rows.match_bitmap_counted")
+        got = scan_kernel.batched_count(dh.flat, v, m, e, base=base, n_real=n_real)
+        assert torch.equal(got, scan_kernel.batched_count_plain(dh.flat, v, m, e, base=base, n_real=n_real))
+        assert int(got[0]) + 1 == int(got[1]) and int(got[2]) > len(hay) // 8, got[:3]
+        _check_positions_kernels(dh, v, m, e, base, n_real)
+        made = _n("tiled_rows.batched_count") - tiled[0], _n("tiled_rows.match_bitmap_counted") - tiled[1]
+        assert made == ((n_real, 2 * n_real) if grouped else (0, 0)), (t, base)
+    e = torch.from_numpy(ends).to(cuda)
+    tiled = _n("tiled_rows.batched_count")
+    for row in (0, 1, 2, 5, n - 4):  # one-row launches
+        args = (dh.flat, v[row : row + 1], m[row : row + 1], e[row : row + 1])
+        assert torch.equal(scan_kernel.batched_count(*args), scan_kernel.batched_count_plain(*args))
+        words, counts, chunk = scan_kernel.match_bitmap_counted(*args)
+        plain = scan_kernel.match_bitmap_counted_plain(*args)
+        assert torch.equal(words, plain[0]) and torch.equal(counts, plain[1]) and chunk == plain[2]
+    assert _n("tiled_rows.batched_count") == tiled
+
+
+def test_i386_count_groups_every_narrow_row(cuda):
+    """All 4,585 i386 words counted in one ``count_all``: every answer
+    ``overlapping_count``'s, and every row of a width group of t <= 3
+    (4,492 rows) taken by a launch that groups rows; the bitmap kernel on
+    each width group's table equals its plain version."""
+    hay = open(os.path.join(DATA, "i386.txt"), "rb").read()
+    words = [w for w in open(os.path.join(DATA, "words.txt"), "rb").read().split(b"\n") if w]
+    dh = preprocess(hay, kh=24, device=cuda)
+    bs = BatchedSearcher(words, device=cuda)
+    bs.optimize_for(dh)
+    tiled = _n("tiled_rows.batched_count")
+    assert bs.count_all(dh).tolist() == [overlapping_count(hay, w) for w in words]
+    narrow = sum(g.n for g in bs.groups if g.t <= 3)
+    assert narrow == 4492 and _n("tiled_rows.batched_count") - tiled >= narrow
+    for g in bs.groups:
+        args = (dh.flat, g.values_dev, g.masks_dev, g.ends_dev(dh.length), 0, g.n)
+        words_, counts, _ = scan_kernel.match_bitmap_counted(*args)
+        plain = scan_kernel.match_bitmap_counted_plain(*args)
+        assert torch.equal(words_, plain[0]) and torch.equal(counts, plain[1]), g.t
+
+
 @pytest.mark.parametrize("chunk", [4096, 65536])
 def test_rank_and_compaction_kernels_equal_plain(cuda, monkeypatch, chunk):
     """The rank kernel and both compaction modes against their plain

@@ -211,3 +211,102 @@ def test_plan_queue_spreads_one_row_and_stays_in_int32():
     assert wide.chunk > tsk.COUNT_CHUNK and wide.n_items + 1056 < 2**31
     assert tsk.plan_queue(1 << 20, 2, 3, 1056, 5000).chunk == 2 * tsk.WIDE_TILE
     assert tsk.plan_queue(16, 4, 5, 1056, tsk.FIND_CHUNK).n_items == 0
+
+
+def _resident(group):
+    """Resident blocks of a card of 132 SMs that holds 8 blocks of the
+    one-row kernel and 3 of the grouped one per SM."""
+    return 132 * (8 if group == 1 else 3)
+
+
+@pytest.mark.parametrize("nbytes,t,rows,group", [
+    (857_600, 1, 1142, 8), (857_600, 2, 2206, 8), (857_600, 3, 1144, 8),  # i386's widths
+    (857_600, 4, 89, 1), (857_600, 5, 3, 1), (857_600, 6, 1, 1),
+    (857_600, 2, 1, 1), (256 << 20, 2, 1, 1), (256 << 20, 2, 7, 1),  # fewer rows than a group
+    (256 << 20, 2, 8, 8), (1 << 20, 3, 41, 1), (64 << 20, 3, 41, 8),  # a stream window's 41
+    (857_600, 5, 4000, 1), (256 << 20, 512, 40, 1),  # wider than registers hold
+    (857_600, 2, 0, 1), (16, 4, 5, 1),  # nothing to scan
+])
+def test_plan_grouped_takes_rows_per_item_from_the_launch_shape(nbytes, t, rows, group):
+    """8 rows an item where the launch still leaves ITEMS_PER_BLOCK items
+    per resident block of the grouped kernel; one row an item for a launch
+    of fewer rows than a group, for too few items and for tables wider
+    than MAX_REG_T.  The chunk and its count do not depend on the group."""
+    plan = tsk.plan_grouped(nbytes, t, rows, tsk.COUNT_CHUNK, _resident)
+    one = tsk.plan_queue(nbytes, t, rows, _resident(1), tsk.COUNT_CHUNK)
+    assert plan.group == group
+    assert (plan.chunk, plan.n_chunks) == (one.chunk, one.n_chunks)
+    assert plan.n_items == -(-rows // group) * plan.n_chunks
+    assert plan.grid == max(1, min(_resident(group), plan.n_items))
+    if group == 1:
+        assert plan == one
+    else:
+        assert plan.n_items >= tsk.ITEMS_PER_BLOCK * _resident(group)
+
+
+def _group_items(plan, rows, limits):
+    """(c, row0, [(row, start, stop), ...]) of every live item in the order
+    the count and bitmap kernels' queue hands them out (csrc/queue.cuh
+    next_group): item i is chunk i // groups of the rows group * (i %
+    groups) .., each cut at its row's limit; rows past ``rows`` and rows
+    whose limit lies at or before the chunk's start scan nothing, and an
+    item in which no row scans anything is skipped."""
+    groups = -(-rows // plan.group)
+    for i in range(plan.n_items):
+        c, g = divmod(i, groups)
+        row0, start = g * plan.group, c * plan.chunk
+        spans = [(r, start, min(start + plan.chunk, limits[r]))
+                 for r in range(row0, min(row0 + plan.group, rows)) if limits[r] > start]
+        if spans:
+            yield c, row0, spans
+
+
+@pytest.mark.parametrize("group", [1, tsk.GROUP_ROWS])
+@pytest.mark.parametrize("nbytes,t,rows", [(857_600, 2, 2206), (857_600, 1, 1142), (300_000, 3, 41),
+                                           (20_000, 4, 13), (4096 + 128, 4, 9), (1 << 20, 1, 8)])
+def test_group_queue_covers_each_row_once_in_chunk_major_order(nbytes, t, rows, group):
+    """Every (row, position) below the row's limit lies in exactly one item
+    of the group queue, for row counts that are not a multiple of the group
+    and with padded rows (limit 0) and rows past the buffer among them;
+    chunk c of every group comes before chunk c + 1 of any group."""
+    rng = np.random.default_rng(rows + group)
+    plan = tsk.plan_queue(nbytes, t, rows, 396, tsk.COUNT_CHUNK, group)
+    ends = rng.integers(0, plan.n_pos + 5000, rows)
+    ends[::5] = 0  # padded rows
+    ends[1::7] = 1 << 30
+    limits = np.minimum(ends, plan.n_pos)
+    items = list(_group_items(plan, rows, limits))
+    chunks = [c for c, _, _ in items]
+    assert chunks == sorted(chunks)
+    covered = np.zeros(rows, np.int64)
+    for c, row0, spans in items:
+        assert row0 % group == 0 and all(row0 <= r < row0 + group for r, _, _ in spans)
+        for row, start, stop in spans:  # per row, consecutive and disjoint
+            assert start == covered[row] == c * plan.chunk and start < stop
+            covered[row] = stop
+    assert np.array_equal(covered, limits)
+
+
+@pytest.mark.parametrize("group", [1, tsk.GROUP_ROWS])
+def test_group_items_count_into_the_plain_item_counts_layout(group):
+    """The bitmap kernel adds row ``r``'s matches of an item of chunk ``c``
+    at ``c * rows + r`` of its item counts: over a random bitmap this
+    gives ``item_counts_of``'s int32[n_chunks, N], the plain version's, for
+    every group."""
+    rng = np.random.default_rng(group)
+    nbytes, t, rows = 300_000, 2, 21
+    plan = tsk.plan_queue(nbytes, t, rows, 396, tsk.WIDE_TILE * 4, group)
+    limits = np.minimum(rng.integers(0, plan.n_pos + 100, rows), plan.n_pos)
+    limits[3] = 0
+    n_words = tsk.bitmap_words(nbytes, t)
+    bits = rng.random((rows, 32 * n_words)) < 0.01
+    bits &= np.arange(32 * n_words)[None, :] < limits[:, None]
+    packed = np.packbits(bits, axis=1, bitorder="little").view("<u4").view(np.int32)
+    words = torch.from_numpy(packed.copy())
+    flat = np.zeros(plan.n_chunks * rows, np.int64)
+    for c, _, spans in _group_items(plan, rows, limits):
+        for row, start, stop in spans:
+            flat[c * rows + row] += bits[row, start:stop].sum()
+    exp = tsk.item_counts_of(words, plan.chunk, plan.n_chunks)
+    assert exp.shape == (plan.n_chunks, rows)
+    assert np.array_equal(flat.reshape(plan.n_chunks, rows), exp.numpy())
