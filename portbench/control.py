@@ -56,8 +56,7 @@ class Control:
         self.hay = None
 
 
-def build(config: dict, traffic: dict, inputs: Inputs, device):
-    return Control(config, traffic["op"], inputs, device)
+build = Control
 
 
 def main(argv=None) -> int:

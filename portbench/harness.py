@@ -1,6 +1,7 @@
-"""One run of one cell: inputs from the seed, the system built and warmed up
-(set-up), a closed loop of requests for the window, then the comparison
-with the plain reference and the metrics.
+"""One run of one cell: inputs from the seed and the system built by the
+configuration's kind (``kinds/<kind>.py``) and warmed up (set-up), a
+closed loop of requests for the window, then the comparison with the
+plain reference (or the kind's own) and the metrics.
 
 The window: one caller sends the traffic's request, waits for its answers
 on the host, and sends the next, until ``seconds`` have passed; the
@@ -16,13 +17,12 @@ from __future__ import annotations
 
 import dataclasses
 import gc
-import importlib.util
 import time
 from typing import Callable, Optional
 
 from . import inputs as inputs_mod
-from . import reference, system
-from .spec import HERE, Cell
+from . import reference
+from .spec import HERE, Cell, load_file, load_kind
 from .trace import Trace, Tracer
 
 
@@ -42,11 +42,7 @@ class Run:
 
 def load_reader(name: str) -> Callable[[Run], Optional[float]]:
     """``metrics/<name>.py``'s ``read``."""
-    path = HERE / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location("portbench_metric_" + name.replace(".", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return load_file(HERE / "metrics" / f"{name}.py", "portbench_metric_" + name.replace(".", "_")).read
 
 
 def _window(sut, traffic: dict, seconds: float, tracer: Optional[Tracer], keep: Callable[[], bool]):
@@ -79,10 +75,11 @@ def _window(sut, traffic: dict, seconds: float, tracer: Optional[Tracer], keep: 
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device, t0: float,
-             build: Callable = system.build):
+             build: Optional[Callable] = None):
     """Run ``cell`` once; returns (result, lines): the result's JSON object
     and the lines that give set-up's stages and the numbers compared with
-    their limits, the last lines of standard error."""
+    their limits, the last lines of standard error.  ``build`` stands in
+    for the kind's own (``build(config, op, inputs, device)``)."""
     import torch
 
     cfg, traffic = cell.config, cell.traffic
@@ -91,9 +88,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device, t0: flo
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     stages = [("start", time.perf_counter() - t0)]
-    inp = inputs_mod.make(cfg, seed)
+    kind = load_kind(cfg["kind"], cell.kinds)
+    op = traffic["op"]
+    inp = kind.inputs(cfg, seed)
     stages.append(("inputs", time.perf_counter() - t0))
-    sut = build(cfg, traffic, inp, dev)
+    sut = (build or kind.build)(cfg, op, inp, dev)
     stages.append(("system", time.perf_counter() - t0))
     for _ in range(int(traffic["warmup_requests"])):
         sut.request()
@@ -123,9 +122,12 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device, t0: flo
     if cuda:
         torch.cuda.empty_cache()
 
-    op = traffic["op"]
-    want = reference.answers(op, inp.corpus, inp.needles)
-    wrong = [reference.wrong_answers(op, got, want) for _, got in kept]
+    if hasattr(kind, "answers"):
+        want = kind.answers(op, inp)
+    else:
+        want = reference.answers(op, inp.corpus, inp.needles)
+    wrong_answers = getattr(kind, "wrong_answers", reference.wrong_answers)
+    wrong = [wrong_answers(op, got, want) for _, got in kept]
     run = Run(op, inp, setup_s, window_s, requests, want, tr)
 
     metrics = {}

@@ -1,9 +1,11 @@
 """A cell of ``BENCHMARK.json`` with its configuration, its traffic mix and
-the metrics it reports, each read from the file its name points to."""
+the metrics it reports, each read from the file its name points to, and
+the loader of the Python files found by name (``kinds/``, ``metrics/``)."""
 
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import pathlib
 from typing import Optional
@@ -11,6 +13,8 @@ from typing import Optional
 #: The folder of the benchmark and the checkout that holds it.
 HERE = pathlib.Path(__file__).resolve().parent
 ROOT = HERE.parent
+#: The configuration kinds: ``kinds/<kind>.py`` for a configuration's ``kind``.
+KINDS = HERE / "kinds"
 
 
 @dataclasses.dataclass
@@ -22,6 +26,29 @@ class Cell:
     #: the ``end_to_end`` and ``per_layer`` entries this cell reports.
     end_to_end: list
     per_layer: list
+    #: the folder its configuration's kind is found in.
+    kinds: pathlib.Path = KINDS
+
+
+def load_file(path: pathlib.Path, module: str):
+    """The Python file ``path`` run as a module named ``module``."""
+    spec = importlib.util.spec_from_file_location(module, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def load_kind(kind: str, folder: pathlib.Path = KINDS):
+    """``<folder>/<kind>.py``: a configuration kind.  It provides
+    ``inputs(config, seed)``, ``build(config, op, inputs, device)`` (the
+    system under test, with ``request()`` and ``close()``) and
+    ``tiny(config)`` (a copy cut to what the CPU tests run), and may provide
+    ``answers(op, inputs)`` and ``wrong_answers(op, got, want)`` in place of
+    ``reference``'s."""
+    path = pathlib.Path(folder) / f"{kind}.py"
+    if not path.is_file():
+        raise ValueError(f"unknown configuration kind {kind!r}: there is no {path}")
+    return load_file(path, "portbench_kind_" + kind.replace(".", "_"))
 
 
 def load_benchmark() -> dict:

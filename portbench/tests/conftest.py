@@ -1,5 +1,5 @@
-"""Cells of BENCHMARK.json cut to a size the CPU runs in seconds: the i386
-corpus's first 64 KiB and its dictionary's first 64 words."""
+"""Cells of BENCHMARK.json cut to a size the CPU runs in seconds, as each
+configuration's kind cuts it (``tiny`` in ``kinds/<kind>.py``)."""
 
 import time
 
@@ -12,8 +12,7 @@ CELLS = [w["name"] for w in spec.load_benchmark()["workloads"]]
 
 def tiny(name: str) -> spec.Cell:
     cell = spec.cell(name)
-    cell.config["corpus"]["bytes"] = 65536
-    cell.config["needles"]["count"] = 64
+    cell.config = spec.load_kind(cell.config["kind"], cell.kinds).tiny(cell.config)
     cell.traffic = dict(cell.traffic, warmup_requests=1, trace_requests=2)
     return cell
 

@@ -33,14 +33,30 @@ def test_cell_runs_correct_on_the_cpu(cell_name, trace):
                           for k, c in result["checks"].items()]
 
 
-def test_same_seed_same_inputs_other_seed_other_order():
+CONFIGS = [c["file"] for c in spec.load_benchmark()["configs"]]
+
+
+def _inputs(file: str, *seeds: int):
     from portbench import inputs
 
-    for entry in spec.load_benchmark()["configs"]:
-        cfg = json.loads((spec.ROOT / entry["file"]).read_text())
-        a, b, c = (inputs.make(cfg, s) for s in (2**33 + 1, 2**33 + 1, 5))
-        assert a.corpus == b.corpus == c.corpus and a.needles == b.needles
-        assert a.needles != c.needles and sorted(a.needles) == sorted(c.needles)
+    cfg = json.loads((spec.ROOT / file).read_text())
+    return cfg, [inputs.make(cfg, s) for s in seeds]
+
+
+@pytest.mark.parametrize("file", CONFIGS)
+def test_same_seed_same_inputs_other_seed_other_order(file):
+    """Every kind: the seed alone decides the inputs."""
+    _, (a, b, c) = _inputs(file, 2**33 + 1, 2**33 + 1, 5)
+    assert a == b and a != c
+
+
+@pytest.mark.parametrize("file", [f for f in CONFIGS
+                                  if json.loads((spec.ROOT / f).read_text())["kind"] == "held_corpus"])
+def test_held_corpus_keeps_its_corpus_and_permutes_its_needles(file):
+    cfg, (a, c) = _inputs(file, 2**33 + 1, 5)
+    assert a.corpus == c.corpus and len(a.corpus) == cfg["corpus"]["bytes"]
+    assert a.needles != c.needles and sorted(a.needles) == sorted(c.needles)
+    assert len(a.needles) == cfg["needles"]["count"]
 
 
 def test_the_data_files_are_checked():

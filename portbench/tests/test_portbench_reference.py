@@ -5,7 +5,7 @@ needles at the corpus's end, and the i386 corpus."""
 import numpy as np
 import pytest
 
-from portbench import control, inputs, reference
+from portbench import control, reference, spec
 
 
 @pytest.fixture(scope="module")
@@ -40,7 +40,7 @@ def test_reference_matches_the_port_on_i386():
            "sha256": "563e894dab529ab3f43f5986c893a084a62da3535cf2e4860c243d0e0ef1a2b4"},
            "needles": {"file": "portbench/data/words.txt", "separator": "\n", "count": 300,
                        "sha256": "24879057d36d6ab8947ac1be6507883d7663d62264987e07764c4731b5177957"}}
-    inp = inputs.held_corpus(cfg, 3)
+    inp = spec.load_kind("held_corpus").inputs(cfg, 3)
     dh = preprocess(inp.corpus, device="cpu")
     bs = BatchedSearcher(inp.needles, device="cpu")
     for op, fn in (("find", bs.find_all), ("count", bs.count_all), ("positions", bs.positions_all)):
