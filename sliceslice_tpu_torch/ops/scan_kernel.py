@@ -373,8 +373,8 @@ def batched_count(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor
     plan = _queue_plan(COUNT, hay, t, n_real)
     if _launch_queue(COUNT, plan, hay, values, masks, ends, out, base, n_real):
         tracing.count("launches.batched_count")
-        if plan.group > 1:
-            tracing.count("tiled_rows.batched_count", n_real)
+        rows = "tiled_rows" if plan.group > 1 else "single_rows"
+        tracing.count(f"{rows}.batched_count", n_real)
     return out
 
 
@@ -454,8 +454,8 @@ def match_bitmap_counted(hay, values, masks, ends, base=0, n_real=None):
     counts = torch.zeros((plan.n_chunks, n_real), dtype=torch.int32, device=device)
     if _launch_queue(BITMAP, plan, hay, values, masks, ends, counts, base, n_real, words):
         tracing.count("launches.match_bitmap_counted")
-        if plan.group > 1:
-            tracing.count("tiled_rows.match_bitmap_counted", n_real)
+        rows = "tiled_rows" if plan.group > 1 else "single_rows"
+        tracing.count(f"{rows}.match_bitmap_counted", n_real)
     if n_real < n:
         counts = torch.nn.functional.pad(counts, (0, n - n_real))
     return words, counts, plan.chunk

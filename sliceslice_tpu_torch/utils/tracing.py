@@ -20,7 +20,8 @@ apart: :func:`traced` returns both.
 :func:`counters` returns a copy, which a caller subtracts from a later one.
 Names: ``launches.<kernel>`` (a kernel launched), ``tiled_rows.<wrapper>``
 (the rows of a count or bitmap launch whose items are groups of rows that
-share each corpus tile), ``uploads.pair_block``
+share each corpus tile), ``single_rows.<wrapper>`` (the rows of one whose
+items are one row each), ``uploads.pair_block``
 (a pair plan sent to a card), ``readbacks`` / ``readback_bytes`` and
 ``uploads`` / ``upload_bytes`` (the copies of :mod:`..ops.transfer`).
 """

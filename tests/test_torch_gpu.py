@@ -582,6 +582,46 @@ def test_i386_count_groups_every_narrow_row(cuda):
         assert torch.equal(words_, plain[0]) and torch.equal(counts, plain[1]), g.t
 
 
+def _delta(before: dict, name: str) -> int:
+    return _n(name) - before.get(name, 0)
+
+
+def test_dna_guides_counted_on_card_equal_the_kmer_reference(cuda):
+    """The ``dna200m-count`` cell's path at 8 MiB: 512 guides of 20 bytes
+    (one width group of t = 5) counted by ``count_all`` on the card equal
+    ``portbench/reference_dna.py`` on the card, from one count launch that
+    walks its 512 rows one an item (``single_rows.batched_count``).  An
+    i386 sweep then still groups its 4,492 rows of t <= 3
+    (``tiled_rows.batched_count``) and walks its other 93 alone."""
+    import json
+
+    from portbench import reference_dna, spec
+
+    cfg = json.loads((spec.HERE / "configs" / "dna200m-20mers.json").read_text())
+    cfg = dict(cfg, corpus=dict(cfg["corpus"], bytes=8 << 20),
+               repeats=dict(cfg["repeats"], families=8, max_copies=300))
+    inp = spec.load_kind(cfg["kind"]).inputs(cfg, 2**32 + 23)
+    assert len(inp.needles) == 512
+    dh = preprocess(inp.corpus, device=cuda)
+    bs = BatchedSearcher(inp.needles, device=cuda)
+    assert [g.t for g in bs.groups] == [5]
+    before = tracing.counters()
+    got = bs.count_all(dh)
+    assert [_delta(before, c) for c in ("launches.batched_count", "single_rows.batched_count",
+                                        "tiled_rows.batched_count")] == [1, 512, 0]
+    want = reference_dna.count_all(inp.corpus, inp.needles, device=cuda)
+    assert got.tolist() == want.tolist() and want.min() >= 1
+
+    hay = open(os.path.join(DATA, "i386.txt"), "rb").read()
+    words = [w for w in open(os.path.join(DATA, "words.txt"), "rb").read().split(b"\n") if w]
+    bs = BatchedSearcher(words, device=cuda)
+    dh = preprocess(hay, kh=24, device=cuda)
+    before = tracing.counters()
+    assert bs.count_all(dh).tolist() == [overlapping_count(hay, w) for w in words]
+    assert _delta(before, "tiled_rows.batched_count") == 4492
+    assert _delta(before, "single_rows.batched_count") == len(words) - 4492 == 93
+
+
 @pytest.mark.parametrize("chunk", [4096, 65536])
 def test_rank_and_compaction_kernels_equal_plain(cuda, monkeypatch, chunk):
     """The rank kernel and both compaction modes against their plain
