@@ -38,6 +38,16 @@ drives the port's main paths against host oracles:
 * the all-pairs sweep: ``PairwiseSearcher`` over the length-sorted words,
   all 21,022,225 pairs, against ``bytes.find``; 32 ``count_matches_device``
   calls must make 32 launches and no plan upload;
+* the count and bitmap group walk of tables of 5 to 8 slots: 512 guides
+  of 20 bytes and 32 each of 21 to 32 bytes over a seeded 64 MiB
+  four-letter text, where slot 0 passes a window in 256, with copies
+  planted whole and with a later byte changed (they pass slots 0 and 1
+  and fail a later slot) and each width's needle at the text's last
+  position; each width at 8 rows an item behind the two-slot filter
+  (its tiled and two-slot row counters), ``batched_count`` and
+  ``match_bitmap_counted`` against their plain versions, the bitmap's
+  totals against the counts and sampled rows against
+  ``overlapping_count``;
 * the ablation harness: every variant of the probe kernel at t = 1, 2, 3
   over the JAX harness's tables (4,585 rows over i386), against its plain
   version and the count and find kernels, and the counting variants over
@@ -130,6 +140,14 @@ SWEEPS = 32
 ABLATION_SWEEPS = 8
 #: positions_all sweeps per timed sample (each reads its answers back).
 POSITION_SWEEPS = 4
+#: The group-wide phase: its four-letter text, and its needles per width
+#: (t = 5: the 20-byte guides of a dna200m-count request; t = 6..8: 21 to
+#: 32 bytes), all at 8 rows an item.
+GROUP_WIDE_BYTES = 64 << 20
+GROUP_WIDE_ROWS = {5: 512, 6: 32, 7: 32, 8: 32}
+#: Rows per width held against ``overlapping_count`` (0.2 s each on this
+#: text): the planted ones, the text's last needle and a random sample.
+GROUP_WIDE_ORACLE_ROWS = 12
 #: Probe-table widths the ablation harness runs.
 PROBE_TS = (1, 2, 3)
 #: How far the ablation harness's `count` variant may lie from the count
@@ -633,6 +651,75 @@ def phase_queue_big(torch, device, big):
           "the last-chunk needle does not lie in its row's last chunk")
     say("queue_big", corpus_bytes=len(big_hay), rows=checked, chunks_per_row=[p.n_chunks for p in plans],
         equal_to_plain=True, equal_to_host=True)
+
+
+def phase_group_wide(torch, device):
+    """The count and bitmap group walk of tables of 5 to 8 slots at the
+    shapes it runs in: on a seeded 64 MiB ACGT text, per width, one
+    launch of each kernel planned at 8 rows an item with no patched
+    chunk, its rows counted as tiled and two-slot rows, its answers equal
+    to the plain versions', the bitmap's totals to the counts, and
+    sampled rows to ``overlapping_count``.  Guides are cut from the text;
+    the first 8 of each width are planted whole twice and, 3 times, with
+    their last byte changed (windows that pass slots 0 and 1 and fail a
+    later slot); the last row is the text's last bytes."""
+    from sliceslice_tpu_torch import overlapping_count, preprocess
+    from sliceslice_tpu_torch.needle import build_probe_table, needed_halo_for_t
+    from sliceslice_tpu_torch.ops import scan_kernel
+    from sliceslice_tpu_torch.ops.scan_math import table_bits
+
+    rng = np.random.default_rng(2024)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    text = acgt[rng.integers(0, 4, GROUP_WIDE_BYTES)]
+    lengths = {t: ([20] * n if t == 5 else [4 * t - 3 + i % 4 for i in range(n)])
+               for t, n in GROUP_WIDE_ROWS.items()}
+    sources = {t: rng.choice(GROUP_WIDE_BYTES - 64, len(ks), replace=False) for t, ks in lengths.items()}
+    guides = {t: [text[a : a + k].tobytes() for a, k in zip(sources[t], lengths[t])] for t in lengths}
+    for t in lengths:
+        for nd in guides[t][:8]:
+            changed = nd[:-1] + bytes([acgt[(b"ACGT".index(nd[-1:]) + 1) % 4]])
+            for copy in [nd] * 2 + [changed] * 3:
+                at = int(rng.integers(0, GROUP_WIDE_BYTES - len(copy)))
+                text[at : at + len(copy)] = np.frombuffer(copy, np.uint8)
+    hay = text.tobytes()
+    for t in lengths:
+        guides[t][-1] = hay[-lengths[t][-1]:]
+    dh = preprocess(hay, kh=needed_halo_for_t(max(lengths)), device=device)
+    rows, sampled, planned = {}, 0, {}
+    for t, needles in guides.items():
+        vals, msks, lens = build_probe_table(needles, t_max=t)
+        v, m = table_bits(vals, device), table_bits(msks, device)
+        e = torch.from_numpy(np.maximum(len(hay) - lens + 1, 0).astype(np.int32)).to(device)
+        n = len(needles)
+        planned[t] = [scan_kernel._queue_plan(mode, dh.flat, t, n).group
+                      for mode in (scan_kernel.COUNT, scan_kernel.BITMAP)]
+        check(planned[t] == [scan_kernel.GROUP_ROWS] * 2, f"t={t}: {n} rows over 64 MiB not planned "
+              f"at {scan_kernel.GROUP_ROWS} rows an item: {planned[t]}")
+        names = [f"{kind}.{w}" for kind in ("tiled_rows", "single_rows", "two_slot_rows")
+                 for w in ("batched_count", "match_bitmap_counted")]
+        before = [counter(name) for name in names]
+        got = scan_kernel.batched_count(dh.flat, v, m, e)
+        words, counts, chunk = scan_kernel.match_bitmap_counted(dh.flat, v, m, e)
+        torch.cuda.synchronize()
+        made = [counter(name) - b for name, b in zip(names, before)]
+        check(made == [n, n, 0, 0, n, n], f"t={t}: row counters moved by {dict(zip(names, made))}")
+        check(torch.equal(got, scan_kernel.batched_count_plain(dh.flat, v, m, e)),
+              f"grouped count kernel != plain at t={t}")
+        plain = scan_kernel.match_bitmap_counted_plain(dh.flat, v, m, e)
+        check(torch.equal(words, plain[0]) and torch.equal(counts, plain[1]) and chunk == plain[2],
+              f"grouped match-bitmap kernel != plain at t={t}")
+        del words, plain
+        check(torch.equal(counts.sum(dim=0, dtype=torch.int32), got), f"bitmap totals != counts at t={t}")
+        got = got.cpu().tolist()
+        picks = sorted({*range(8), n - 1, *rng.choice(n - 1, GROUP_WIDE_ORACLE_ROWS - 9, replace=False)})
+        for i in picks:
+            check(got[i] == overlapping_count(hay, needles[i]),
+                  f"grouped count != overlapping_count at t={t}, row {i}")
+        sampled += len(picks)
+        rows[t] = {"rows": n, "lengths": sorted(set(lengths[t])), "total": int(sum(got)),
+                   "max": int(max(got)), "planted_counts": got[:8]}
+    say("group_wide", corpus_bytes=len(hay), rows_per_item=planned, widths=rows,
+        oracle_rows=sampled, equal_to_plain=True, equal_to_host=True)
 
 
 def _flip(nd: bytes) -> bytes:
@@ -2006,6 +2093,7 @@ def main() -> int:
          (phase_contracts, (torch, device)), into=contracts_launches)
 
     timed(phase_queue_big, torch, device, big)
+    timed(phase_group_wide, torch, device)
     # The huge-needle path (its own counts), then the CLI in processes of
     # its own.
     huge_launches = {}

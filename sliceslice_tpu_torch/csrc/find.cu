@@ -46,8 +46,9 @@
 //   * the wide step: 256 threads each evaluate 16 consecutive positions
 //     from one 16-byte load plus one word per slot (probe_wide in
 //     scan_common.cuh), with 32-bit offsets; one instantiation per table
-//     width up to 4 slots (all but 4 of the 4,585 i386 words), which find
-//     holds in registers, and one for wider tables, in shared memory;
+//     width up to 4 slots (all but 4 of the 4,585 i386 words) for find,
+//     up to 8 for count and the bitmap, which hold the table at a width
+//     fixed at compile time, and one for wider tables, in shared memory;
 //   * the chunk-major work queue: a persistent grid sized to the card
 //     (blocks resident per SM x SMs) takes items (row, chunk of `chunk`
 //     positions) from one counter, chunk c of every row before chunk c+1
@@ -67,15 +68,19 @@
 //     position is what costs: the loads, the funnel shifts and the
 //     per-position bit updates.  An item is a group of R consecutive rows
 //     (R = kGroupRows, or 1 where the launch is too small to keep the card
-//     busy with groups, or the table is wider than kMaxRegT; the wrapper
+//     busy with groups, or the table is wider than kMaxGroupT; the wrapper
 //     chooses) and one chunk, chunk c of every group before chunk c+1 of
 //     any group (next_group).  A thread forms its 16 positions' slot-0
 //     windows once and each row of the group tests them by one compare a
 //     window (AND and compare under a partial mask), accumulated into one
-//     flag (slot0_hits); only a row and 16 positions with a slot-0 hit run
-//     the exact walk (row_bits).  Each thread sums a row's matches in a
-//     register and each warp adds them once per item (warp_add).  Integer
-//     sums and minima in any order are exact;
+//     flag (filter_hits); only a row and 16 positions that pass run the
+//     exact walk (row_bits).  Tables of 5 to 8 slots (needles of 17-32
+//     bytes) test slots 0 and 1 together, from 4 more windows: on a
+//     four-letter text one slot passes a window in 256, so nearly every
+//     warp would take the walk at every tile, and two slots pass one in
+//     65,536.  Each thread sums a row's matches in a register and each
+//     warp adds them once per item (warp_add).  Integer sums and minima in
+//     any order are exact;
 //   * bitmap: count's walk, where each pair of neighbouring lanes holds the
 //     two 16-bit halves of one linear word of a row (their 32 positions
 //     start at a multiple of 32, since chunks are whole wide tiles); one
@@ -92,6 +97,10 @@
 
 #include "queue.cuh"
 
+// The count and bitmap kernels of tables of 5 to kMaxGroupT slots
+// (csrc/group_wide.cu).
+extern "C" void* ssf_group_wide_kernel(int mode, int t, int group);
+
 namespace {
 
 constexpr int kMemchrTile = kThreads * 16;   // bytes per memchr step
@@ -100,17 +109,6 @@ constexpr int kCheckEvery = 8;               // steps between cross-span checks
 template <int T>
 __global__ void __launch_bounds__(kThreads) batched_find_kernel(SSF_QUEUE_PARAMS) {
   find_loop<T>(SSF_QUEUE_ARGS);
-}
-
-template <int T, int R>
-__global__ void __launch_bounds__(kThreads, kGroupMinBlocks) count_kernel(SSF_QUEUE_PARAMS) {
-  group_loop<kCountMode, T, R>(SSF_QUEUE_ARGS, nullptr, 0);
-}
-
-template <int T, int R>
-__global__ void __launch_bounds__(kThreads, kGroupMinBlocks)
-match_bitmap_kernel(SSF_QUEUE_PARAMS, uint32_t* bits, long long row_words) {
-  group_loop<kBitmapMode, T, R>(SSF_QUEUE_ARGS, bits, row_words);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -157,37 +155,29 @@ memchr_kernel(const uint4* __restrict__ hay, long long lim, uint32_t byte,
   }
 }
 
-// The width-T instantiation of a queue kernel taking `group` rows an item:
-// T = t for tables of up to kMaxRegT slots (held in registers), else 0;
-// find takes one row an item, count and bitmap one or, at T > 0,
-// kGroupRows (nullptr for any other).
-template <int T>
-void* queue_fn(int mode, int group) {
-  if (mode == kFindMode) {
-    return group == 1 ? reinterpret_cast<void*>(batched_find_kernel<T>) : nullptr;
-  }
-  if (group == 1) {
-    return mode == kCountMode ? reinterpret_cast<void*>(count_kernel<T, 1>)
-                              : reinterpret_cast<void*>(match_bitmap_kernel<T, 1>);
-  }
-  if constexpr (T > 0) {
-    if (group == kGroupRows) {
-      return mode == kCountMode ? reinterpret_cast<void*>(count_kernel<T, kGroupRows>)
-                                : reinterpret_cast<void*>(match_bitmap_kernel<T, kGroupRows>);
-    }
-  }
-  return nullptr;
-}
-
+// The queue kernel of a mode, width t and `group` rows an item: T = t for
+// tables of up to kMaxRegT slots in find and kMaxGroupT in count and the
+// bitmap, else 0; find takes one row an item.
 void* queue_kernel_for(int mode, int t, int group) {
   if (mode < kFindMode || mode > kBitmapMode || t < 1 || t > kMaxT) return nullptr;
-  switch (t) {
-    case 1: return queue_fn<1>(mode, group);
-    case 2: return queue_fn<2>(mode, group);
-    case 3: return queue_fn<3>(mode, group);
-    case 4: return queue_fn<4>(mode, group);
+  if (mode == kFindMode) {
+    if (group != 1) return nullptr;
+    switch (t) {
+      case 1: return reinterpret_cast<void*>(batched_find_kernel<1>);
+      case 2: return reinterpret_cast<void*>(batched_find_kernel<2>);
+      case 3: return reinterpret_cast<void*>(batched_find_kernel<3>);
+      case 4: return reinterpret_cast<void*>(batched_find_kernel<4>);
+    }
+    return reinterpret_cast<void*>(batched_find_kernel<0>);
   }
-  return queue_fn<0>(mode, group);
+  static_assert(kMaxRegT == 4, "one case per width below");
+  switch (t) {
+    case 1: return group_fn<1>(mode, group);
+    case 2: return group_fn<2>(mode, group);
+    case 3: return group_fn<3>(mode, group);
+    case 4: return group_fn<4>(mode, group);
+  }
+  return t <= kMaxGroupT ? ssf_group_wide_kernel(mode, t, group) : group_fn<0>(mode, group);
 }
 
 }  // namespace
@@ -201,7 +191,7 @@ extern "C" {
 // int32[rows..] holding SENTINEL on entry; count, int32[rows..] holding 0;
 // bitmap, the item counts int32[ceil(n_pos / chunk), rows] holding 0.
 // chunk: positions per item, a multiple of 4,096; group: rows per item, 1
-// or (count and bitmap, t <= 4) 8; n_items: ceil(rows / group) *
+// or (count and bitmap, t <= 8) 8; n_items: ceil(rows / group) *
 // ceil(n_pos / chunk); grid: blocks, at most the resident ones
 // (ssf_queue_blocks x SMs); queue: one int32 holding 0 on entry.  bits,
 // row_words (bitmap only; find and count ignore them): uint32[rows..,
@@ -233,6 +223,10 @@ int ssf_queue(int mode, const void* hay, int n_words, int n_pos, const void* val
                        static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
+
+// The mode's width-t queue kernel taking `group` rows an item (nullptr:
+// none), for the ablation harness's count variant (csrc/probe.cu).
+void* ssf_queue_kernel(int mode, int t, int group) { return queue_kernel_for(mode, t, group); }
 
 // Blocks of the mode's width-t queue kernel taking `group` rows an item
 // that one SM holds at once, into *per_sm.

@@ -9,13 +9,14 @@
 // the one the find, count and match-bitmap kernels run (queue.cuh,
 // scan_common.cuh): a persistent grid draws (row, chunk) items from a
 // chunk-major queue, and 256 threads walk an item 16 positions at a time
-// (probe_wide), tables of up to 4 slots in registers.  Every variant but
-// `span` and `word` runs on that queue with the count kernel's chunk; each
-// asks the question of one JAX variant, or one that only this loop has:
+// (probe_wide), tables of up to 4 slots (8 in count) in registers.  Every
+// variant but `span` and `word` runs on that queue with the count kernel's
+// chunk; each asks the question of one JAX variant, or one that only this
+// loop has:
 //
-//   count       group_loop<kCountMode, T, R> itself, the count kernel's
-//               loop at the rows per item the kernel's plan takes (the
-//               launch's `param`; baseline)                  = batched_count
+//   count       the count kernel itself (count_kernel<T, R>, reached
+//               through csrc/find.cu's ssf_queue_kernel) at the rows per
+//               item its plan takes (`param`; baseline)      = batched_count
 //   first       JAX full: the probes, a first-offset min per thread, a block
 //               min and atomicMin, no skip and no early exit  = batched_find
 //   nomin       JAX nomin: the probes, OR of the alive bits, one flag per row
@@ -34,7 +35,7 @@
 //               load (needles sharing a staged corpus tile); the R tables
 //               in registers while R * t <= 12, else in shared memory = count
 //   smemtab     JAX swpipe, inverted: `count` already holds tables of up to
-//               4 slots in registers, so this one reads the table from
+//               8 slots in registers, so this one reads the table from
 //               shared memory at any width, as wider tables are     = count
 //   span        probe_wide on the first design's plan, one block per (row,
 //               span) and no queue: what the queue itself buys      = count
@@ -58,6 +59,10 @@
 #include <cuda_runtime.h>
 
 #include "queue.cuh"
+
+// The queue kernels of csrc/find.cu: the `count` variant launches the
+// count kernel itself, so it needs no copy of its own here.
+extern "C" void* ssf_queue_kernel(int mode, int t, int group);
 
 namespace {
 
@@ -409,13 +414,6 @@ __global__ void __launch_bounds__(kThreads) variant_kernel(SSF_QUEUE_PARAMS) {
   }
 }
 
-// count: the count kernel's loop, built as csrc/find.cu builds count_kernel.
-template <int T, int R>
-__global__ void __launch_bounds__(kThreads, kGroupMinBlocks)
-count_variant_kernel(SSF_QUEUE_PARAMS) {
-  group_loop<kCountMode, T, R>(SSF_QUEUE_ARGS, nullptr, 0);
-}
-
 // span and word: the first design's plan, one block per (row, span), grid
 // (rows, n_spans), no queue.  span walks its span with probe_wide (the
 // table where the queue kernels hold it), word with probe_word and the
@@ -453,17 +451,11 @@ span_kernel(const uint32_t* __restrict__ hay, long long n_pos,
 }
 
 // The width-T instantiation of a queue variant; rows<R> holds R tables, in
-// registers only while they fit without spilling, else in shared memory;
-// count takes R > 1 only for tables of up to kMaxRegT slots (nullptr
-// otherwise), as the count kernel does.
+// registers only while they fit without spilling, else in shared memory.
 template <int V, int T, int R>
 void* variant_at() {
   if constexpr (V == kRows && R * T > kRowsRegWords) {
     return reinterpret_cast<void*>(variant_kernel<V, 0, R>);
-  } else if constexpr (V == kCount && T == 0 && R > 1) {
-    return nullptr;
-  } else if constexpr (V == kCount) {
-    return reinterpret_cast<void*>(count_variant_kernel<T, R>);
   } else {
     return reinterpret_cast<void*>(variant_kernel<V, T, R>);
   }
@@ -485,11 +477,11 @@ void* variant_fn(int variant, int param, int t) {
   switch (variant) {
     case kCount:
       switch (param) {
-        case 1: return queue_variant<kCount>(t);
-        case kGroupRows: return queue_variant<kCount, kGroupRows>(t);
+        case 1: return ssf_queue_kernel(kCountMode, t, 1);
+        case kGroupRows: return ssf_queue_kernel(kCountMode, t, kGroupRows);
       }
       return nullptr;
-    case kSmemtab: return queue_variant<kCount>(0);
+    case kSmemtab: return ssf_queue_kernel(kCountMode, kMaxT, 1);  // count_kernel<0, 1>
     case kFirst: return queue_variant<kFirst>(t);
     case kNomin: return queue_variant<kNomin>(t);
     case kNomask: return queue_variant<kNomask>(t);
@@ -526,7 +518,7 @@ void* span_fn(int variant, int t) {
 extern "C" {
 
 // One launch of an ablation variant.  variant: one of Variant; param: R for
-// rows (1, 2, 4, 8) and for count (1, or kGroupRows at t <= kMaxRegT),
+// rows (1, 2, 4, 8) and for count (1, or kGroupRows at t <= kMaxGroupT),
 // ignored otherwise.  hay, n_words, n_pos, values, masks,
 // ends, base are ssf_queue's; `rows` the real rows.  out: int32[rows..]
 // holding SENTINEL on entry for first and 0 for every other variant.

@@ -1,9 +1,12 @@
 // The chunk-major work queues of the port's scan kernels: find's item draw,
 // walk and loop over items (row, chunk), and the count and bitmap modes'
-// draw, walk and loop over items (group of rows, chunk).  Header only;
-// csrc/find.cu builds its three user kernels from find_loop and group_loop,
-// and csrc/probe.cu (the ablation harness) runs group_loop itself as its
-// baseline and strips next_item, item_table and the walks piece by piece.
+// draw, walk and loop over items (group of rows, chunk), with the count
+// and bitmap kernels that run it.  Header only; csrc/find.cu builds find's
+// kernel from find_loop and instantiates the count and bitmap kernels for
+// tables of up to kMaxRegT slots and wider than kMaxGroupT,
+// csrc/group_wide.cu those for 5 to kMaxGroupT slots, and csrc/probe.cu
+// (the ablation harness) launches the count kernel itself as its baseline
+// and strips next_item, item_table and the walks piece by piece.
 // csrc/find.cu's header says what the design answers.
 
 #pragma once
@@ -130,6 +133,21 @@ __device__ __forceinline__ void find_loop(const uint32_t* __restrict__ hay, int 
 // group_loop other than 1.
 constexpr int kGroupRows = 8;
 
+// The widest table group_loop walks at a width fixed at compile time (T >
+// 0), which it needs to group rows (ops/scan_kernel.py MAX_GROUP_T; find
+// walks tables of up to kMaxRegT slots so).  8 is PROBE_UNROLL, the
+// widest exact width group of BatchedSearcher.
+constexpr int kMaxGroupT = 8;
+
+// The slots group_loop's filter tests before a row's exact walk: slot 0
+// for tables of up to kMaxRegT slots; slots 0 and 1 for wider ones, whose
+// slots 0 and 1 are whole in every needle of an exact width group.  On a
+// four-letter text a 4-byte window passes one slot once in 256 windows, so
+// most warps of a one-slot filter have a lane with a hit at every tile;
+// two slots pass once in 65,536.
+template <int T>
+constexpr int kFilterSlots = T > kMaxRegT ? 2 : 1;
+
 // The blocks per SM that the kernels running group_loop declare in
 // __launch_bounds__: ptxas may then give a thread up to 65536 / (kThreads
 // x 4) = 64 registers, which every instantiation needs at most, and spills
@@ -192,16 +210,19 @@ __device__ __forceinline__ void next_group(int* queue, int n_items, int rows, in
 // One wide-tile group of a row group: the 16 positions p0 .. p0 + 15 of a
 // thread (p0 16-byte aligned, below the group's last stop), with their
 // words w[0..4] and slot-0 windows win[0..15] formed once for every row of
-// the group; `tail` when the group lies at the buffer's end, where neither
-// is formed and each row takes probe_wide, whose per-word loads read no
-// further than the row's positions need.
+// the group, and for a two-slot filter the windows win[16..19] of p0 + 16
+// .. p0 + 19 (slot 1 of position p is win[p - p0 + 4]); `tail` when the
+// group lies at the buffer's end, where none is formed and each row takes
+// probe_wide, whose per-word loads read no further than the row's
+// positions need.
 struct Tile {
   int p0, j;
   bool tail;
-  uint32_t w[5], win[16];
+  uint32_t w[5], win[20];
 };
 
-// Forms the tile at p0 for tables of `width` slots.
+// Forms the tile at p0 for tables of `width` slots and a filter of S slots.
+template <int S>
 __device__ __forceinline__ void load_tile(const uint32_t* __restrict__ hay, int n_words, int p0,
                                           int width, Tile* tile) {
   tile->p0 = p0;
@@ -222,18 +243,29 @@ __device__ __forceinline__ void load_tile(const uint32_t* __restrict__ hay, int 
       tile->win[4 * k + r] = __funnelshift_r(tile->w[k], tile->w[k + 1], 8 * r);
     }
   }
+  if constexpr (S == 2) {
+    // One more word, hay[j + 5]: the tail test covers it, since a two-slot
+    // filter walks tables of width >= 5.
+    const uint32_t w5 = __ldg(hay + tile->j + 5);
+    tile->win[16] = tile->w[4];
+#pragma unroll
+    for (int r = 1; r < 4; ++r) tile->win[16 + r] = __funnelshift_r(tile->w[4], w5, 8 * r);
+  }
 }
 
-// Bit q set for each row q < live of the group with a slot-0 hit at the
-// tile's positions below its stop (every live row with positions there,
-// at the buffer's end).  A row tests its slot 0 (value v0[q]) by one
-// compare a window, accumulated into one flag; a row whose bit of
-// `partial` is set reads its slot-0 mask, msk[q * stride], and ANDs each
-// window first, so any masked table stays exact.
-template <int R>
-__device__ __forceinline__ unsigned slot0_hits(const Tile& tile, const int* stop, int live,
-                                               const uint32_t* v0, unsigned partial,
-                                               const uint32_t* msk, int stride) {
+// Bit q set for each row q < live of the group whose filter passes at one
+// of the tile's 16 positions, the tile lying below the row's stop (every
+// live row with positions there, at the buffer's end).  The filter of S
+// slots: a row tests its slot 0 (value v0[q]) and, when S is 2, its slot 1
+// (v1[q]) at the same position, by one compare a window (one a pair of
+// windows), accumulated into one flag; a row whose bit of `partial` is set
+// reads the masks of those slots, msk[q * stride ..], and ANDs each window
+// first, so any masked table stays exact.
+template <int R, int S>
+__device__ __forceinline__ unsigned filter_hits(const Tile& tile, const int* stop, int live,
+                                                const uint32_t* v0, const uint32_t* v1,
+                                                unsigned partial, const uint32_t* msk,
+                                                int stride) {
   unsigned hits = 0u;
 #pragma unroll
   for (int q = 0; q < R; ++q) {
@@ -242,13 +274,27 @@ __device__ __forceinline__ unsigned slot0_hits(const Tile& tile, const int* stop
     if (!tile.tail) {
       const uint32_t v = v0[q];
       hit = false;
-      if ((partial >> q) & 1u) {
-        const uint32_t m = msk[q * stride];
+      if constexpr (S == 1) {
+        if ((partial >> q) & 1u) {
+          const uint32_t m = msk[q * stride];
 #pragma unroll
-        for (int b = 0; b < 16; ++b) hit |= (tile.win[b] & m) == v;
+          for (int b = 0; b < 16; ++b) hit |= (tile.win[b] & m) == v;
+        } else {
+#pragma unroll
+          for (int b = 0; b < 16; ++b) hit |= tile.win[b] == v;
+        }
       } else {
+        const uint32_t u = v1[q];
+        if ((partial >> q) & 1u) {
+          const uint32_t m0 = msk[q * stride], m1 = msk[q * stride + 1];
 #pragma unroll
-        for (int b = 0; b < 16; ++b) hit |= tile.win[b] == v;
+          for (int b = 0; b < 16; ++b) {
+            hit |= ((tile.win[b] & m0) == v) & ((tile.win[b + 4] & m1) == u);
+          }
+        } else {
+#pragma unroll
+          for (int b = 0; b < 16; ++b) hit |= ((tile.win[b] ^ v) | (tile.win[b + 4] ^ u)) == 0u;
+        }
       }
     }
     if (hit && tile.p0 < stop[q]) hits |= 1u << q;
@@ -256,16 +302,21 @@ __device__ __forceinline__ unsigned slot0_hits(const Tile& tile, const int* stop
   return hits;
 }
 
-// The exact walk of one row with a slot-0 hit in the tile: bit b set when
-// position p0 + b lies below `stop` and satisfies every slot of the row's
-// table (val, msk): its slot-0 bits from the tile's windows, then
-// probe_slots from slot 1.
+// The exact walk of one row whose filter passed in the tile: bit b set
+// when position p0 + b lies below `stop` and satisfies every slot of the
+// row's table (val, msk).  Behind a one-slot filter: its slot-0 bits from
+// the tile's windows, then probe_slots from slot 1.  Behind a two-slot
+// filter (T > kMaxRegT) the walk is rare, so it reloads the corpus
+// (probe_wide) and the tile's 20 windows are dead once every row's filter
+// has run, which leaves their registers to the walk.
 template <int T>
 __device__ __forceinline__ unsigned row_bits(const uint32_t* __restrict__ hay, int n_words,
                                              const Tile& tile, int stop, const uint32_t* val,
                                              const uint32_t* msk, int t) {
   const int width = T > 0 ? T : t;
-  if (tile.tail) return probe_wide<T>(hay, n_words, tile.p0, stop, val, msk, t);
+  if (tile.tail || kFilterSlots<T> == 2) {
+    return probe_wide<T>(hay, n_words, tile.p0, stop, val, msk, t);
+  }
   const uint32_t v = val[0], m = msk[0];
   unsigned a = 0u;
 #pragma unroll
@@ -284,8 +335,9 @@ __device__ __forceinline__ unsigned row_bits(const uint32_t* __restrict__ hay, i
 // (next_group) and the block reads it from shared memory after one
 // barrier; a barrier at the end of each item keeps the shared item and
 // table from being rewritten while a thread still reads them.  Per tile,
-// the rows share its windows (slot0_hits) and only a row with a hit walks
-// (row_bits).  Per row, each thread sums its matches in a register, and
+// the rows share its windows (filter_hits, kFilterSlots<T> slots) and only
+// a row whose filter passed walks (row_bits).  Per row, each thread sums
+// its matches in a register, and
 // each warp adds its sums once per item (warp_add): to `out`, the count per
 // row, or to the bitmap's item counts int32[n_chunks, rows] at [c, row].
 // The bitmap's words: each pair of neighbouring lanes holds the two 16-bit
@@ -305,6 +357,8 @@ __device__ __forceinline__ void group_loop(const uint32_t* __restrict__ hay, int
                                            int* queue, uint32_t* bits, long long row_words) {
   static_assert(kMode != kFindMode && (R == 1 || (T > 0 && R == kGroupRows)),
                 "count and bitmap take one row an item, or kGroupRows with a register-width table");
+  static_assert(T <= kMaxGroupT, "wider tables take the shared-memory walk, T = 0");
+  constexpr int S = kFilterSlots<T>;
   __shared__ uint32_t s_val[T > 0 ? 1 : kMaxT];
   __shared__ uint32_t s_msk[T > 0 ? 1 : kMaxT];
   __shared__ Group<R> s_group;
@@ -324,12 +378,16 @@ __device__ __forceinline__ void group_loop(const uint32_t* __restrict__ hay, int
     // Row q's table: tab_val + q * T (T > 0), or the shared copy.
     const uint32_t* tab_val = T > 0 ? values + row0 * T : s_val;
     const uint32_t* tab_msk = T > 0 ? masks + row0 * T : s_msk;
-    uint32_t v0[R];
+    uint32_t v0[R], v1[R];
     unsigned partial = 0u;
 #pragma unroll
     for (int q = 0; q < R; ++q) {
       v0[q] = q < live ? tab_val[q * T] : 0u;
-      if (q < live && tab_msk[q * T] != 0xffffffffu) partial |= 1u << q;
+      v1[q] = S == 2 && q < live ? tab_val[q * T + 1] : 0u;
+      if (q < live && (tab_msk[q * T] != 0xffffffffu ||
+                       (S == 2 && tab_msk[q * T + 1] != 0xffffffffu))) {
+        partial |= 1u << q;
+      }
     }
     unsigned count[R];
 #pragma unroll
@@ -339,8 +397,8 @@ __device__ __forceinline__ void group_loop(const uint32_t* __restrict__ hay, int
       Tile tile;
       unsigned hits = 0u;
       if (rel < len) {
-        load_tile(hay, n_words, start + rel, width, &tile);
-        hits = slot0_hits<R>(tile, s_group.stop, live, v0, partial, tab_msk, T);
+        load_tile<S>(hay, n_words, start + rel, width, &tile);
+        hits = filter_hits<R, S>(tile, s_group.stop, live, v0, v1, partial, tab_msk, T);
       }
       if constexpr (kMode == kCountMode) {
 #pragma unroll
@@ -384,5 +442,33 @@ __device__ __forceinline__ void group_loop(const uint32_t* __restrict__ hay, int
       int n_items, int* queue
 #define SSF_QUEUE_ARGS \
   hay, n_words, n_pos, values, masks, ends, out, rows, t, base, chunk, n_items, queue
+
+template <int T, int R>
+__global__ void __launch_bounds__(kThreads, kGroupMinBlocks) count_kernel(SSF_QUEUE_PARAMS) {
+  group_loop<kCountMode, T, R>(SSF_QUEUE_ARGS, nullptr, 0);
+}
+
+template <int T, int R>
+__global__ void __launch_bounds__(kThreads, kGroupMinBlocks)
+match_bitmap_kernel(SSF_QUEUE_PARAMS, uint32_t* bits, long long row_words) {
+  group_loop<kBitmapMode, T, R>(SSF_QUEUE_ARGS, bits, row_words);
+}
+
+// The width-T instantiation of the count or bitmap kernel taking `group`
+// rows an item: one, or kGroupRows at T > 0 (nullptr for any other).
+template <int T>
+void* group_fn(int mode, int group) {
+  if (group == 1) {
+    return mode == kCountMode ? reinterpret_cast<void*>(count_kernel<T, 1>)
+                              : reinterpret_cast<void*>(match_bitmap_kernel<T, 1>);
+  }
+  if constexpr (T > 0) {
+    if (group == kGroupRows) {
+      return mode == kCountMode ? reinterpret_cast<void*>(count_kernel<T, kGroupRows>)
+                                : reinterpret_cast<void*>(match_bitmap_kernel<T, kGroupRows>);
+    }
+  }
+  return nullptr;
+}
 
 }  // namespace

@@ -78,9 +78,13 @@ BLOCKS_PER_SM = 16
 FIND_CHUNK = 1 << 15
 COUNT_CHUNK = 1 << 16
 BITMAP_CHUNK = COUNT_CHUNK
-#: Widest table the queue kernels hold in registers (csrc/scan_common.cuh
-#: kMaxRegT); wider ones share one instantiation.
+#: Widest table the find kernel walks at a width fixed at compile time
+#: (csrc/scan_common.cuh kMaxRegT); wider ones share one instantiation.
 MAX_REG_T = 4
+#: The same for the count and bitmap kernels (csrc/queue.cuh kMaxGroupT),
+#: which group rows only at such widths.  Their tables wider than
+#: MAX_REG_T filter each position on slots 0 and 1 before the exact walk.
+MAX_GROUP_T = PROBE_UNROLL
 #: Rows per item of the count and bitmap kernels when a launch groups its
 #: rows (csrc/queue.cuh kGroupRows; else 1): the rows of an item share each
 #: wide tile's corpus words and slot-0 windows.
@@ -168,11 +172,11 @@ def plan_queue(nbytes: int, t: int, rows: int, resident: int, chunk: int,
 def plan_grouped(nbytes: int, t: int, rows: int, chunk: int, resident) -> QueuePlan:
     """The count and bitmap kernels' queue (:func:`plan_queue`):
     :data:`GROUP_ROWS` rows per item where the launch's shape allows it (a
-    table of at most :data:`MAX_REG_T` slots, at least that many rows, and
-    still :data:`ITEMS_PER_BLOCK` items per resident block), else one.
+    table of at most :data:`MAX_GROUP_T` slots, at least that many rows,
+    and still :data:`ITEMS_PER_BLOCK` items per resident block), else one.
     ``resident(group)`` is the blocks the card holds at once of the kernel
     taking ``group`` rows per item."""
-    if t <= MAX_REG_T and rows >= GROUP_ROWS:
+    if t <= MAX_GROUP_T and rows >= GROUP_ROWS:
         plan = plan_queue(nbytes, t, rows, resident(GROUP_ROWS), chunk, GROUP_ROWS)
         if plan.n_items >= ITEMS_PER_BLOCK * resident(GROUP_ROWS):
             return plan
@@ -260,7 +264,8 @@ def _queue_plan(mode: int, hay, t: int, rows: int) -> QueuePlan:
     """The work queue of one ``mode`` launch over ``rows`` rows, for the
     card that holds ``hay``: find takes one row per item, count and bitmap
     as many as :func:`plan_grouped` allows."""
-    resident = functools.partial(_resident_blocks, hay.device.index, mode, min(t, MAX_REG_T + 1))
+    widest = MAX_REG_T if mode == FIND else MAX_GROUP_T
+    resident = functools.partial(_resident_blocks, hay.device.index, mode, min(t, widest + 1))
     if mode == FIND:
         return plan_queue(hay.numel(), t, rows, resident(1), chunk_of(mode))
     return plan_grouped(hay.numel(), t, rows, chunk_of(mode), resident)
@@ -285,6 +290,19 @@ def _launch_queue(mode: int, plan: QueuePlan, hay, values, masks, ends, out, bas
         )
     cuda_lib.check(err, "ssf_queue")
     return True
+
+
+def _count_rows(wrapper: str, plan: QueuePlan, t: int, n_real: int) -> None:
+    """The counters of one count or bitmap launch over ``n_real`` rows:
+    ``launches.<wrapper>``; its rows under ``tiled_rows`` or
+    ``single_rows`` by the plan's rows per item, and under
+    ``two_slot_rows`` too where the table's width takes the two-slot
+    filter (csrc/queue.cuh kFilterSlots<T> == 2: T from MAX_REG_T + 1 to
+    MAX_GROUP_T)."""
+    tracing.count(f"launches.{wrapper}")
+    tracing.count(f"{'tiled_rows' if plan.group > 1 else 'single_rows'}.{wrapper}", n_real)
+    if MAX_REG_T < t <= MAX_GROUP_T:
+        tracing.count(f"two_slot_rows.{wrapper}", n_real)
 
 
 def batched_find_plain(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor:
@@ -372,9 +390,7 @@ def batched_count(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor
     out = torch.zeros((n,), dtype=torch.int32, device=device)
     plan = _queue_plan(COUNT, hay, t, n_real)
     if _launch_queue(COUNT, plan, hay, values, masks, ends, out, base, n_real):
-        tracing.count("launches.batched_count")
-        rows = "tiled_rows" if plan.group > 1 else "single_rows"
-        tracing.count(f"{rows}.batched_count", n_real)
+        _count_rows("batched_count", plan, t, n_real)
     return out
 
 
@@ -453,9 +469,7 @@ def match_bitmap_counted(hay, values, masks, ends, base=0, n_real=None):
     words = torch.zeros((n, bitmap_words(hay.numel(), t)), dtype=torch.int32, device=device)
     counts = torch.zeros((plan.n_chunks, n_real), dtype=torch.int32, device=device)
     if _launch_queue(BITMAP, plan, hay, values, masks, ends, counts, base, n_real, words):
-        tracing.count("launches.match_bitmap_counted")
-        rows = "tiled_rows" if plan.group > 1 else "single_rows"
-        tracing.count(f"{rows}.match_bitmap_counted", n_real)
+        _count_rows("match_bitmap_counted", plan, t, n_real)
     if n_real < n:
         counts = torch.nn.functional.pad(counts, (0, n - n_real))
     return words, counts, plan.chunk

@@ -150,6 +150,27 @@ def match_counts(
     return out
 
 
+def match_spans(
+    hay_u8: torch.Tensor,
+    values: torch.Tensor,
+    masks: torch.Tensor,
+    limits: torch.Tensor,
+    span: int,
+) -> torch.Tensor:
+    """int64[N]: for each row the number of spans ``[s * span, (s + 1) *
+    span)`` that hold a position ``p < limits[n]`` at which every probe
+    slot matches.  The guarantee of :func:`first_offsets` on ``limits``
+    applies."""
+    n = values.shape[0]
+    device = hay_u8.device
+    spans = -(-max(int(limits.max()), 0) // span) if n else 0
+    hit = torch.zeros((n, spans), dtype=torch.bool, device=device)
+    for sel, c0, acc in _match_chunks(hay_u8, values, masks, limits):
+        i, c = torch.nonzero(acc, as_tuple=True)
+        hit[sel[i], (c0 + c) // span] = True
+    return hit.sum(dim=1)
+
+
 def match_bits(
     hay_u8: torch.Tensor,
     values: torch.Tensor,

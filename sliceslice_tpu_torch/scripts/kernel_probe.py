@@ -57,7 +57,13 @@ over ``data/i386.txt`` (default t=2, r=4, 32 sweeps, 4,585 rows, variants
 ``count first nomin noprobe empty``; ``all`` names every variant): per variant, ms per sweep and ns per (row, 1,024 positions), on
 the card (``device=cuda``, the default; it raises on a host without one)
 or, with ``device=cpu``, with the plain versions on the CPU (host clock;
-cut ``n`` there).
+cut ``n`` there).  ``shares [device=D]`` prints instead :func:`walk_shares`
+(plain PyTorch on ``D``, no kernel of its own): the share of (warp, row,
+tile) steps that enter the count kernel's exact walk under the one-slot
+filter (tables of up to 4 slots) and the two-slot filter (5 to 8 slots),
+for i386's words by width group and for
+512 guides of 20 bytes cut from 64 MiB of i.i.d. ACGT drawn from seed 0,
+beside the shares expected of random ACGT.
 """
 
 from __future__ import annotations
@@ -73,9 +79,9 @@ import numpy as np
 import torch
 
 from ..config import SENTINEL
-from ..needle import needed_halo_for_t
+from ..needle import build_probe_table, needed_halo_for_t, num_probes
 from ..ops import cuda_lib, scan_kernel
-from ..ops.scan_math import match_counts, packed_windows, position_limit
+from ..ops.scan_math import match_counts, match_spans, packed_windows, position_limit, table_bits
 from ..utils import tracing
 
 #: Variant names, in the order of ``csrc/probe.cu``'s ``Variant`` codes.
@@ -83,6 +89,8 @@ VARIANTS = ("count", "first", "nomin", "noprobe", "empty", "nomask", "branchless
             "rows", "smemtab", "span", "word", "prefilter")
 #: Variants whose result equals ``batched_count``.
 COUNTING = ("count", "nomask", "branchless", "rows", "smemtab", "span", "word", "prefilter")
+#: Positions of one warp's share of a wide tile (32 lanes of 16).
+WARP_SPAN = 512
 #: Variants on the first design's plan, one block per (row, span); every
 #: other variant takes items from the count kernel's work queue.
 SPAN_PLAN = ("span", "word")
@@ -135,6 +143,15 @@ def planted(hay: bytes, masks: np.ndarray) -> dict:
     k = needle_lengths(masks)
     return {row: hay[off : off + int(k[row])] for row, off in PLANTS
             if row < masks.shape[0] and off + 8 <= len(hay)}
+
+
+def warp_steps(ends, nbytes: int, t: int, n_real: Optional[int] = None) -> int:
+    """The (warp, wide tile) steps of rows below ``n_real`` of a width-``t``
+    table over an ``nbytes`` layout (base 0): per row, the warps' spans of
+    :data:`WARP_SPAN` positions that hold a position below its limit."""
+    ends = np.asarray(ends, np.int64)[: len(ends) if n_real is None else n_real]
+    limits = np.clip(ends, 0, position_limit(nbytes, t))
+    return int((-(-limits // WARP_SPAN)).sum())
 
 
 def _check(variant: str, rows: int) -> None:
@@ -215,7 +232,7 @@ def probe(variant, hay, values, masks, ends, base=0, n_real=None, rows=4) -> tor
         step, n_steps = scan_kernel.plan_spans(n_pos, n_real, tile, scan_kernel._sm_count(index))
         grid = 0
     else:
-        t_class = min(t, scan_kernel.MAX_REG_T + 1)
+        t_class = min(t, scan_kernel.MAX_GROUP_T + 1)
 
         def resident(group: int) -> int:
             return _resident_blocks(index, code, group, t_class)
@@ -239,6 +256,59 @@ def probe(variant, hay, values, masks, ends, base=0, n_real=None, rows=4) -> tor
     return out
 
 
+def walk_shares(hay: bytes, needles, device) -> list:
+    """``[(t, rows, steps, walk1, walk2)]``: for each width group of
+    ``needles`` over ``hay`` (tables as ``BatchedSearcher`` builds them),
+    its (warp, row, tile) steps and how many of them the one-slot and the
+    two-slot filter pass: :func:`..ops.scan_math.match_spans` of slot 0
+    and of slots 0 and 1 over the warps' spans of :data:`WARP_SPAN`
+    positions, on ``device``."""
+    from ..ops.layout import preprocess
+
+    widths = sorted({num_probes(len(nd)) for nd in needles})
+    dh = preprocess(hay, kh=needed_halo_for_t(widths[-1]), device=device)
+    out = []
+    for t in widths:
+        group = [nd for nd in needles if num_probes(len(nd)) == t]
+        values, masks, lens = build_probe_table(group, t_max=t)
+        ends = np.maximum(len(hay) - lens + 1, 0)
+        n_pos = dh.flat.numel()
+        limits = torch.from_numpy(np.clip(ends, 0, position_limit(n_pos, t))).to(dh.flat.device)
+        v, m = table_bits(values, dh.flat.device), table_bits(masks, dh.flat.device)
+        walks = [int(match_spans(dh.flat, v[:, :s], m[:, :s], limits, WARP_SPAN).sum())
+                 for s in (1, min(2, t))]
+        out.append((t, len(group), warp_steps(ends, n_pos, t), *walks))
+    return out
+
+
+def _print_shares(name: str, rows: list) -> None:
+    for t, n, steps, w1, w2 in rows + [("all", *np.sum([r[1:] for r in rows], axis=0))]:
+        print(f"{name} t={t}: {int(n)} rows, {int(steps)} steps; exact walk under one slot "
+              f"{100 * w1 / max(steps, 1):.4f}%, under two slots {100 * w2 / max(steps, 1):.4f}%")
+
+
+def main_shares(device) -> int:
+    """``shares``: :func:`walk_shares` of i386's words and of 512 guides of
+    20 bytes cut from 64 MiB of i.i.d. ACGT drawn from seed 0."""
+    from ..utils.profiling import card
+
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    where = card(device.index) if device.type == "cuda" else "CPU, plain versions"
+    print(f"{where}; exact-walk shares of (warp, row, tile) steps, {WARP_SPAN} positions a warp")
+    with open(os.path.join(repo, "data", "i386.txt"), "rb") as f:
+        hay = f.read()
+    with open(os.path.join(repo, "data", "words.txt"), "rb") as f:
+        words = [w for w in f.read().split(b"\n") if w]
+    _print_shares("i386 words", walk_shares(hay, words, device))
+    rng = np.random.default_rng(0)
+    dna = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 64 << 20)].tobytes()
+    at = rng.choice(len(dna) - 20, 512, replace=False)
+    _print_shares("ACGT 64 MiB, 512 guides", walk_shares(dna, [dna[a : a + 20] for a in at], device))
+    print(f"random ACGT, expected: one slot {100 * (1 - (1 - 4.0**-4) ** WARP_SPAN):.4f}%, "
+          f"two slots {100 * (1 - (1 - 4.0**-8) ** WARP_SPAN):.4f}%")
+    return 0
+
+
 def main(argv: Optional[list] = None) -> int:
     from ..ops.layout import preprocess, resolve_device
     from ..utils.profiling import card, measure
@@ -255,6 +325,8 @@ def main(argv: Optional[list] = None) -> int:
         else:
             variants.append(a)
     t, rows, sweeps, n = opts["t"], opts["r"], opts["k"], opts["n"]
+    if variants == ["shares"]:
+        return main_shares(resolve_device(device))
     if "all" in variants:
         variants = list(VARIANTS)
     variants = variants or ["count", "first", "nomin", "noprobe", "empty"]

@@ -21,7 +21,9 @@ apart: :func:`traced` returns both.
 Names: ``launches.<kernel>`` (a kernel launched), ``tiled_rows.<wrapper>``
 (the rows of a count or bitmap launch whose items are groups of rows that
 share each corpus tile), ``single_rows.<wrapper>`` (the rows of one whose
-items are one row each), ``uploads.pair_block``
+items are one row each), ``two_slot_rows.<wrapper>`` (the rows of one whose
+table, of 5 to 8 slots, is filtered on slots 0 and 1 before the exact
+walk), ``uploads.pair_block``
 (a pair plan sent to a card), ``readbacks`` / ``readback_bytes`` and
 ``uploads`` / ``upload_bytes`` (the copies of :mod:`..ops.transfer`).
 """

@@ -524,15 +524,32 @@ def _group_table(hay: bytes, t: int, rows: int = 41):
     return np.pad(vals, pad), np.pad(msks, pad), np.pad(ends, pad[0]).astype(np.int32)
 
 
-@pytest.mark.parametrize("t", [1, 2, 3, 4, 8, 512])
+def _row_counters() -> tuple:
+    """The row counters of the count and bitmap wrappers, in one tuple."""
+    return tuple(_n(f"{rows}.{w}") for rows in ("tiled_rows", "single_rows", "two_slot_rows")
+                 for w in ("batched_count", "match_bitmap_counted"))
+
+
+def _walk_rows(t: int, grouped: tuple, single: tuple) -> tuple:
+    """What ``_row_counters`` gains from the (count, bitmap) rows
+    ``grouped`` launched 8 an item and ``single`` one an item, of width-t
+    tables: the two-slot filter's rows are every row of a table of 5 to 8
+    slots."""
+    two = (0, 0)
+    if scan_kernel.MAX_REG_T < t <= scan_kernel.MAX_GROUP_T:
+        two = tuple(a + b for a, b in zip(grouped, single))
+    return (*grouped, *single, *two)
+
+
+@pytest.mark.parametrize("t", [1, 2, 3, 4, 5, 6, 7, 8, 512])
 def test_group_walk_equals_plain(cuda, monkeypatch, t):
     """The count and bitmap kernels' group walk against their plain
     versions on ``_group_table``'s 41 rows over 2 MiB at a chunk of 4,096
-    (so that the launch groups 8 rows an item where t <= 4, and
-    ``tiled_rows.<wrapper>`` counts them; wider tables take one row an
-    item), at base 0 and base > 0 with n_real < n, a match in the buffer's
-    last 16-position group among them; then one-row launches, which never
-    group."""
+    (so that the launch groups 8 rows an item where t <= 8, and
+    ``tiled_rows.<wrapper>`` counts them, with ``two_slot_rows.<wrapper>``
+    where t is 5 to 8; wider tables take one row an item), at base 0 and
+    base > 0 with n_real < n, a match in the buffer's last 16-position group
+    among them; then one-row launches, which never group."""
     for name in ("COUNT_CHUNK", "BITMAP_CHUNK"):
         monkeypatch.setattr(scan_kernel, name, scan_kernel.WIDE_TILE)
     hay = _hay(950 + t, 2 << 20)
@@ -540,25 +557,113 @@ def test_group_walk_equals_plain(cuda, monkeypatch, t):
     vals, msks, ends = _group_table(hay, t)
     v, m = table_bits(vals, cuda), table_bits(msks, cuda)
     n = vals.shape[0]
-    grouped = t <= scan_kernel.MAX_REG_T
+    grouped = t <= scan_kernel.MAX_GROUP_T
     for base, n_real in ((0, n), (1 << 20, n - 5)):
         e = torch.from_numpy(np.where(ends > 0, ends + base, 0).astype(np.int32)).to(cuda)
-        tiled = _n("tiled_rows.batched_count"), _n("tiled_rows.match_bitmap_counted")
+        before = _row_counters()
         got = scan_kernel.batched_count(dh.flat, v, m, e, base=base, n_real=n_real)
         assert torch.equal(got, scan_kernel.batched_count_plain(dh.flat, v, m, e, base=base, n_real=n_real))
         assert int(got[0]) + 1 == int(got[1]) and int(got[2]) > len(hay) // 8, got[:3]
         _check_positions_kernels(dh, v, m, e, base, n_real)
-        made = _n("tiled_rows.batched_count") - tiled[0], _n("tiled_rows.match_bitmap_counted") - tiled[1]
-        assert made == ((n_real, 2 * n_real) if grouped else (0, 0)), (t, base)
+        made = tuple(a - b for a, b in zip(_row_counters(), before))
+        rows = (n_real, 2 * n_real)
+        assert made == _walk_rows(t, rows if grouped else (0, 0), (0, 0) if grouped else rows), (t, base)
     e = torch.from_numpy(ends).to(cuda)
-    tiled = _n("tiled_rows.batched_count")
-    for row in (0, 1, 2, 5, n - 4):  # one-row launches
+    before = _row_counters()
+    singles = (0, 1, 2, 5, n - 4)
+    for row in singles:  # one-row launches
         args = (dh.flat, v[row : row + 1], m[row : row + 1], e[row : row + 1])
         assert torch.equal(scan_kernel.batched_count(*args), scan_kernel.batched_count_plain(*args))
         words, counts, chunk = scan_kernel.match_bitmap_counted(*args)
         plain = scan_kernel.match_bitmap_counted_plain(*args)
         assert torch.equal(words, plain[0]) and torch.equal(counts, plain[1]) and chunk == plain[2]
-    assert _n("tiled_rows.batched_count") == tiled
+    made = tuple(a - b for a, b in zip(_row_counters(), before))
+    assert made == _walk_rows(t, (0, 0), (len(singles), len(singles)))
+
+
+def _acgt_decoys(t: int, n: int = 2 << 20):
+    """A four-letter text of ``n`` bytes (i.i.d. ACGT, so a 4-byte window
+    passes one slot once in 256 windows) and width-t needles for the
+    two-slot filter: a needle ``d`` of 4t bytes with 5 more exact copies
+    planted and 60 decoys that keep its slots 0 and 1 (its first 8 bytes)
+    but change one byte of a later slot; needles of every length of the
+    width cut from the text; short needles padded into the wide table, so
+    that slot 0 or slot 1 is partial or mask 0 (1, 4, 5, 6, 7 and 8
+    bytes); the text's last 4t bytes; an absent needle; 16 more needles of
+    4t bytes cut from the text, so that 8-row groups fill the card.
+    Returns the text and the needles, ``d`` first."""
+    rng = np.random.default_rng(2400 + t)
+    body = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)].copy()
+    k = 4 * t
+    at = rng.choice(np.arange(1, n // 256 - 2) * 256, 66, replace=False)
+    d = body[at[0] : at[0] + k].copy()
+    for a in at[1:6]:
+        body[a : a + k] = d
+    for a in at[6:]:
+        body[a : a + k] = d
+        i = int(rng.integers(8, k))
+        body[a + i] = b"ACGT"[(b"ACGT".index(int(d[i])) + 1) % 4]
+    hay = body.tobytes()
+    needles = [bytes(d)]
+    for size in range(k - 3, k + 1):
+        s = int(rng.integers(0, n - size))
+        needles.append(hay[s : s + size])
+    for size in (1, 4, 5, 6, 7, 8):
+        s = int(rng.integers(0, n - size))
+        needles.append(hay[s : s + size])
+    needles += [hay[-k:], b"ACGT" * (t - 1) + b"TTTT", b"\x7f" * k]
+    needles += [hay[s : s + k] for s in rng.integers(0, n - k, 16)]
+    return hay, needles
+
+
+@pytest.mark.parametrize("t", [5, 6, 7, 8])
+def test_two_slot_filter_on_a_four_letter_text(cuda, monkeypatch, t):
+    """The two-slot filter of tables of 5 to 8 slots, grouped (8 rows an
+    item at a chunk of 4,096) and one row an item: on ``_acgt_decoys``'
+    text, where slot 0 passes a window in 256 and 60 planted sites pass
+    slots 0 and 1 but fail a later slot, ``batched_count`` and
+    ``match_bitmap_counted`` equal their plain versions and the needles'
+    ``overlapping_count``, with partial and mask-0 slots 0 and 1, a match
+    in the buffer's last 16-position group, base > 0 and n_real < n; each
+    launch counts its rows as tiled or single, and as two-slot rows."""
+    for name in ("COUNT_CHUNK", "BITMAP_CHUNK"):
+        monkeypatch.setattr(scan_kernel, name, scan_kernel.WIDE_TILE)
+    hay, needles = _acgt_decoys(t)
+    d = 0
+    dh = preprocess(hay, kh=needed_halo_for_t(t), device=cuda)
+    vals, msks, lens = build_probe_table(needles, t_max=t)
+    vals, msks = np.pad(vals, ((0, 3), (0, 0))), np.pad(msks, ((0, 3), (0, 0)))
+    ends = np.pad(np.maximum(len(hay) - lens + 1, 0), (0, 3)).astype(np.int32)
+    v, m = table_bits(vals, cuda), table_bits(msks, cuda)
+    n = vals.shape[0]
+    assert (msks[:, 0] != 0xFFFFFFFF).any() and (msks[:, 1] != 0xFFFFFFFF).any()
+    assert (msks[:, 1] == 0).any()
+    want = [overlapping_count(hay, nd) for nd in needles]
+    assert want[d] == 6 and want[11] >= 1 and want[13] == 0
+    for base, n_real in ((0, n), (1 << 20, n - 5)):
+        e = torch.from_numpy(np.where(ends > 0, ends + base, 0).astype(np.int32)).to(cuda)
+        assert scan_kernel._queue_plan(scan_kernel.COUNT, dh.flat, t, n_real).group == 8
+        before = _row_counters()
+        got = scan_kernel.batched_count(dh.flat, v, m, e, base=base, n_real=n_real)
+        assert torch.equal(got, scan_kernel.batched_count_plain(dh.flat, v, m, e, base=base, n_real=n_real))
+        live = min(n_real, len(needles))
+        assert got.tolist()[:live] == want[:live] and not any(got.tolist()[live:])
+        _, totals = _check_positions_kernels(dh, v, m, e, base, n_real)
+        assert torch.equal(totals, got)
+        made = tuple(a - b for a, b in zip(_row_counters(), before))
+        assert made == _walk_rows(t, (n_real, 2 * n_real), (0, 0)), base
+    e = torch.from_numpy(ends).to(cuda)
+    before = _row_counters()
+    singles = (d, 1, 5, 11, 13)  # d, k - 3 bytes, 1 byte, the text's end, absent
+    for row in singles:
+        args = (dh.flat, v[row : row + 1], m[row : row + 1], e[row : row + 1])
+        got = scan_kernel.batched_count(*args)
+        assert torch.equal(got, scan_kernel.batched_count_plain(*args)) and int(got[0]) == want[row]
+        words, counts, chunk = scan_kernel.match_bitmap_counted(*args)
+        plain = scan_kernel.match_bitmap_counted_plain(*args)
+        assert torch.equal(words, plain[0]) and torch.equal(counts, plain[1]) and chunk == plain[2]
+    made = tuple(a - b for a, b in zip(_row_counters(), before))
+    assert made == _walk_rows(t, (0, 0), (len(singles), len(singles)))
 
 
 def test_i386_count_groups_every_narrow_row(cuda):
@@ -590,9 +695,11 @@ def test_dna_guides_counted_on_card_equal_the_kmer_reference(cuda):
     """The ``dna200m-count`` cell's path at 8 MiB: 512 guides of 20 bytes
     (one width group of t = 5) counted by ``count_all`` on the card equal
     ``portbench/reference_dna.py`` on the card, from one count launch that
-    walks its 512 rows one an item (``single_rows.batched_count``).  An
-    i386 sweep then still groups its 4,492 rows of t <= 3
-    (``tiled_rows.batched_count``) and walks its other 93 alone."""
+    groups its 512 rows 8 an item (``tiled_rows.batched_count``) behind
+    the two-slot filter (``two_slot_rows.batched_count``).  An i386 sweep
+    then still groups its 4,492 rows of t <= 3, walks its other 93 alone
+    (``single_rows.batched_count``) and filters its 4 rows of t = 5 and 6
+    on two slots."""
     import json
 
     from portbench import reference_dna, spec
@@ -608,7 +715,8 @@ def test_dna_guides_counted_on_card_equal_the_kmer_reference(cuda):
     before = tracing.counters()
     got = bs.count_all(dh)
     assert [_delta(before, c) for c in ("launches.batched_count", "single_rows.batched_count",
-                                        "tiled_rows.batched_count")] == [1, 512, 0]
+                                        "tiled_rows.batched_count",
+                                        "two_slot_rows.batched_count")] == [1, 0, 512, 512]
     want = reference_dna.count_all(inp.corpus, inp.needles, device=cuda)
     assert got.tolist() == want.tolist() and want.min() >= 1
 
@@ -620,6 +728,7 @@ def test_dna_guides_counted_on_card_equal_the_kmer_reference(cuda):
     assert bs.count_all(dh).tolist() == [overlapping_count(hay, w) for w in words]
     assert _delta(before, "tiled_rows.batched_count") == 4492
     assert _delta(before, "single_rows.batched_count") == len(words) - 4492 == 93
+    assert _delta(before, "two_slot_rows.batched_count") == 4
 
 
 @pytest.mark.parametrize("chunk", [4096, 65536])

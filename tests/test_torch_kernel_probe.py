@@ -27,7 +27,7 @@ import sliceslice_tpu as jst
 import sliceslice_tpu_torch.ops.scan_kernel as tsk
 from sliceslice_tpu_torch import overlapping_count, preprocess
 from sliceslice_tpu_torch.config import SENTINEL
-from sliceslice_tpu_torch.needle import needed_halo_for_t
+from sliceslice_tpu_torch.needle import build_probe_table, needed_halo_for_t
 from sliceslice_tpu_torch.scripts import kernel_probe as kp
 from sliceslice_tpu_torch.utils import tracing
 
@@ -126,6 +126,26 @@ def _plant(hay, values, masks, rows_offsets):
         nd = hay[off : off + int(k[row])].ljust(4 * t, b"\0")
         values[row] = np.frombuffer(nd, "<u4") & masks[row]
     return {row: hay[off : off + int(k[row])] for row, off in rows_offsets}
+
+
+def _walk_steps(hay: bytes, values, masks, limits, slots: int) -> list:
+    """Per row, the spans of kp.WARP_SPAN positions holding a position
+    below its limit whose first ``slots`` probe windows match, read from
+    the bytes (walk_shares' column)."""
+    t = values.shape[1]
+    s = min(slots, t)
+    win = np.frombuffer(hay + b"\0" * 8, np.uint8)
+    out = []
+    for v, m, lim in zip(values, masks, limits):
+        p = np.arange(int(lim))
+        ok = np.ones(len(p), bool)
+        for i in range(s):
+            q = p + 4 * i
+            w = (win[q].astype(np.uint32) | win[q + 1].astype(np.uint32) << 8
+                 | win[q + 2].astype(np.uint32) << 16 | win[q + 3].astype(np.uint32) << 24)
+            ok &= (w & m[i]) == v[i]
+        out.append(len(np.unique(p[ok] // kp.WARP_SPAN)))
+    return out
 
 
 @pytest.mark.parametrize("t", [1, 2, 3, 5])
@@ -297,6 +317,28 @@ def test_main_runs_on_the_cpu(capsys):
     assert [ln.split(":")[0].strip() for ln in lines[1:]] == list(kp.VARIANTS)
     with pytest.raises(ValueError, match="unknown probe variant"):
         kp.main(["t=5", "device=cpu", "regtab"])
+
+
+def test_walk_shares_on_a_four_letter_text():
+    """walk_shares groups needles by width as BatchedSearcher does, and its
+    steps and filter passes are the bytes' own: on 64 KiB of ACGT with
+    20-byte guides cut from it, two slots pass fewer steps than one, and
+    every guide passes at its own site."""
+    rng = np.random.default_rng(24)
+    dna = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 1 << 16)].tobytes()
+    guides = [dna[a : a + 20] for a in rng.choice(len(dna) - 20, 24, replace=False)]
+    needles = guides + [b"AC", b"ACGTA", dna[:9]]
+    rows = kp.walk_shares(dna, needles, CPU)
+    assert [r[:2] for r in rows] == [(1, 1), (2, 1), (3, 1), (5, 24)]
+    for t, n, steps, w1, w2 in rows:
+        group = [nd for nd in needles if -(-len(nd) // 4) == t]
+        values, masks, lens = build_probe_table(group, t_max=t)
+        ends = np.maximum(len(dna) - lens + 1, 0)
+        assert steps == sum(-(-int(e) // kp.WARP_SPAN) for e in ends)
+        assert [w1, w2] == [sum(_walk_steps(dna, values, masks, ends, s)) for s in (1, 2)]
+        assert n <= w2 <= w1 <= steps and (w2 < w1 if t > 1 else w2 == w1)
+    t5 = rows[-1]
+    assert t5[3] > 0.5 * t5[2] > 10 * t5[4]
 
 
 def test_table_helpers():

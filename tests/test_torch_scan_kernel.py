@@ -224,14 +224,16 @@ def _resident(group):
     (857_600, 4, 89, 1), (857_600, 5, 3, 1), (857_600, 6, 1, 1),
     (857_600, 2, 1, 1), (256 << 20, 2, 1, 1), (256 << 20, 2, 7, 1),  # fewer rows than a group
     (256 << 20, 2, 8, 8), (1 << 20, 3, 41, 1), (64 << 20, 3, 41, 8),  # a stream window's 41
-    (857_600, 5, 4000, 1), (256 << 20, 512, 40, 1),  # wider than registers hold
+    (857_600, 5, 4000, 8), (857_600, 6, 4000, 8), (256 << 20, 7, 512, 8),  # two-slot filter
+    (64 << 20, 8, 64, 8), (200 << 20, 5, 512, 8),  # the last: dna200m-count's guides
+    (857_600, 9, 4000, 1), (256 << 20, 512, 40, 1),  # wider than the group walk's registers
     (857_600, 2, 0, 1), (16, 4, 5, 1),  # nothing to scan
 ])
 def test_plan_grouped_takes_rows_per_item_from_the_launch_shape(nbytes, t, rows, group):
     """8 rows an item where the launch still leaves ITEMS_PER_BLOCK items
     per resident block of the grouped kernel; one row an item for a launch
     of fewer rows than a group, for too few items and for tables wider
-    than MAX_REG_T.  The chunk and its count do not depend on the group."""
+    than MAX_GROUP_T.  The chunk and its count do not depend on the group."""
     plan = tsk.plan_grouped(nbytes, t, rows, tsk.COUNT_CHUNK, _resident)
     one = tsk.plan_queue(nbytes, t, rows, _resident(1), tsk.COUNT_CHUNK)
     assert plan.group == group
