@@ -32,7 +32,7 @@ drives the port's main paths against host oracles:
   corpus before and after ``optimize_for`` (rows past the sparse cap and
   under it, every row compacted on the card and no bitmap decoded on the
   host; one bitmap, one rank and one compaction launch per width group),
-  ``DynamicSearcher.positions`` on every arm, a flat layout on the card
+  ``DynamicSearcher.positions`` on every arm, a short layout on the card
   kept without host bytes, and the 256 MiB corpus's needles, against the
   host positions oracle;
 * the all-pairs sweep: ``PairwiseSearcher`` over the length-sorted words,
@@ -567,9 +567,9 @@ def phase_dynamic(torch, device, hay):
     from sliceslice_tpu_torch import DynamicSearcher, preprocess
 
     rng = np.random.default_rng(7)
-    small = hay[100_000:106_000]          # bytes, 4096 < len <= 8192: flat rung
-    tiny = preprocess(hay[:3000], device=device)   # DeviceHaystack, flat rung
-    big = preprocess(hay, kh=64, device=device)    # kernel layout
+    small = hay[100_000:106_000]          # bytes, 4096 < len <= 8192
+    tiny = preprocess(hay[:3000], device=device)   # a short DeviceHaystack
+    big = preprocess(hay, kh=64, device=device)
     m0 = counter("launches.memchr_find")
     lengths = [1, 2, 3, 5, 8, 12, 16, 17, 24, 32, 33, 40, 100, 1000]
     checked = 0
@@ -577,9 +577,14 @@ def phase_dynamic(torch, device, hay):
         for h_bytes, h in ((small, small), (hay[:3000], tiny), (hay, big), (hay, hay)):
             start = int(rng.integers(0, len(h_bytes) - k))
             for nd in (h_bytes[start:start + k], h_bytes[-k:], b"\xfe" * k):
+                kernel = "launches.memchr_find" if k == 1 else "launches.batched_find"
+                before = counter(kernel)
                 got = DynamicSearcher(nd, device=device).find(h)
                 f = h_bytes.find(nd)
                 check(got == (None if f < 0 else f), f"DynamicSearcher k={k} differs")
+                if h is tiny:
+                    check(counter(kernel) == before + 1,
+                          f"find k={k} over a short layout on the card did not launch its kernel once")
                 checked += 1
     memchr_runs = counter("launches.memchr_find") - m0
     check(memchr_runs > 0, "the 1-byte arm never launched the memchr kernel")
@@ -1513,18 +1518,16 @@ def phase_count(torch, device, hay, words, i386_dh, big):
 
     rng = np.random.default_rng(11)
     small = hay[100_000:106_000]            # bytes, 4096 < len <= 8192: host count
-    # A flat rung on the card, with no host bytes: it is counted on the
-    # card, re-laid into the kernel layout there.
+    # A short layout on the card, with no host bytes: it is counted there.
     tiny = preprocess(hay[:3000], keep_host=False, device=device)
-    check(not tiny.tiled, "the 3,000-byte layout is not the flat rung")
-    flat_words = words[::15]
+    short_words = words[::15]
     c0 = counter("launches.batched_count")
-    flat_bs = BatchedSearcher(flat_words, device=device)
-    got = flat_bs.count_all(tiny)
-    check(np.array_equal(got, [overlapping_count(hay[:3000], w) for w in flat_words]),
-          "counts over the flat rung on the card differ")
-    check(counter("launches.batched_count") == c0 + len(flat_bs.groups),
-          "count_all over the flat rung on the card did not launch the count kernel per group")
+    short_bs = BatchedSearcher(short_words, device=device)
+    got = short_bs.count_all(tiny)
+    check(np.array_equal(got, [overlapping_count(hay[:3000], w) for w in short_words]),
+          "counts over the short layout on the card differ")
+    check(counter("launches.batched_count") == c0 + len(short_bs.groups),
+          "count_all over the short layout on the card did not launch the count kernel per group")
     lengths = [0, 1, 2, 3, 5, 8, 12, 16, 17, 24, 32, 33, 40, 100, 1000]
     checks = 0
     c0 = counter("launches.batched_count")
@@ -1537,7 +1540,7 @@ def phase_count(torch, device, hay, words, i386_dh, big):
                 check(got == overlapping_count(h_bytes, nd), f"DynamicSearcher.count_in k={k} differs")
                 if k and h is tiny:
                     check(counter("launches.batched_count") == before + 1,
-                          f"count_in k={k} over the flat rung on the card did not launch the count kernel")
+                          f"count_in k={k} over the short layout on the card did not launch the count kernel")
                 checks += 1
         if k == 1:
             check(counter("launches.batched_count") > c0, "the 1-byte arm never launched the count kernel")
@@ -1552,7 +1555,7 @@ def phase_count(torch, device, hay, words, i386_dh, big):
     check(DynamicSearcher(periodic, device=device).count_in(big_dh) == exp_big[-1],
           "256 MiB corpus: periodic count differs")
     say("count", words=len(words), total_i386_matches=int(exp.sum()), host_oracle_s=round(oracle_s, 3),
-        parity=True, parity_after_optimize_for=True, flat_rung_words=len(flat_words),
+        parity=True, parity_after_optimize_for=True, short_layout_words=len(short_words),
         dynamic_lengths=lengths, dynamic_checks=checks,
         big_needles=len(needles), big_total_matches=int(exp_big.sum()))
     return bs, exp, exp_big
@@ -1562,7 +1565,7 @@ def phase_positions(torch, device, hay, words, i386_dh, big, i386_counts, big_co
     """Positions on the positions path: all words over i386 before and
     after optimize_for (rows past the sparse cap and under it, every row
     compacted on the card, no bitmap decoded on the host),
-    DynamicSearcher.positions on every arm, a flat layout on the card kept
+    DynamicSearcher.positions on every arm, a short layout on the card kept
     without host bytes, and the 256 MiB corpus's needles and periodic run;
     totals against the count phase."""
     from sliceslice_tpu_torch import BatchedSearcher, DynamicSearcher, preprocess
@@ -1611,15 +1614,14 @@ def phase_positions(torch, device, hay, words, i386_dh, big, i386_counts, big_co
 
     rng = np.random.default_rng(13)
     small = hay[100_000:106_000]            # bytes, 4096 < len <= 8192: host positions
-    tiny = preprocess(hay[:3000], keep_host=False, device=device)   # flat rung, card only
-    check(not tiny.tiled, "the 3,000-byte layout is not the flat rung")
-    flat_words = words[::15]
-    flat_exp = [_host_positions(hay[:3000], w) for w in flat_words]
+    tiny = preprocess(hay[:3000], keep_host=False, device=device)   # short, no host bytes
+    short_words = words[::15]
+    short_exp = [_host_positions(hay[:3000], w) for w in short_words]
     before = launches()
-    flat_bs = BatchedSearcher(flat_words, device=device)
-    same(flat_bs.positions_all(tiny), flat_exp, "positions over the flat rung on the card")
-    check(tuple(a - b for a, b in zip(launches(), before)) == sweep_launches(flat_bs, flat_exp),
-          "positions_all over the flat rung on the card did not launch the bitmap, rank and "
+    short_bs = BatchedSearcher(short_words, device=device)
+    same(short_bs.positions_all(tiny), short_exp, "positions over the short layout on the card")
+    check(tuple(a - b for a, b in zip(launches(), before)) == sweep_launches(short_bs, short_exp),
+          "positions_all over the short layout on the card did not launch the bitmap, rank and "
           "compaction kernels")
     lengths = [0, 1, 2, 3, 5, 8, 12, 16, 17, 24, 32, 33, 40, 100, 1000]
     checks = 0
@@ -1634,7 +1636,7 @@ def phase_positions(torch, device, hay, words, i386_dh, big, i386_counts, big_co
                       f"DynamicSearcher.positions k={k} differs")
                 if k and h is tiny:
                     check(tuple(a - b for a, b in zip(launches(), before)) == (1, 1, int(got.size > 0)),
-                          f"positions k={k} over the flat rung on the card did not launch the "
+                          f"positions k={k} over the short layout on the card did not launch the "
                           "bitmap, rank and compaction kernels")
                 checks += 1
 
@@ -1653,7 +1655,7 @@ def phase_positions(torch, device, hay, words, i386_dh, big, i386_counts, big_co
     say("positions", words=len(words), total_i386_matches=total, dense_rows=dense,
         sparse_cap=cap, sweep_bitmap_launches=made[0], sweep_rank_launches=made[1],
         sweep_compaction_launches=made[2], width_groups=len(bs.groups), parity=True, parity_after_optimize_for=True,
-        flat_rung_words=len(flat_words), dynamic_lengths=lengths, dynamic_checks=checks,
+        short_layout_words=len(short_words), dynamic_lengths=lengths, dynamic_checks=checks,
         big_needles=len(needles), big_total_matches=int(sizes.sum()),
         big_dense_rows=int((sizes > cap).sum()), host_oracle_s=round(oracle_s, 3))
     return bs, exp, exp_big
@@ -2012,7 +2014,6 @@ def sweep_bounds(torch, i386_dh, bs, pos_bs, big_end, ps, probe_setup, pos_bound
 
     def rows(searcher):
         for g in searcher.groups:
-            g.sync_host()
             lim = np.minimum(np.maximum(length - g.lengths.astype(np.int64) + 1, 0),
                              position_limit(numel, g.t))
             yield g, lim

@@ -21,14 +21,12 @@ from .ops.pairwise import PairwiseSearcher
 from .searcher import DeviceLike, resolve_device
 
 
-def haystack(
-    host_bytes, length: int, kh: int, tiled: bool, *, device: DeviceLike = "cuda"
-) -> DeviceHaystack:
+def haystack(host_bytes, length: int, kh: int, *, device: DeviceLike = "cuda") -> DeviceHaystack:
     """The port's layout of a JAX ``DeviceHaystack``: its host bytes,
-    logical ``length``, halo ``kh`` and whether it is tiled (the kernel
-    layout) or flat."""
+    logical ``length`` and halo ``kh`` (the port has one layout, whether
+    the JAX one is tiled or flat)."""
     buf = np.frombuffer(bytes(host_bytes), dtype=np.uint8)
-    return preprocess(buf, kh=kh, force_cols=tiled, length=length, device=device)
+    return preprocess(buf, kh=kh, length=length, device=device)
 
 
 def batched_searcher(

@@ -39,14 +39,7 @@ from ..ops import scan_kernel, torch_backend
 from ..ops.layout import DeviceHaystack, preprocess
 from ..ops.scan_math import table_bits
 from ..ops.transfer import to_device, to_host
-from ..searcher import (
-    DeviceLike,
-    HaystackLike,
-    _hay_bytes,
-    _host_positions,
-    overlapping_count,
-    resolve_device,
-)
+from ..searcher import DeviceLike, HaystackLike, _hay_bytes, resolve_device
 from ..utils.tracing import span
 from .huge import PREFIX_LEN, HugeNeedleSearcher
 
@@ -88,9 +81,6 @@ class _Group:
         self.masks_host = masks
         _, self.n_pad = scan_kernel.plan_block(self.n, self.t)
         self._upload_tables()
-        #: device row permutation not yet applied to the HOST copies — set
-        #: by the device-side optimizer; host readers call sync_host first.
-        self._host_perm_pending: Optional[torch.Tensor] = None
 
     @classmethod
     def from_needles(cls, indices, needles: List[bytes], t: int, device) -> "_Group":
@@ -103,24 +93,10 @@ class _Group:
         self.masks_dev = table_bits(np.pad(self.masks_host, rowpad), self.device)
         self._ends_cache: dict[int, torch.Tensor] = {}
 
-    def sync_host(self) -> None:
-        """Materialize a pending device-side row permutation into the host
-        copies (one int32[n] readback, deferred until a host consumer needs
-        row order)."""
-        if self._host_perm_pending is None:
-            return
-        perm = to_host(self._host_perm_pending[: self.n])
-        self._host_perm_pending = None
-        self.indices = self.indices[perm]
-        self.lengths = self.lengths[perm]
-        self.values_host = self.values_host[perm]
-        self.masks_host = self.masks_host[perm]
-
     def reorder(self, key: np.ndarray) -> None:
         """Permute this group's rows ascending by ``key`` (stable); padded
         rows stay at the end.  Device tables are rebuilt from the permuted
         host copies."""
-        self.sync_host()
         perm = np.argsort(key, kind="stable")
         self.indices = self.indices[perm]
         self.lengths = self.lengths[perm]
@@ -132,7 +108,6 @@ class _Group:
         """int32[n_pad] ends ``max(len - k + 1, 0)``; padded rows get 0."""
         e = self._ends_cache.get(hay_len)
         if e is None:
-            self.sync_host()
             ends = np.maximum(hay_len - self.lengths.astype(np.int64) + 1, 0)
             ends = np.pad(ends.astype(np.int32), (0, self.n_pad - self.n))
             e = to_device(ends, self.device)
@@ -189,8 +164,6 @@ class BatchedSearcher:
 
     def _rebuild_order(self) -> None:
         """Device copy of the concatenated group->input scatter order."""
-        for g in self.groups:
-            g.sync_host()
         idx = [g.indices for g in self.groups]
         order = np.concatenate(idx).astype(np.int64) if idx else np.zeros((0,), np.int64)
         self._order_dev = torch.from_numpy(order).to(self.device)
@@ -247,32 +220,16 @@ class BatchedSearcher:
         if not _allow_huge:
             self._fence_huge("find_all_device", "find_all")
         dh = self._layout(hay)
-        parts = []
-        for g in self.groups:
-            ends = g.ends_dev(dh.length)
-            if dh.tiled:
-                parts.append(
-                    scan_kernel.batched_find(
-                        dh.flat, g.values_dev, g.masks_dev, ends, n_real=g.n
-                    )
-                )
-            else:
-                parts.append(
-                    torch_backend.find_batched_flat(dh.flat, g.values_dev, g.masks_dev, ends)
-                )
+        parts = [
+            scan_kernel.batched_find(
+                dh.flat, g.values_dev, g.masks_dev, g.ends_dev(dh.length), n_real=g.n
+            )
+            for g in self.groups
+        ]
         return _scatter(len(self.needles), self._order_sizes, self._order_dev, parts)
 
     def search_all(self, hay: HaystackLike) -> np.ndarray:
         return self.find_all(hay) >= 0
-
-    def _full_scan_layout(self, dh: DeviceHaystack) -> DeviceHaystack:
-        """The layout a count or a positions scan of :meth:`_layout`'s
-        ``dh`` reads.  On the card it is always the kernel layout: a flat
-        rung there is re-laid on the card, so no full scan of the card's
-        bytes runs on the host."""
-        if dh.tiled or dh.device.type != "cuda":
-            return dh
-        return dh.kernel_layout(self._halo())
 
     def count_all_device(self, hay: HaystackLike, _allow_huge: bool = False) -> torch.Tensor:
         """Device-resident int32[N] overlapping-occurrence counts: one count
@@ -281,12 +238,7 @@ class BatchedSearcher:
         raises (use :meth:`count_all`)."""
         if not _allow_huge:
             self._fence_huge("count_all_device", "count_all")
-        dh = self._full_scan_layout(self._layout(hay))
-        if not dh.tiled:
-            raise ValueError(
-                "count_all requires a tiled layout "
-                "(preprocess with force_cols=True for short haystacks)"
-            )
+        dh = self._layout(hay)
         parts = [
             scan_kernel.batched_count(
                 dh.flat, g.values_dev, g.masks_dev, g.ends_dev(dh.length), n_real=g.n
@@ -296,23 +248,15 @@ class BatchedSearcher:
         return _scatter(len(self.needles), self._order_sizes, self._order_dev, parts)
 
     def count_all(self, hay: HaystackLike) -> np.ndarray:
-        """Overlapping occurrence count per needle (int64[N]); a flat
-        layout on the CPU counts on the host, as in the JAX package."""
+        """Overlapping occurrence count per needle (int64[N]), counted
+        where the layout lives."""
         with span("sliceslice.count_all"):
-            base = self._layout(hay)
-            dh = self._full_scan_layout(base)
-            if not dh.tiled:
-                data = dh.host_bytes
-                if data is None:
-                    raise ValueError("counting on a flat DeviceHaystack requires host bytes")
-                return np.array([overlapping_count(data, nd) for nd in self.needles], dtype=np.int64)
+            dh = self._layout(hay)  # one layout for the groups and the huge needles
             out = to_host(self.count_all_device(dh, _allow_huge=True)).astype(np.int64)
-            # A huge needle takes the layout before any re-lay: a flat rung on
-            # the card is re-laid with the halo of its dense tier.
             if self._huge:
                 with span("sliceslice.huge"):
                     for i, hs in self._huge:
-                        out[i] = hs.count_in(base)
+                        out[i] = hs.count_in(dh)
         return out
 
     def positions_all(
@@ -330,20 +274,11 @@ class BatchedSearcher:
         and dense alike, and read back as packed offsets
         (``torch_backend.two_tier_positions``).  ``sparse_cap`` is the JAX
         signature's: a negative one is refused, and it changes nothing
-        else, since no row falls back to its bitmap.  A flat layout on the
-        card is re-laid there; one elsewhere is scanned on the host, as in
-        the JAX package."""
+        else, since no row falls back to its bitmap."""
         with span("sliceslice.positions_all"):
-            base = self._layout(hay)
-            dh = self._full_scan_layout(base)
-            if not dh.tiled:
-                data = dh.host_bytes
-                if data is None:
-                    raise ValueError("positions on a flat DeviceHaystack requires host bytes")
-                return [_host_positions(data, nd) for nd in self.needles]
+            dh = self._layout(hay)
             out: List[Optional[np.ndarray]] = [None] * len(self.needles)
             for g in self.groups:
-                g.sync_host()  # indices in the device tables' row order
                 ends = g.ends_dev(dh.length)
                 batches = torch_backend.position_batches(g.n, dh.flat.numel(), g.t, batch)
                 for i0, i1 in batches:
@@ -356,7 +291,7 @@ class BatchedSearcher:
             if self._huge:
                 with span("sliceslice.huge"):
                     for i, hs in self._huge:
-                        out[i] = hs.positions(base)
+                        out[i] = hs.positions(dh)
         return out  # type: ignore[return-value]
 
     def optimize_for(
@@ -367,53 +302,19 @@ class BatchedSearcher:
         needles that finish together sit together.  Results are exact in
         any row order — only scheduling changes.
 
-        ``firsts``: offsets from a prior :meth:`find_all` (-1 absent); the
-        reschedule is then a host permute plus an upload.  Omitted, one
-        measuring sweep runs and the schedule is applied on the device with
-        no readback (the host copies sync lazily).  Returns self."""
+        ``firsts``: offsets from a prior :meth:`find_all` (-1 absent).
+        Omitted, one measuring sweep (:meth:`find_all`) runs and its firsts
+        are read back once.  Either way the rows are permuted on the host
+        copies and each group's tables are uploaded again.  Returns self."""
         if firsts is None:
-            dh = self._layout(hay)
-            if dh.tiled and not self._huge and self.groups:
-                self._apply_schedule_device(self.find_all_device(dh))
-                return self
             firsts = self.find_all(hay)
-        self._apply_schedule(np.asarray(firsts))
-        return self
-
-    def _apply_schedule_device(self, firsts: torch.Tensor) -> None:
-        """Device-side reschedule from a device-resident measuring sweep:
-        per group, gather the firsts through the scatter order, stable
-        argsort (SENTINEL-absent rows sort last, as on the host path), and
-        permute the real rows of values/masks and every cached ends vector;
-        padded rows stay in place."""
         self._epoch += 1
-        off = 0
-        new_order = []
-        for g, sz in zip(self.groups, self._order_sizes):
-            idx = self._order_dev[off : off + sz]
-            off += sz
-            p = torch.argsort(firsts[idx], stable=True)
-            new_order.append(idx[p])
-            # In place: the tables and cached ends are this searcher's own.
-            g.values_dev[:sz] = g.values_dev[:sz][p]
-            g.masks_dev[:sz] = g.masks_dev[:sz][p]
-            for e in g._ends_cache.values():
-                e[:sz] = e[:sz][p]
-            # Compose with any earlier un-synced device permutation:
-            # host rows A, device rows A[p1][p2] = A[p1[p2]].
-            pending = g._host_perm_pending
-            g._host_perm_pending = p if pending is None else pending[p]
-        if new_order:
-            self._order_dev = torch.cat(new_order)
-
-    def _apply_schedule(self, firsts: np.ndarray) -> None:
-        """Host-path reschedule from measured first offsets."""
-        self._epoch += 1
+        firsts = np.asarray(firsts)
         key = np.where(firsts < 0, np.iinfo(np.int64).max, firsts)
         for g in self.groups:
-            g.sync_host()  # indices must be current before keying
             g.reorder(key[g.indices])
         self._rebuild_order()
+        return self
 
 
 def _scatter(n: int, sizes: tuple, order: torch.Tensor, parts: list) -> torch.Tensor:

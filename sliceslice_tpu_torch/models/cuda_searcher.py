@@ -3,12 +3,10 @@
 package's ``PallasSearcher``.
 
 Like the reference's per-haystack-length ladder (src/x86.rs:361-375),
-``CudaSearcher`` dispatches on haystack size: trivial lengths short-circuit,
-haystacks on the flat rung take plain torch ops, and longer haystacks run
-the find kernel with a one-row probe table.  ``count_in`` runs the count
-kernel with the same table on the kernel layout; a flat rung on the card
-is re-laid there first, and a flat rung on the CPU counts on the host, as
-the JAX package does.
+``CudaSearcher`` short-circuits trivial haystack lengths; every other
+haystack, short or long, runs the find kernel with a one-row probe table
+over the one layout.  ``count_in`` runs the count kernel with the same
+table, where the layout lives.
 
 ``Searcher2`` .. ``Searcher16`` are the analogue of the reference's
 const-specialized N2..N16 arms (src/x86.rs:411-439): each pins its needle
@@ -20,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..needle import probe_program
-from ..ops import scan_kernel, torch_backend
+from ..ops import scan_kernel
 from ..ops.layout import DeviceHaystack
 from ..searcher import SearcherBase
 
@@ -44,16 +42,12 @@ class CudaSearcher(SearcherBase):
     def _find_device(self, dh: DeviceHaystack):
         k = self.needle.size
         end = dh.length - k + 1
-        if not dh.tiled:
-            return torch_backend.find_flat(dh.flat, self._values[0], self._masks[0], end)
         dh = dh.ensure_kh(k)
         return scan_kernel.batched_find(
             dh.flat, self._values, self._masks, np.asarray([end], np.int32)
         )[0]
 
     def _count_device(self, dh: DeviceHaystack):
-        if not dh.tiled:
-            raise NotImplementedError  # flat layout on the CPU: the host count applies
         k = self.needle.size
         end = dh.length - k + 1
         dh = dh.ensure_kh(k)

@@ -18,8 +18,8 @@ in the kernel with a table whose width grows with the needle; past
   shifted and ANDed on the device.  Identical chunks share one bitmap row.
 
 A haystack handed over as host bytes of at most ``max(SHORT_HAY_BYTES, k)``
-bytes, or a flat layout off the card, is scanned on the host (``hostscan``),
-as in the JAX package; a flat layout on the card is re-laid there.
+bytes is scanned on the host (``hostscan``), as in the JAX package; a
+``DeviceHaystack`` of any length is searched where it lives.
 """
 
 from __future__ import annotations
@@ -94,19 +94,10 @@ class HugeNeedleSearcher(SearcherBase):
     # -- candidate machinery --------------------------------------------------
 
     def _as_layout(self, hay: HaystackLike):
-        """(kernel layout | None, host bytes | None): None for the layout
-        means the host scans the bytes."""
+        """(layout | None, host bytes | None): None for the layout means
+        the host scans the bytes."""
         if isinstance(hay, DeviceHaystack):
-            if hay.tiled:
-                return hay, hay.host_bytes
-            if hay.device.type == "cuda":
-                return hay.kernel_layout(needed_halo_for_t(CHUNK // 4)), hay.host_bytes
-            if hay.host_bytes is None:
-                raise ValueError(
-                    "huge-needle search on a flat DeviceHaystack requires "
-                    "host bytes (preprocess with keep_host=True)"
-                )
-            return None, hay.host_bytes
+            return hay, hay.host_bytes
         data = _hay_bytes(hay)
         if len(data) <= max(SHORT_HAY_BYTES, len(self._full)):
             return None, data

@@ -8,7 +8,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..needle import probe_program
-from ..ops import scan_kernel, torch_backend
+from ..ops import scan_kernel
 from ..ops.layout import DeviceHaystack
 from ..searcher import SearcherBase
 
@@ -23,15 +23,9 @@ class MemchrSearcher(SearcherBase):
         self._byte = self.needle.data[0]
 
     def _find_device(self, dh: DeviceHaystack):
-        end = dh.length  # end = len - k + 1 with k = 1
-        if not dh.tiled:
-            vals, msks = probe_program(self.needle.data)
-            return torch_backend.find_flat(dh.flat, vals, msks, end)
-        return scan_kernel.memchr_find(dh.flat, self._byte, end)
+        return scan_kernel.memchr_find(dh.flat, self._byte, dh.length)  # end = len - k + 1, k = 1
 
     def _count_device(self, dh: DeviceHaystack):
-        if not dh.tiled:
-            raise NotImplementedError  # flat layout on the CPU: the host count applies
         vals, msks = probe_program(self.needle.data)
         return scan_kernel.batched_count(
             dh.flat,

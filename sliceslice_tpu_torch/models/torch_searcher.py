@@ -29,14 +29,10 @@ class TorchSearcher(SearcherBase):
     def _find_device(self, dh: DeviceHaystack):
         k = self.needle.size
         end = dh.length - k + 1
-        if not dh.tiled:
-            return torch_backend.find_flat(dh.flat, self._values, self._masks, end)
         dh = dh.ensure_kh(k)
         return torch_backend.find_cols(dh.flat, self._values, self._masks, end)
 
     def _count_device(self, dh: DeviceHaystack):
-        if not dh.tiled:
-            raise NotImplementedError  # flat layout on the CPU: the host count applies
         k = self.needle.size
         dh = dh.ensure_kh(k)
         return torch_backend.count_cols(dh.flat, self._values, self._masks, dh.length - k + 1)

@@ -11,9 +11,9 @@ layout and nothing else:
   (``kh`` >= ``needed_halo_for_t(t)`` for every probe table searched over
   it), rounded up to a multiple of :data:`ALIGN` bytes so that word and
   16-byte loads never leave the buffer;
-* haystacks of at most :data:`SHORT_HAY_BYTES` bytes take the flat rung: a
-  power-of-two buffer searched with plain torch ops, exactly as the JAX
-  package searches its flat layout;
+* every haystack takes this one layout, from 0 bytes up: the JAX
+  package's flat rung for short haystacks serves the minimum size of its
+  TPU tiles, which this layout does not have;
 * a single layout keeps every position inside int32.
 """
 
@@ -29,7 +29,9 @@ import torch
 MIN_KH = 3
 #: Default halo supports needles up to 64 bytes without relayout.
 DEFAULT_KH = 64
-#: Haystacks at or below this many bytes use the flat (plain torch) rung.
+#: Host bytes of at most this many bytes handed to a single-needle
+#: searcher's ``count_in`` or ``positions`` are scanned on the host (the
+#: JAX package's threshold, kept as that policy only: it picks no layout).
 SHORT_HAY_BYTES = 8192
 #: Buffer sizes are multiples of this many bytes (the kernels' 16-byte
 #: loads and word pairs stay inside the buffer).
@@ -58,19 +60,10 @@ def round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def next_pow2(x: int) -> int:
-    p = 1
-    while p < x:
-        p *= 2
-    return p
-
-
-def padded_total(length: int, kh: int, force_cols: bool = False) -> int:
+def padded_total(length: int, kh: int) -> int:
     """Buffer bytes of the layout :func:`preprocess` builds for a corpus of
-    ``length`` bytes: a power of two (at least 128) on the flat rung, else
-    the corpus plus its rounded halo plus one aligned block of slack."""
-    if length <= SHORT_HAY_BYTES and not force_cols:
-        return max(128, next_pow2(length))
+    ``length`` bytes: the corpus plus its rounded halo plus one aligned
+    block of slack."""
     kh_r = round_up(max(kh, MIN_KH), 32)
     return round_up(length + kh_r, ALIGN) + ALIGN
 
@@ -85,11 +78,9 @@ class DeviceHaystack:
     kh: int
     #: uint8 (padded_total,) on ``device``; bytes past ``length`` are zero.
     flat: torch.Tensor
-    #: False for the flat short-haystack rung, True for the kernel layout.
-    tiled: bool
     host_bytes: Optional[bytes] = None
-    #: one-slot cache for ensure_halo rebuilds: repeated calls reuse one
-    #: widened layout instead of re-uploading the corpus per call.
+    #: one-slot cache for ensure_halo re-lays: repeated calls reuse one
+    #: widened layout instead of copying the corpus per call.
     _rehalo: Optional["DeviceHaystack"] = dataclasses.field(
         default=None, repr=False, compare=False
     )
@@ -97,16 +88,16 @@ class DeviceHaystack:
     @classmethod
     def from_buffer(cls, flat: torch.Tensor, length: int, kh: int,
                     host_bytes: Optional[bytes] = None) -> "DeviceHaystack":
-        """The kernel layout of a ``length``-byte corpus that already lies
-        in ``flat``, with no copy and no allocation: ``flat`` is uint8 of
-        ``padded_total(length, kh, force_cols=True)`` bytes, and its bytes
-        past ``length`` must be zero (a streamed window in a pooled
+        """The layout of a ``length``-byte corpus that already lies in
+        ``flat``, with no copy and no allocation: ``flat`` is uint8 of
+        ``padded_total(length, kh)`` bytes, and its bytes past ``length``
+        must be zero (a streamed window in a pooled
         buffer, utils/streaming.py)."""
         kh = round_up(max(kh, MIN_KH), 32)
-        total = padded_total(length, kh, force_cols=True)
+        total = padded_total(length, kh)
         if flat.dtype != torch.uint8 or flat.dim() != 1 or flat.numel() != total:
-            raise ValueError(f"a {length}-byte kernel layout takes a 1-D uint8 buffer of {total} bytes")
-        return cls(length=length, kh=kh, flat=flat, tiled=True, host_bytes=host_bytes)
+            raise ValueError(f"a {length}-byte layout takes a 1-D uint8 buffer of {total} bytes")
+        return cls(length=length, kh=kh, flat=flat, host_bytes=host_bytes)
 
     @property
     def device(self) -> torch.device:
@@ -118,19 +109,18 @@ class DeviceHaystack:
         return needed_halo(k) <= self.kh
 
     def ensure_halo(self, min_kh: int) -> "DeviceHaystack":
-        """Return a layout with at least ``min_kh`` halo bytes — this one
-        when it suffices, else a rebuilt layout from the host bytes (cached
-        on this object, so repeated sweeps reuse ONE widened layout)."""
-        if not self.tiled or self.kh >= min_kh:
+        """Return a layout with at least ``min_kh`` halo bytes: this one
+        when it suffices, else this one re-laid on its own device from its
+        device bytes, with no host copy (cached on this object, so repeated
+        sweeps reuse ONE widened layout)."""
+        if self.kh >= min_kh:
             return self
         if self._rehalo is not None and self._rehalo.kh >= min_kh:
             return self._rehalo
-        if self.host_bytes is None:
-            raise ValueError(
-                f"layout halo kh={self.kh} < required {min_kh} and no host "
-                "bytes retained to rebuild; preprocess with a larger kh"
-            )
-        self._rehalo = preprocess(self.host_bytes, kh=min_kh, device=self.device)
+        kh = round_up(max(min_kh, MIN_KH), 32)
+        flat = torch.zeros((padded_total(self.length, kh),), dtype=torch.uint8, device=self.device)
+        flat[: self.length] = self.flat[: self.length]
+        self._rehalo = DeviceHaystack(self.length, kh, flat, self.host_bytes)
         return self._rehalo
 
     def ensure_kh(self, k: int) -> "DeviceHaystack":
@@ -138,24 +128,6 @@ class DeviceHaystack:
         from ..needle import needed_halo
 
         return self.ensure_halo(needed_halo(k))
-
-    def kernel_layout(self, min_kh: int) -> "DeviceHaystack":
-        """This haystack in the kernel layout with at least ``min_kh`` halo
-        bytes.  A flat rung is re-laid on its own device from its device
-        bytes, with no host copy, and cached in the slot of
-        :meth:`ensure_halo`: the count kernel reads a flat rung on the card
-        this way."""
-        if self.tiled:
-            return self.ensure_halo(min_kh)
-        if self._rehalo is not None and self._rehalo.kh >= min_kh:
-            return self._rehalo
-        kh = round_up(max(min_kh, MIN_KH), 32)
-        flat = torch.zeros(
-            (padded_total(self.length, kh, force_cols=True),), dtype=torch.uint8, device=self.device
-        )
-        flat[: self.length] = self.flat[: self.length]
-        self._rehalo = DeviceHaystack(self.length, kh, flat, True, self.host_bytes)
-        return self._rehalo
 
 
 def preprocess(
@@ -171,14 +143,15 @@ def preprocess(
     caller passes ``device="cpu"``).  O(len) once, amortized over all
     later searches.
 
-    ``force_cols``: take the kernel layout even at or below
-    :data:`SHORT_HAY_BYTES` (the name of the JAX package's switch).
+    ``force_cols``: accepted for the JAX package's callers and has no
+    effect, since every haystack takes the one layout (in the JAX package
+    it forces its tiled layout on a short haystack).
 
     ``length``: logical corpus length when ``hay`` is an ndarray LONGER
     than it (a caller-padded buffer).
 
-    ``keep_host``: retain the host bytes, which :meth:`DeviceHaystack.
-    ensure_halo` and the trivial-length rules of the searchers read."""
+    ``keep_host``: retain the host bytes, which the trivial-length rules
+    and host verify steps of the searchers read."""
     if isinstance(hay, np.ndarray):
         if hay.dtype != np.uint8:
             raise TypeError(f"haystack ndarray must be uint8, got {hay.dtype}")
@@ -195,8 +168,7 @@ def preprocess(
         arr = np.frombuffer(data, dtype=np.uint8)
     device = resolve_device(device)
     kh = round_up(max(kh, MIN_KH), 32)
-    tiled = not (length <= SHORT_HAY_BYTES and not force_cols)
-    total = padded_total(length, kh, force_cols)
+    total = padded_total(length, kh)
     if total > MAX_DEVICE_POSITIONS:
         raise ValueError(
             f"haystack of {length} bytes exceeds the int32 position range of "
@@ -209,4 +181,4 @@ def preprocess(
         host = data if data is not None else arr[:length].tobytes()
     else:
         host = None
-    return DeviceHaystack(length=length, kh=kh, flat=flat, tiled=tiled, host_bytes=host)
+    return DeviceHaystack(length=length, kh=kh, flat=flat, host_bytes=host)

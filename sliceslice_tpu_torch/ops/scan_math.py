@@ -2,7 +2,7 @@
 torch ops.
 
 The single source of the probe evaluation for every plain (non-kernel)
-path of the port: the flat rung, ``TorchSearcher`` and the plain versions
+path of the port: ``TorchSearcher`` and the plain versions
 of the CUDA find, count, match-bitmap and ablation kernels.  Counterpart
 of ``sliceslice_tpu/ops/scan_math.py``.
 

@@ -256,7 +256,7 @@ def local_shard_rows(local_bytes: BytesLike, peek: BytesLike, shard_bytes: int, 
     local = np.frombuffer(memoryview(local_bytes).cast("B"), dtype=np.uint8)
     pk = np.frombuffer(memoryview(peek).cast("B"), dtype=np.uint8)
     kh = round_up(max(kh, MIN_KH), 32)
-    total = padded_total(shard_bytes, kh, force_cols=True)
+    total = padded_total(shard_bytes, kh)
     if local.size > rows * shard_bytes:
         raise ValueError(f"local range of {local.size} bytes exceeds rows * shard_bytes = {rows * shard_bytes}")
     for i in range(rows):
@@ -343,7 +343,7 @@ def assemble_global_corpus(
         raise ValueError("every process must pass the same shard_bytes")
     if shard_bytes <= 0 or shard_bytes % ALIGN:
         raise ValueError(f"shard_bytes={shard_bytes} is not a positive multiple of {ALIGN}")
-    if padded_total(shard_bytes, kh, force_cols=True) > MAX_DEVICE_POSITIONS:
+    if padded_total(shard_bytes, kh) > MAX_DEVICE_POSITIONS:
         raise ValueError(
             f"shard of {shard_bytes} bytes exceeds the int32 device-offset range; "
             "use more data-axis shards (or smaller shards)")

@@ -95,8 +95,7 @@ def shard_bytes_for(length: int, n_data: int) -> int:
 
 def place_corpus(corpus, mesh: Mesh) -> Placement:
     """The shards of ``corpus`` on this process's cells of ``mesh``.  A
-    ``DeviceHaystack`` is cut into views of its layout (a flat rung is
-    re-laid in the kernel layout first, cached on it; a cell on another
+    ``DeviceHaystack`` is cut into views of its layout (a cell on another
     device takes a copy); a ``GlobalCorpus`` must have been assembled for
     this mesh."""
     n_data = mesh.shape[DATA_AXIS]
@@ -106,20 +105,19 @@ def place_corpus(corpus, mesh: Mesh) -> Placement:
         return Placement(corpus.length, corpus.kh, corpus.shard_bytes, n_data, corpus.shards.buffers)
     if not isinstance(corpus, DeviceHaystack):
         raise TypeError(f"a sharded scan takes a DeviceHaystack or a GlobalCorpus, not {type(corpus).__name__}")
-    dh = corpus if corpus.tiled else corpus.kernel_layout(corpus.kh)
-    sb = shard_bytes_for(dh.length, n_data)
-    span = padded_total(sb, dh.kh, force_cols=True)
+    sb = shard_bytes_for(corpus.length, n_data)
+    span = padded_total(sb, corpus.kh)
     if span > MAX_DEVICE_POSITIONS:
         raise ValueError(f"shard of {sb} bytes exceeds the int32 device-offset range; "
                          "use more data-axis shards (or smaller shards)")
     shards = {}
     for d, _, dev in mesh.local_cells():
         lo = d * sb
-        if lo >= dh.length or (d, dev) in shards:
+        if lo >= corpus.length or (d, dev) in shards:
             continue  # a pad shard: every position lies past every needle's end
-        view = dh.flat[lo:min(lo + span, dh.flat.numel())]
-        shards[(d, dev)] = view if dev == dh.device else view.to(dev)
-    return Placement(dh.length, dh.kh, sb, n_data, shards)
+        view = corpus.flat[lo:min(lo + span, corpus.flat.numel())]
+        shards[(d, dev)] = view if dev == corpus.device else view.to(dev)
+    return Placement(corpus.length, corpus.kh, sb, n_data, shards)
 
 
 def _tables(values, masks, device: torch.device):
@@ -363,7 +361,6 @@ class ShardedBatchedSearcher:
             place = place_corpus(corpus, self.mesh)
             cells = []
             for g in self.inner.groups:
-                g.sync_host()  # lengths in the device tables' row order
                 ends = np.maximum(np.int64(corpus.length) - g.lengths.astype(np.int64) + 1, 0)
                 cells.append(cells_of(place, self.mesh, g.values_dev[:g.n], g.masks_dev[:g.n], ends))
             self._placed_corpus[key] = (weakref.ref(corpus), place, cells)
@@ -544,7 +541,7 @@ class ShardedBatchedSearcher:
 
         kh = needed_halo_for_t(CHUNK // 4)
         step = own_hi - own_lo
-        if padded_total(step + k, kh, force_cols=True) > MAX_DEVICE_POSITIONS:
+        if padded_total(step + k, kh) > MAX_DEVICE_POSITIONS:
             step = shard_bytes
         view = np.frombuffer(memoryview(data).cast("B"), dtype=np.uint8)
         pk = np.frombuffer(memoryview(peek).cast("B"), dtype=np.uint8)
@@ -555,7 +552,7 @@ class ShardedBatchedSearcher:
             body = view[a:min(b, view.size)]
             if b > view.size:
                 body = np.concatenate([body, pk[:b - view.size]])
-            pieces.append((lo, hi, layout_mod.preprocess(body, kh=kh, force_cols=True, device=self.mesh.home)))
+            pieces.append((lo, hi, layout_mod.preprocess(body, kh=kh, device=self.mesh.home)))
         return pieces
 
     def _fill_huge(self, out: np.ndarray, corpus, mode: str) -> np.ndarray:
@@ -612,7 +609,7 @@ class ShardedBatchedSearcher:
         ``firsts`` is not given; the epoch bump invalidates the cache."""
         if firsts is None:
             firsts = self.find_all(hay)
-        self.inner._apply_schedule(np.asarray(firsts))
+        self.inner.optimize_for(hay, firsts)
         return self
 
     def search_all(self, hay) -> np.ndarray:

@@ -32,9 +32,9 @@ import numpy as np
 KS = [1, 2, 3, 4, 5, 6, 7, 8, 9, 12, 16, 17, 24, 33, 64]
 
 #: (corpus bytes, preprocess arguments): the JAX campaign's sizes.  The
-#: first takes the flat rung (plain torch ops), the others the kernel
-#: layout; the last two hold more than one chunk of the find kernel's work
-#: queue.
+#: first two are its flat rung and its forced tiled layout, which the port
+#: lays out alike; the last two hold more than one chunk of the find
+#: kernel's work queue.
 LAYOUTS = [
     (4096, {}),
     (4096, {"force_cols": True}),
@@ -48,13 +48,11 @@ MESHES = [(4, 1), (2, 2)]
 def queue_boundary(dh, k: int) -> int:
     """Byte offset of the first boundary between work items of the find
     kernel's queue over ``dh`` for a needle of ``k`` bytes (one row: the
-    chunk doubles only past 2^31 items); ``dh.length`` on the flat rung,
-    which has no queue."""
+    chunk doubles only past 2^31 items).  It lies past the corpus's end
+    when the layout is shorter than one chunk."""
     from sliceslice_tpu_torch.needle import num_probes
     from sliceslice_tpu_torch.ops.scan_kernel import FIND_CHUNK, plan_queue
 
-    if not dh.tiled:
-        return dh.length
     return plan_queue(dh.flat.numel(), num_probes(k), 1, 1, FIND_CHUNK).chunk
 
 
@@ -252,7 +250,7 @@ def fuzz_sharded(rounds: int, rng, device) -> tuple:
         L = int(rng.integers(60_000, 250_000))
         lo, hi = (97, 103) if rnd % 2 else (0, 256)
         hay = rng.integers(lo, hi, L, dtype=np.uint8).tobytes()
-        dh = preprocess(hay, kh=32, force_cols=True, device=device)
+        dh = preprocess(hay, kh=32, device=device)
         needles = gen_needles(hay, 1, rng, shard_bytes_for(L, MESHES[0][0]))[:24]
         exp_find = np.array([hay.find(w) for w in needles])
         for shape in MESHES:

@@ -39,7 +39,6 @@ def find_bound(bs, dh, firsts) -> tuple:
     numel = dh.flat.numel()
     ops = nbytes = 0
     for g in bs.groups:
-        g.sync_host()
         lim = np.minimum(np.maximum(dh.length - g.lengths.astype(np.int64) + 1, 0), position_limit(numel, g.t))
         f = np.asarray(firsts)[g.indices]
         ops += int(np.where(f >= 0, np.minimum(f + 1, lim), lim).sum())

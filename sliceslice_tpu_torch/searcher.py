@@ -119,38 +119,31 @@ class SearcherBase:
 
     def count_in(self, hay: HaystackLike) -> int:
         """Number of OVERLAPPING occurrences of the needle (the JAX
-        package's extension of the reference's bool ``search_in``).  A
-        layout on the card is counted on the card, a flat rung re-laid
-        there into the kernel layout.  Elsewhere a searcher without a
-        device count (``_count_device`` raises ``NotImplementedError``),
-        and any flat layout, counts on the host, as in the JAX package."""
+        package's extension of the reference's bool ``search_in``), counted
+        where the layout lives.  Host bytes of at most ``SHORT_HAY_BYTES``,
+        and any haystack of a searcher without a device count
+        (``_count_device`` raises ``NotImplementedError``), count on the
+        host, as in the JAX package."""
         k = self.needle.size
         if isinstance(hay, DeviceHaystack):
             if hay.length <= k:
                 return self._trivial_count(hay.host_bytes, k)
-            if hay.device.type == "cuda":
-                return int(self._count_device(hay.kernel_layout(needed_halo(k))))
-            if hay.tiled:
-                try:
-                    return int(self._count_device(hay))
-                except NotImplementedError:
-                    pass
-            data = hay.host_bytes
+            dh, data = hay, hay.host_bytes
+        else:
+            data = _hay_bytes(hay)
+            if len(data) <= k:
+                return self._trivial_count(data, k)
+            if len(data) <= SHORT_HAY_BYTES:
+                return overlapping_count(data, self.needle.data)
+            dh = self._layout(data)
+        try:
+            return int(self._count_device(dh))
+        except NotImplementedError:
             if data is None:
                 raise ValueError(
                     "counting on this DeviceHaystack requires host bytes "
                     "(preprocess with keep_host=True)"
-                )
-            return overlapping_count(data, self.needle.data)
-        data = _hay_bytes(hay)
-        if len(data) <= k:
-            return self._trivial_count(data, k)
-        if len(data) <= SHORT_HAY_BYTES:
-            return overlapping_count(data, self.needle.data)
-        dh = self._layout(data)
-        try:
-            return int(self._count_device(dh))
-        except NotImplementedError:
+                ) from None
             return overlapping_count(data, self.needle.data)
 
     def positions(self, hay: HaystackLike) -> np.ndarray:
@@ -161,13 +154,12 @@ class SearcherBase:
         there and read back packed, however many there are
         (``torch_backend.two_tier_positions``; the JAX package reads a
         needle of more than ``SPARSE_POSITIONS_CAP`` matches back as its
-        bitmap, the port does not).  Host bytes
-        of at most ``SHORT_HAY_BYTES`` are scanned on the host, as are a
-        flat layout and a trivially short haystack off the card; a flat
-        layout on the card is re-laid there (``kernel_layout``)."""
+        bitmap, the port does not).  Host bytes of at most
+        ``SHORT_HAY_BYTES`` are scanned on the host, as is a haystack no
+        longer than the needle."""
         k = self.needle.size
         if isinstance(hay, DeviceHaystack):
-            if hay.length <= k or not (hay.tiled or hay.device.type == "cuda"):
+            if hay.length <= k:
                 data = hay.host_bytes
                 if data is None:
                     raise ValueError(
@@ -175,7 +167,7 @@ class SearcherBase:
                         "bytes (preprocess with keep_host=True)"
                     )
                 return _host_positions(data, self.needle.data)
-            dh = hay.kernel_layout(needed_halo(k))
+            dh = hay.ensure_kh(k)
         else:
             data = _hay_bytes(hay)
             if len(data) <= SHORT_HAY_BYTES:

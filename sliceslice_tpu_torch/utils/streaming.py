@@ -203,7 +203,7 @@ class StreamingScanner:
         self._kh = bs._halo()
         if bs._huge:
             self._kh = max(self._kh, needed_halo_for_t(CHUNK // 4))
-        self._buf_total = padded_total(self._wcap, self._kh, force_cols=True)
+        self._buf_total = padded_total(self._wcap, self._kh)
         if self._buf_total > MAX_DEVICE_POSITIONS:
             raise ValueError(
                 f"a window of {self._wcap} bytes exceeds the int32 position range of one layout"
@@ -313,7 +313,6 @@ class StreamingScanner:
         0) for one width group: positions in [0, window) — the overlap
         peek belongs to the next window — except in the final window,
         where the stream's true end applies."""
-        grp.sync_host()  # a device-side reorder may not be materialized
         lens = grp.lengths.astype(np.int64)
         end_local = wlen - lens + 1 if is_last else np.minimum(self.window, wlen - lens + 1)
         ends = np.maximum(end_local, 0).astype(np.int32)

@@ -2,9 +2,9 @@
 
 The classic pathological families (periodic haystacks that make every
 position a candidate, near misses, a match only at the end, runs shorter
-than the needle) through the port's ``DynamicSearcher`` (the flat rung and
+than the needle) through the port's ``DynamicSearcher`` (a short layout and
 the host rung, at every ``position``) and ``BatchedSearcher`` over the
-kernel layout, on the CPU (the kernels' plain versions), each held to the
+layout, on the CPU (the kernels' plain versions), each held to the
 JAX package's answer on the same input and to ``naive_find``.  Exact."""
 
 import numpy as np
@@ -37,7 +37,7 @@ def test_pathological_exactness_flat(hay, nd):
     for p in (0, len(nd) // 2, len(nd) - 1):
         got = DynamicSearcher.with_position(nd, p, device=CPU).find(hay)
         assert got == exp == jst.DynamicSearcher.with_position(nd, p).find(hay), (nd[:8], p)
-        dh = preprocess(hay, device=CPU)  # the flat rung on the device, not the host rung
+        dh = preprocess(hay, device=CPU)  # a short layout on the device, not the host rung
         assert DynamicSearcher.with_position(nd, p, device=CPU).find(dh) == exp
 
 

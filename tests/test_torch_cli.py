@@ -246,7 +246,7 @@ def test_map_file_and_load_haystack(tmp_path):
     assert tio.map_file(p).tobytes() == jio.map_file(p).tobytes() == body
     dh = tio.load_haystack(p, kh=100, device=CPU)
     jdh = jio.load_haystack(p, kh=100)
-    assert dh.device.type == "cpu" and dh.tiled == jdh.tiled and dh.host_bytes == body
+    assert dh.device.type == "cpu" and dh.host_bytes == body
     assert (dh.length, dh.kh) == (jdh.length, jdh.kh)
     assert bytes(dh.flat[: dh.length].numpy()) == body
     assert tio.load_haystack(p, keep_host=False, device=CPU).host_bytes is None

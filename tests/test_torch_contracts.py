@@ -113,8 +113,7 @@ def test_state_size_pinning():
     """The port's device state: each width group's tables are int32, 8
     bytes per (needle, probe slot) plus block padding, in the JAX package's
     group shapes; a layout is one flat uint8 tensor of the corpus, its
-    rounded halo and one aligned block of slack (a power of two on the
-    flat rung)."""
+    rounded halo and one aligned block of slack, at every length."""
     needles = [b"ab", b"abcde", b"abcdefghij", b"x" * 33]
     bs = BatchedSearcher(needles, device=CPU)
     jbs = jst.BatchedSearcher(needles)
@@ -132,7 +131,7 @@ def test_state_size_pinning():
     assert dh.flat.numel() == round_up(200_000 + 32, ALIGN) + ALIGN == 200_192
     assert dh.flat.numel() / len(data) < 1.001  # ~1 byte per corpus byte (JAX: ~5)
     assert preprocess(data, kh=100, device=CPU).flat.numel() == round_up(200_000 + 128, ALIGN) + ALIGN
-    assert preprocess(data[:300], device=CPU).flat.numel() == 512  # the flat rung
+    assert preprocess(data[:300], device=CPU).flat.numel() == round_up(300 + 64, ALIGN) + ALIGN == 512
     tensors = [f for f in vars(dh).values() if isinstance(f, torch.Tensor)]
     assert len(tensors) == 1  # the layout holds no other device state
 

@@ -233,48 +233,49 @@ def test_count_all_words_matches_jax(words, i386_small, rng):
     assert np.array_equal(got, ref) and np.array_equal(got, exp)
     dev = bs.count_all_device(dh)
     assert dev.dtype == torch.int32 and dev.shape == (len(needles),)
-    bs.optimize_for(dh)  # reschedules rows on the device; counts unchanged
-    assert any(g._host_perm_pending is not None for g in bs.groups)
+    firsts = bs.find_all(dh)
+    bs.optimize_for(dh)  # reorders the rows on the host and uploads them; counts unchanged
+    key = np.where(firsts < 0, np.iinfo(np.int64).max, firsts)
+    assert bs._epoch == 1 and all(np.all(np.diff(key[g.indices]) >= 0) for g in bs.groups)
     assert np.array_equal(bs.count_all(dh), exp)
     assert np.array_equal(bs.count_all(i386_small), exp)
 
 
 def test_count_all_flat_rung_and_errors(rng):
+    """Where the JAX package takes its flat rung, the port counts the one
+    layout with the count kernel's plain version, with or without host
+    bytes; a layout shorter than the needle still needs its host bytes."""
     hay = bytes(rng.integers(97, 101, (3000,), dtype=np.uint8))
     needles = [b"ab", b"", hay[5:9], b"zz"]
     exp = [oracle_count(hay, nd) for nd in needles]
     bs = BatchedSearcher(needles, device=CPU)
-    assert bs.count_all(hay).tolist() == exp  # flat layout: host count
+    assert bs.count_all(hay).tolist() == exp
     assert bs.count_all(hay).tolist() == jst.BatchedSearcher(needles).count_all(hay).tolist()
     assert bs.count_all(preprocess(hay, force_cols=True, device=CPU)).tolist() == exp
-    with pytest.raises(ValueError, match="tiled layout"):
-        bs.count_all_device(hay)
+    assert bs.count_all_device(hay).tolist() == exp
     bare = preprocess(hay, keep_host=False, device=CPU)
-    with pytest.raises(ValueError, match="requires host bytes"):
-        bs.count_all(bare)
-    with pytest.raises(ValueError, match="requires host bytes"):
-        DynamicSearcher(b"ab", device=CPU).count_in(bare)
+    assert bs.count_all(bare).tolist() == exp  # the JAX package needs host bytes here
+    assert DynamicSearcher(b"ab", device=CPU).count_in(bare) == exp[0]
     with pytest.raises(ValueError, match="requires host bytes"):
         CudaSearcher(b"abcd", device=CPU).count_in(preprocess(b"abc", keep_host=False, device=CPU))
     assert BatchedSearcher([], device=CPU).count_all(preprocess(hay, force_cols=True, device=CPU)).shape == (0,)
 
 
-def test_kernel_layout_relays_the_flat_rung_on_its_device(rng):
-    """The re-lay a flat rung on the card takes before it is counted: the
-    kernel layout built from the device bytes alone, cached, and counted
-    with no host bytes by every searcher."""
+def test_short_layout_without_host_bytes_counted_by_every_searcher(rng):
+    """A 3,000-byte layout kept without host bytes is counted where it
+    lives by every searcher, its halo widened from the device bytes alone
+    (cached) where a needle needs more than it has."""
     hay = bytes(rng.integers(97, 101, (3000,), dtype=np.uint8))
-    flat = preprocess(hay, keep_host=False, device=CPU)
-    assert not flat.tiled
-    kl = flat.kernel_layout(40)
-    assert kl.tiled and kl.kh >= 40 and kl.device == flat.device and kl.host_bytes is None
-    assert torch.equal(kl.flat, preprocess(hay, kh=40, force_cols=True, device=CPU).flat)
-    assert flat.kernel_layout(16) is kl and kl.kernel_layout(16) is kl
-    needles = [b"ab", hay[5:9], b"zz", hay[-7:], hay[-2:] + b"\0", hay[100:140]]
+    bare = preprocess(hay, keep_host=False, device=CPU)
+    assert bare.host_bytes is None and bare.kh == 64
+    assert torch.equal(bare.flat, preprocess(hay, device=CPU).flat)
+    needles = [b"ab", hay[5:9], b"zz", hay[-7:], hay[-2:] + b"\0", hay[100:140], hay[200:300]]
     exp = [oracle_count(hay, nd) for nd in needles]
-    assert BatchedSearcher(needles, device=CPU).count_all(kl).tolist() == exp
+    assert BatchedSearcher(needles, device=CPU).count_all(bare).tolist() == exp
     for nd, c in zip(needles, exp):
-        assert DynamicSearcher(nd, device=CPU).count_in(kl) == TorchSearcher(nd, device=CPU).count_in(kl) == c
+        assert DynamicSearcher(nd, device=CPU).count_in(bare) == TorchSearcher(nd, device=CPU).count_in(bare) == c
+    wide = bare.ensure_kh(100)
+    assert wide is bare._rehalo and wide.kh >= 99 and wide.host_bytes is None
 
 
 def test_count_all_on_tables_carried_from_jax(rng):
@@ -284,11 +285,9 @@ def test_count_all_on_tables_carried_from_jax(rng):
     needles += [b"QQQQ", b"zzzzzz", b"ab"]
     jdh = jst.preprocess(hay, kh=16)
     jbs = jst.BatchedSearcher(needles)
-    jbs.optimize_for(jdh)
+    jbs.optimize_for(jdh, jbs.find_all(jdh))  # the JAX host path: host copies in the new row order
     ref = jbs.count_all(jdh)
-    for g in jbs.groups:
-        g.sync_host()
-    dh = interop.haystack(jdh.host_bytes, jdh.length, jdh.kh, jdh.tiled, device=CPU)
+    dh = interop.haystack(jdh.host_bytes, jdh.length, jdh.kh, device=CPU)
     carried = interop.batched_searcher(
         needles, [(g.values_host, g.masks_host, g.lengths, g.indices) for g in jbs.groups], device=CPU
     )

@@ -56,7 +56,7 @@ ENTRY_POINTS = {
     "StreamingScanner": lambda **kw: StreamingScanner([b"a", b"bc"], **kw),
     "StreamingScanner-huge": lambda **kw: StreamingScanner([b"a", b"bc" * 1100], **kw),
     "pairwise_contains_all": lambda **kw: pairwise_contains_all([b"a", b"ab"], **kw),
-    "interop.haystack": lambda **kw: interop.haystack(b"abc" * 4000, 12_000, 32, True, **kw),
+    "interop.haystack": lambda **kw: interop.haystack(b"abc" * 4000, 12_000, 32, **kw),
     "interop.batched_searcher": lambda **kw: interop.batched_searcher(
         [b"ab"], [(_TABLE[0], _TABLE[1], _TABLE[2], np.arange(1))], **kw),
     "interop.pairwise_searcher": lambda **kw: interop.pairwise_searcher(

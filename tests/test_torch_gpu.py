@@ -339,14 +339,18 @@ def test_i386_counts_on_card(cuda):
 
 
 def test_flat_layout_counts_on_card(cuda):
-    """A flat rung on the card, kept without host bytes, is counted by the
-    count kernel: re-laid on the card, never counted on the host."""
+    """A short layout on the card (where the JAX package has its flat
+    rung), kept without host bytes, is searched by the find kernel and
+    counted by the count kernel, one launch per width group, never on the
+    host."""
     hay = _hay(9, 3000)
     flat = preprocess(hay, keep_host=False, device=cuda)
-    assert not flat.tiled
     needles = [hay[100:103], b"a", hay[-5:], hay[-2:] + b"\0", b"\x7f\x7f", hay[7:40]]
     exp = [overlapping_count(hay, nd) for nd in needles]
     bs = BatchedSearcher(needles, device=cuda)
+    before = _n("launches.batched_find")
+    assert bs.find_all(flat).tolist() == [hay.find(nd) for nd in needles]
+    assert _n("launches.batched_find") == before + len(bs.groups)
     before = _n("launches.batched_count")
     assert bs.count_all(flat).tolist() == exp
     assert bs.count_all_device(flat).cpu().tolist() == exp
@@ -890,7 +894,7 @@ def test_positions_on_card(cuda, monkeypatch):
     optimize_for, rows past the cap and under it, one bitmap, one rank and
     one packed compaction launch per width group (all 4,585 words, one
     launch batch and one window each), every DynamicSearcher arm, and a
-    flat layout kept without host bytes, scanned by the kernels on the
+    short layout kept without host bytes, scanned by the kernels on the
     card; no bitmap is decoded on the host."""
     hay = open(os.path.join(DATA, "i386.txt"), "rb").read()
     words = [w for w in open(os.path.join(DATA, "words.txt"), "rb").read().split(b"\n") if w]
@@ -917,7 +921,6 @@ def test_positions_on_card(cuda, monkeypatch):
         assert DynamicSearcher(nd, device=cuda).positions(dh).tolist() == _host_positions(hay, nd).tolist()
     small = _hay(11, 3000)
     flat = preprocess(small, keep_host=False, device=cuda)
-    assert not flat.tiled
     for nd in (small[100:103], b"a", small[-5:], small[-2:] + b"\0", b"\x7f\x7f"):
         before = _launches()
         assert DynamicSearcher(nd, device=cuda).positions(flat).tolist() == _host_positions(small, nd).tolist()
@@ -994,8 +997,8 @@ def test_huge_tiers_on_card(cuda, monkeypatch):
     """Huge needles on the card in each tier, exact against the host
     oracles, each call with its tier's launches: the sparse tier (prefix
     count, bitmap and compaction, host verify), the dense tier (prefix
-    count, one bitmap launch of the unique chunks), a flat layout on the
-    card kept without host bytes (re-laid there, dense), a batch of words
+    count, one bitmap launch of the unique chunks), a short layout on the
+    card kept without host bytes (its halo widened there, dense), a batch of words
     and huge needles, and the device-resident fences."""
     import sliceslice_tpu_torch.models.huge as huge
 
@@ -1023,7 +1026,6 @@ def test_huge_tiers_on_card(cuda, monkeypatch):
     monkeypatch.undo()
     small = hay[10_000:16_000]
     flat = preprocess(small, keep_host=False, device=cuda)
-    assert not flat.tiled
     nd = small[1_000:3_200]
     assert DynamicSearcher(nd, device=cuda).find(flat) == 1_000
     assert DynamicSearcher(nd, device=cuda).count_in(flat) == 1

@@ -196,8 +196,8 @@ def test_huge_dense_tier_aperiodic(corpus, monkeypatch):
 
 def test_huge_dense_tier_no_host_bytes(monkeypatch):
     """Without host bytes the sparse tier is unavailable; the dense tier
-    answers exactly when the layout's halo already fits the chunk tables,
-    and both packages raise the same ValueError when it does not."""
+    answers exactly, with the layout's halo widened from its device bytes
+    when it does not fit the chunk tables (the JAX package raises then)."""
     monkeypatch.setattr(jhuge, "HOST_VERIFY_MAX", 0)
     monkeypatch.setattr(thuge, "HOST_VERIFY_MAX", 0)
     nd = b"ab" * 1_500  # k = 3000
@@ -206,11 +206,11 @@ def test_huge_dense_tier_no_host_bytes(monkeypatch):
     jdh = jst.preprocess(hay, kh=jxb_halo(), keep_host=False)
     both(nd, hay, tdh, jdh)
     small_t, small_j = preprocess(hay, keep_host=False, device=CPU), jst.preprocess(hay, keep_host=False)
-    with pytest.raises(ValueError, match="no host bytes") as got:
-        DynamicSearcher(nd, device=CPU).find(small_t)
-    with pytest.raises(ValueError, match="no host bytes") as ref:
+    assert small_t.kh < DENSE_KH
+    assert DynamicSearcher(nd, device=CPU).find(small_t) == hay.find(nd)
+    assert small_t._rehalo is not None and small_t._rehalo.kh >= DENSE_KH
+    with pytest.raises(ValueError, match="no host bytes"):
         jst.DynamicSearcher(nd).find(small_j)
-    assert str(got.value) == str(ref.value)
 
 
 def jxb_halo() -> int:
@@ -359,26 +359,32 @@ def test_route_tiers_match_jax(corpus, monkeypatch, budget):
         assert got == ref, (budget, len(nd), len(h), keep)
         if got == "host":
             assert ts._route(tl, td)[1].tolist() == np.asarray(js._route(jl, jd)[1]).tolist()
-    small = hay[:7_000]  # bytes at or below the flat rung's size: scanned on the host
+    small = hay[:7_000]  # bytes at or below SHORT_HAY_BYTES: scanned on the host
     assert HugeNeedleSearcher(small[:2_100], device=CPU)._route(
         *HugeNeedleSearcher(small[:2_100], device=CPU)._as_layout(small))[0] == "hostscan"
     assert jhuge.HugeNeedleSearcher(small[:2_100])._route(None, small)[0] == "hostscan"
 
 
 def test_flat_layouts_on_the_cpu_scan_host_bytes(corpus):
-    """A flat layout off the card is scanned on the host (hostscan), as in
-    the JAX package; without host bytes both raise the same error."""
+    """Short host bytes are scanned on the host (hostscan), as in the JAX
+    package.  A short layout, where the JAX package has its flat rung and
+    scans its host bytes, is searched where it lives, with host bytes or
+    without (the JAX package raises without)."""
     small = corpus[:6_000]
     nd = small[1_000:3_100]
+    hs = HugeNeedleSearcher(nd, device=CPU)
+    assert hs._route(*hs._as_layout(small))[0] == "hostscan"
+    assert both(nd, small)["count"] == 1
     tdh, jdh = preprocess(small, device=CPU), jst.preprocess(small)
-    assert not tdh.tiled and not jdh.tiled
+    assert hs._route(*hs._as_layout(tdh))[0] == "host"
     assert both(nd, small, tdh, jdh)["count"] == 1
     bare_t, bare_j = preprocess(small, keep_host=False, device=CPU), jst.preprocess(small, keep_host=False)
-    with pytest.raises(ValueError) as got:
-        DynamicSearcher(nd, device=CPU).find(bare_t)
-    with pytest.raises(ValueError) as ref:
+    assert hs._route(*hs._as_layout(bare_t))[0] == "dense"
+    ts = DynamicSearcher(nd, device=CPU)
+    assert ts.find(bare_t) == small.find(nd) == 1_000
+    assert ts.count_in(bare_t) == 1 and ts.positions(bare_t).tolist() == [1_000]
+    with pytest.raises(ValueError, match="requires host bytes"):
         jst.DynamicSearcher(nd).find(bare_j)
-    assert str(got.value) == str(ref.value)
 
 
 @pytest.mark.parametrize("args", [(b"x" * MAX_NEEDLE_LEN, None), (b"x" * 3_000, 3_000),

@@ -132,8 +132,8 @@ def test_positions_all_batched(i386_small, words):
     for nd, got, r in zip(nds, res, ref):
         assert got.dtype == np.int64
         assert got.tolist() == r.tolist() == _host_positions(i386_small, nd).tolist(), nd
-    bs.optimize_for(tdh)  # reschedules rows on the device; offsets unchanged
-    assert any(g._host_perm_pending is not None for g in bs.groups)
+    bs.optimize_for(tdh)  # reorders the rows on the host and uploads them; offsets unchanged
+    assert bs._epoch == 1
     assert [p.tolist() for p in bs.positions_all(tdh, batch=5)] == [r.tolist() for r in ref]
 
 
@@ -270,28 +270,28 @@ def test_plain_match_bitmap_matches_jax(t, rng):
 
 def test_positions_searchers_and_layouts(i386_small):
     """TorchSearcher (plain bitmap on the layout's device) agrees with the
-    kernel searchers; a flat layout on the CPU is scanned on the host and
-    needs host bytes, as in the JAX package; the bitmap wrapper refuses
-    devices it has no kernel for; a huge needle's positions over a flat
-    layout come from its host bytes too."""
+    kernel searchers; a short layout is scanned where it lives, with or
+    without host bytes (the JAX package scans its flat rung on the host and
+    needs them); the bitmap wrapper refuses devices it has no kernel for;
+    a huge needle's positions over a short layout are exact too."""
     tdh = preprocess(i386_small, kh=16, device=CPU)
     for nd in (b"e", b"the", i386_small[-11:], b"\xfe\xfe"):
         assert TorchSearcher(nd, device=CPU).positions(tdh).tolist() == DynamicSearcher(nd, device=CPU).positions(tdh).tolist()
     small = i386_small[:3000]
     flat = preprocess(small, device=CPU)
-    assert not flat.tiled
+    assert flat.flat.numel() == preprocess(small, force_cols=True, device=CPU).flat.numel()
     assert DynamicSearcher(b"the", device=CPU).positions(flat).tolist() == oracle(small, b"the")
     assert BatchedSearcher([b"the", b"e"], device=CPU).positions_all(flat)[1].tolist() == oracle(small, b"e")
     bare = preprocess(small, keep_host=False, device=CPU)
-    with pytest.raises(ValueError, match="requires host bytes"):
-        DynamicSearcher(b"the", device=CPU).positions(bare)
-    with pytest.raises(ValueError, match="requires host bytes"):
-        BatchedSearcher([b"the"], device=CPU).positions_all(bare)
+    assert DynamicSearcher(b"the", device=CPU).positions(bare).tolist() == oracle(small, b"the")
+    assert BatchedSearcher([b"the"], device=CPU).positions_all(bare)[0].tolist() == oracle(small, b"the")
+    with pytest.raises(ValueError, match="requires host bytes"):  # no longer than the needle
+        DynamicSearcher(b"abcd", device=CPU).positions(preprocess(b"abc", keep_host=False, device=CPU))
     values, masks, _ = build_probe_table([b"abc"])
     with pytest.raises(ValueError, match="no match-bitmap kernel"):
         tsk.match_bitmap(torch.empty(1024, dtype=torch.uint8, device="meta"), values, masks,
                          np.asarray([5], np.int32))
-    # A huge needle in a batch: the flat rung on the CPU scans host bytes.
+    # A huge needle in a batch over a short layout.
     huge = small[100:2200]
     got = BatchedSearcher([huge, b"the"], device=CPU).positions_all(flat)
     assert [p.tolist() for p in got] == [[100], oracle(small, b"the")]

@@ -10,6 +10,7 @@ import torch
 
 import sliceslice_tpu as jst
 from sliceslice_tpu_torch import (
+    BatchedSearcher,
     CudaSearcher,
     DynamicSearcher,
     EmptyNeedleSearcher,
@@ -17,10 +18,12 @@ from sliceslice_tpu_torch import (
     NaiveSearcher,
     TorchSearcher,
     naive_find,
+    overlapping_count,
 )
 from sliceslice_tpu_torch.models.cuda_searcher import SPECIALIZED, searcher_for_size
 from sliceslice_tpu_torch.models.huge import HugeNeedleSearcher
-from sliceslice_tpu_torch.ops.layout import preprocess
+from sliceslice_tpu_torch.ops.layout import SHORT_HAY_BYTES, padded_total, preprocess
+from sliceslice_tpu_torch.searcher import _host_positions
 
 #: The CPU tests run the kernels' plain versions: the port's entry points
 #: take the card unless asked for the CPU.
@@ -95,8 +98,8 @@ def test_shorter_and_equal_haystack(cls):
 
 @pytest.mark.parametrize("cls", BACKENDS)
 def test_kernel_layout_every_position(cls, rng):
-    """The six properties' shapes on the kernel layout (past the flat rung
-    and the host rung), every position."""
+    """The six properties' shapes on the one layout (past the host rung),
+    every position."""
     filler = bytes(rng.integers(97, 100, (9000,), dtype=np.uint8))
     dh_cases = [
         (b"p", b"p" + filler),
@@ -106,7 +109,6 @@ def test_kernel_layout_every_position(cls, rng):
     ]
     for nd, hay in dh_cases:
         dh = preprocess(hay, kh=16, device=CPU)
-        assert dh.tiled
         exp = naive_find(hay, nd)
         for p in range(len(nd)):
             assert cls.with_position(nd, p, device=CPU).find(dh) == exp, (cls.__name__, nd, p)
@@ -322,3 +324,46 @@ def test_column_boundary_straddle():
                 assert got == naive_find(hay, nd) == jst.XlaSearcher(nd).find(jdh), (c, k)
                 checked += 1
     assert checked == 12  # column 126's boundary lies past the corpus, as in the JAX test
+
+
+@pytest.mark.parametrize("length", [0, 1, 3, 4, 5, 127, 128, 129, 4096, 8191, 8192, SHORT_HAY_BYTES + 1])
+def test_short_haystacks_take_the_kernel_layout(length):
+    """Haystacks from 0 bytes to just past ``SHORT_HAY_BYTES`` (the JAX
+    package's flat rung) take the one layout, and are answered alike as
+    bytes and as a layout kept without host bytes: ``BatchedSearcher``'s
+    three sweeps and ``DynamicSearcher``'s memchr, specialised and generic
+    arms, each equal to ``bytes.find`` and the JAX package."""
+    rng = np.random.default_rng(length)
+    hay = rng.choice(np.frombuffer(b"acgt", np.uint8), length).tobytes()
+    needles = []
+    for k in (1, 2, 4, 5, 16, 17):
+        if k <= length:
+            o = int(rng.integers(0, length - k + 1))
+            needles.append(hay[o:o + k])
+    needles.append(b"nnnnn")  # absent from a four-letter text
+    bare = preprocess(hay, keep_host=False, device=CPU)
+    assert bare.length == length and bare.flat.numel() == padded_total(length, bare.kh)
+
+    find = [hay.find(nd) for nd in needles]
+    count = [overlapping_count(hay, nd) for nd in needles]
+    positions = [_host_positions(hay, nd).tolist() for nd in needles]
+    jbs = jst.BatchedSearcher(needles)
+    assert jbs.find_all(hay).tolist() == find
+    assert jbs.count_all(hay).tolist() == count
+    assert [p.tolist() for p in jbs.positions_all(hay)] == positions
+    bs = BatchedSearcher(needles, device=CPU)
+    for h in (hay, bare):
+        assert bs.find_all(h).tolist() == find
+        assert bs.count_all(h).tolist() == count
+        assert [p.tolist() for p in bs.positions_all(h)] == positions
+
+    for nd, f, c, p in zip(needles, find, count, positions):
+        js, ts = jst.DynamicSearcher(nd), DynamicSearcher(nd, device=CPU)
+        f = None if f < 0 else f
+        assert (js.find(hay), js.count_in(hay), js.positions(hay).tolist()) == (f, c, p)
+        assert (ts.find(hay), ts.count_in(hay), ts.positions(hay).tolist()) == (f, c, p)
+        if len(nd) < length:
+            assert (ts.find(bare), ts.count_in(bare), ts.positions(bare).tolist()) == (f, c, p)
+        else:  # a haystack no longer than the needle takes the trivial rule, on host bytes
+            with pytest.raises(ValueError, match="requires host bytes"):
+                ts.find(bare)

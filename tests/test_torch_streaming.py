@@ -3,13 +3,13 @@ oracles — the mirror of tests/test_streaming.py case by case (its two mesh
 cases on a mesh of cells on the CPU and the JAX package's virtual mesh), of
 tests/test_utils.py's offsets past 2^32 and of tests/test_fuzz.py's window
 geometry fuzz.  Each case runs the port's ``StreamingScanner`` on the CPU
-(the kernels' plain versions, every window in the kernel layout) and the
+(the kernels' plain versions, every window in the one layout) and the
 JAX ``StreamingScanner`` as its own tests run it, on the same inputs, and
 holds both to ``bytes.find``, ``overlapping_count`` and the host positions
 scan.  Then the port's int64 device folds against the JAX two-limb and
 lexicographic folds, and the port's own contracts: no
 window buffer is allocated after ``warmup``, no ingest thread outlives a
-stream, and every window lies in the kernel layout.  Every comparison is
+stream, and every window lies in the pooled layout.  Every comparison is
 exact."""
 
 import threading
@@ -613,7 +613,7 @@ def test_no_ingest_thread_outlives_a_stream(tmp_path, corpus):
 
 def test_every_window_takes_the_kernel_layout(monkeypatch, tmp_path):
     """Windows of at most SHORT_HAY_BYTES (where the JAX package scans
-    flat and counts on the host) lie in the kernel layout of the fixed
+    flat and counts on the host) lie in the one layout of the fixed
     ``_wcap`` size, in the pooled device buffers, final window included."""
     rng = np.random.default_rng(3)
     data = bytes(rng.integers(97, 100, (20_000,), dtype=np.uint8))
@@ -625,17 +625,17 @@ def test_every_window_takes_the_kernel_layout(monkeypatch, tmp_path):
 
     def spy(factory):
         for dh, wlen, is_last in ingest(factory):
-            seen.append((dh.tiled, dh.length, dh.flat.numel(), dh.flat.data_ptr(), is_last))
+            seen.append((dh.length, dh.flat.numel(), dh.flat.data_ptr(), is_last))
             yield dh, wlen, is_last
 
     monkeypatch.setattr(sc, "_ingest", spy)
     assert list(sc.find_in_chunks(iter([data]), early_stop=False)) == firsts(data, needles)
     assert list(sc.count_in_chunks(iter([data]))) == counts(data, needles)
     assert same_positions(sc.positions_in_chunks(iter([data])), host_positions(data, needles))
-    total = padded_total(sc._wcap, sc._kh, force_cols=True)
+    total = padded_total(sc._wcap, sc._kh)
     pool = {t.data_ptr() for t in sc._dev_pool}
-    assert len(seen) == 3 * 7 and sum(s[4] for s in seen) == 3
-    assert all(s[:3] == (True, sc._wcap, total) and s[3] in pool for s in seen)
+    assert len(seen) == 3 * 7 and sum(s[3] for s in seen) == 3
+    assert all(s[:2] == (sc._wcap, total) and s[2] in pool for s in seen)
 
 
 def test_late_reader_writes_only_its_own_streams_stats(monkeypatch):

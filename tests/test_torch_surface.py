@@ -48,6 +48,8 @@ REASONS = {
               "halo rows, packed windows); the port keeps one flat uint8 layout",
     "cols": "TPU-only: the *_cols entry points over the TPU column layout; the port's are "
             "scan_kernel.batched_find, batched_count and match_bitmap over the flat layout",
+    "flat": "TPU-only: the flat XLA rung for short haystacks and its power-of-two buffer; "
+            "the port lays every haystack out the one way",
     "premask": "TPU-only: the premask, pen_full and last_full machinery and the SMEM unfound-needle lists",
     "tiles": "TPU-only: the Pallas pair block's tile shape; the port's pair kernel has its own "
              "(kTileN in csrc/pairwise.cu)",
@@ -67,6 +69,7 @@ NOT_PORTED = {
     "ops/layout.py::SEG_CAP_ROWS": REASONS["layout"],
     "ops/layout.py::plan_layout": REASONS["layout"],
     "ops/layout.py::position_grid": REASONS["layout"],
+    "ops/layout.py::next_pow2": REASONS["flat"],
     "ops/pairwise.py::PALLAS_BN": REASONS["tiles"],
     "ops/pairwise.py::PALLAS_BH": REASONS["tiles"],
     "ops/scan_kernel.py::LANES": REASONS["layout"],
@@ -82,6 +85,8 @@ NOT_PORTED = {
     "ops/scan_math.py::segment_positions": REASONS["layout"],
     "ops/scan_math.py::lane_first_offset": REASONS["layout"],
     "ops/scan_math.py::first_offset": REASONS["layout"],
+    "ops/xla_backend.py::find_flat": REASONS["flat"],
+    "ops/xla_backend.py::find_batched_flat": REASONS["flat"],
     "ops/xla_backend.py::find_batched_cols": REASONS["cols"],
     "ops/xla_backend.py::match_bitmap_cols": REASONS["cols"],
     "ops/xla_backend.py::bitmap_linear": REASONS["layout"],

@@ -33,12 +33,12 @@ SPANS = {
 
 @pytest.fixture(scope="module")
 def held(i386_small, words):
-    """A small tiled layout on the CPU and a searcher of 48 words and one
+    """A layout on the CPU and a searcher of 48 words and one
     huge needle (past ``MAX_NEEDLE_LEN``), with the host oracles."""
     needles = words[:48] + [i386_small[1000:3100]]
     dh = preprocess(i386_small, force_cols=True, device=CPU)
     bs = BatchedSearcher(needles, device=CPU)
-    assert dh.tiled and bs._huge
+    assert bs._huge
     exp = {"find_all": np.array([i386_small.find(n) for n in needles]),
            "count_all": np.array([overlapping_count(i386_small, n) for n in needles]),
            "positions_all": [_host_positions(i386_small, n) for n in needles]}
