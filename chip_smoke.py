@@ -146,8 +146,8 @@ POSITION_SWEEPS = 4
 GROUP_WIDE_BYTES = 64 << 20
 GROUP_WIDE_ROWS = {5: 512, 6: 32, 7: 32, 8: 32}
 #: Rows per width held against ``overlapping_count`` (0.2 s each on this
-#: text): the planted ones, the text's last needle and a random sample.
-GROUP_WIDE_ORACLE_ROWS = 12
+#: text): the 16 planted ones, the text's last needle and a random sample.
+GROUP_WIDE_ORACLE_ROWS = 20
 #: Probe-table widths the ablation harness runs.
 PROBE_TS = (1, 2, 3)
 #: How far the ablation harness's `count` variant may lie from the count
@@ -662,16 +662,20 @@ def phase_group_wide(torch, device):
     """The count and bitmap group walk of tables of 5 to 8 slots at the
     shapes it runs in: on a seeded 64 MiB ACGT text, per width, one
     launch of each kernel planned at 8 rows an item with no patched
-    chunk, its rows counted as tiled and two-slot rows, its answers equal
-    to the plain versions', the bitmap's totals to the counts, and
-    sampled rows to ``overlapping_count``.  Guides are cut from the text;
-    the first 8 of each width are planted whole twice and, 3 times, with
-    their last byte changed (windows that pass slots 0 and 1 and fail a
-    later slot); the last row is the text's last bytes."""
+    chunk, its rows counted as tiled, two-slot and hashed rows, its
+    answers equal to the plain versions', the bitmap's totals to the
+    counts, and sampled rows to ``overlapping_count``.  Guides are cut
+    from the text; the first 8 of each width are planted whole twice and,
+    3 times, with their last byte changed (windows that pass slots 0 and 1
+    and fail a later slot); the next 8 are planted, 3 times each, as a
+    hash collision: their first 8 bytes replaced by the window pair (v0 -
+    K, v1 + 1) of their slot-0 and slot-1 values (``pair_hash``), which
+    passes the pair hash and fails the pair test; the last row is the
+    text's last bytes."""
     from sliceslice_tpu_torch import overlapping_count, preprocess
     from sliceslice_tpu_torch.needle import build_probe_table, needed_halo_for_t
     from sliceslice_tpu_torch.ops import scan_kernel
-    from sliceslice_tpu_torch.ops.scan_math import table_bits
+    from sliceslice_tpu_torch.ops.scan_math import PAIR_HASH_K, pair_hash, table_bits
 
     rng = np.random.default_rng(2024)
     acgt = np.frombuffer(b"ACGT", np.uint8)
@@ -686,6 +690,14 @@ def phase_group_wide(torch, device):
             for copy in [nd] * 2 + [changed] * 3:
                 at = int(rng.integers(0, GROUP_WIDE_BYTES - len(copy)))
                 text[at : at + len(copy)] = np.frombuffer(copy, np.uint8)
+        for nd in guides[t][8:16]:
+            v0, v1 = (int.from_bytes(nd[i : i + 4], "little") for i in (0, 4))
+            c0, c1 = (v0 - PAIR_HASH_K) & 0xFFFFFFFF, (v1 + 1) & 0xFFFFFFFF
+            check(pair_hash(c0, c1) == pair_hash(v0, v1), f"t={t}: no hash collision built")
+            fake = c0.to_bytes(4, "little") + c1.to_bytes(4, "little") + nd[8:]
+            for _ in range(3):
+                at = int(rng.integers(0, GROUP_WIDE_BYTES - len(fake)))
+                text[at : at + len(fake)] = np.frombuffer(fake, np.uint8)
     hay = text.tobytes()
     for t in lengths:
         guides[t][-1] = hay[-lengths[t][-1]:]
@@ -700,14 +712,14 @@ def phase_group_wide(torch, device):
                       for mode in (scan_kernel.COUNT, scan_kernel.BITMAP)]
         check(planned[t] == [scan_kernel.GROUP_ROWS] * 2, f"t={t}: {n} rows over 64 MiB not planned "
               f"at {scan_kernel.GROUP_ROWS} rows an item: {planned[t]}")
-        names = [f"{kind}.{w}" for kind in ("tiled_rows", "single_rows", "two_slot_rows")
+        names = [f"{kind}.{w}" for kind in ("tiled_rows", "single_rows", "two_slot_rows", "hashed_rows")
                  for w in ("batched_count", "match_bitmap_counted")]
         before = [counter(name) for name in names]
         got = scan_kernel.batched_count(dh.flat, v, m, e)
         words, counts, chunk = scan_kernel.match_bitmap_counted(dh.flat, v, m, e)
         torch.cuda.synchronize()
         made = [counter(name) - b for name, b in zip(names, before)]
-        check(made == [n, n, 0, 0, n, n], f"t={t}: row counters moved by {dict(zip(names, made))}")
+        check(made == [n, n, 0, 0, n, n, n, n], f"t={t}: row counters moved by {dict(zip(names, made))}")
         check(torch.equal(got, scan_kernel.batched_count_plain(dh.flat, v, m, e)),
               f"grouped count kernel != plain at t={t}")
         plain = scan_kernel.match_bitmap_counted_plain(dh.flat, v, m, e)
@@ -716,13 +728,13 @@ def phase_group_wide(torch, device):
         del words, plain
         check(torch.equal(counts.sum(dim=0, dtype=torch.int32), got), f"bitmap totals != counts at t={t}")
         got = got.cpu().tolist()
-        picks = sorted({*range(8), n - 1, *rng.choice(n - 1, GROUP_WIDE_ORACLE_ROWS - 9, replace=False)})
+        picks = sorted({*range(16), n - 1, *rng.choice(n - 1, GROUP_WIDE_ORACLE_ROWS - 17, replace=False)})
         for i in picks:
             check(got[i] == overlapping_count(hay, needles[i]),
                   f"grouped count != overlapping_count at t={t}, row {i}")
         sampled += len(picks)
         rows[t] = {"rows": n, "lengths": sorted(set(lengths[t])), "total": int(sum(got)),
-                   "max": int(max(got)), "planted_counts": got[:8]}
+                   "max": int(max(got)), "planted_counts": got[:8], "collided_counts": got[8:16]}
     say("group_wide", corpus_bytes=len(hay), rows_per_item=planned, widths=rows,
         oracle_rows=sampled, equal_to_plain=True, equal_to_host=True)
 

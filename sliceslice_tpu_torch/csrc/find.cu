@@ -78,9 +78,12 @@
 //     bytes) test slots 0 and 1 together, from 4 more windows: on a
 //     four-letter text one slot passes a window in 256, so nearly every
 //     warp would take the walk at every tile, and two slots pass one in
-//     65,536.  Each thread sums a row's matches in a register and each
-//     warp adds them once per item (warp_add).  Integer sums and minima in
-//     any order are exact;
+//     65,536.  At kGroupRows rows an item whose slots 0 and 1 are whole,
+//     the thread hashes its 16 window pairs once (one IMAD each) and each
+//     row tests its own pair's hash by one compare a position (hash_hits);
+//     a collision only adds an exact walk.  Each thread sums a row's
+//     matches in a register and each warp adds them once per item
+//     (warp_add).  Integer sums and minima in any order are exact;
 //   * bitmap: count's walk, where each pair of neighbouring lanes holds the
 //     two 16-bit halves of one linear word of a row (their 32 positions
 //     start at a multiple of 32, since chunks are whole wide tiles); one

@@ -148,6 +148,25 @@ constexpr int kMaxGroupT = 8;
 template <int T>
 constexpr int kFilterSlots = T > kMaxRegT ? 2 : 1;
 
+// Whether group_loop's two-slot filter tests a pair hash: at kGroupRows
+// rows an item, where the tile's 16 hashes, one IMAD each, are shared by
+// every row, and each row then tests a window pair by one compare.  One
+// row an item would pay a hash for each compare it saves, so R = 1 keeps
+// the pair test.
+template <int T, int R>
+constexpr bool kHashFilter = kFilterSlots<T> == 2 && R == kGroupRows;
+
+// The pair hash's multiplier (ops/scan_math.py PAIR_HASH_K): odd, so the
+// hash of a pair is one-to-one in each window with the other fixed, and
+// one-to-one on the 65,536 window pairs of a four-letter text (A, C, G,
+// T), so that there the hashed filter passes what the pair test does.
+constexpr uint32_t kPairHashK = 0x9E3779B1u;
+
+// The pair hash of slot-0 window a and slot-1 window b.  Equal windows
+// give equal hashes, so a hash compare passes every position the pair
+// test passes; a collision only sends a row into its exact walk.
+__device__ __forceinline__ uint32_t pair_hash(uint32_t a, uint32_t b) { return a + kPairHashK * b; }
+
 // The blocks per SM that the kernels running group_loop declare in
 // __launch_bounds__: ptxas may then give a thread up to 65536 / (kThreads
 // x 4) = 64 registers, which every instantiation needs at most, and spills
@@ -302,13 +321,45 @@ __device__ __forceinline__ unsigned filter_hits(const Tile& tile, const int* sto
   return hits;
 }
 
+// filter_hits' two-slot filter by the pair hash, for an item whose rows'
+// slots 0 and 1 are whole (kHashFilter): the tile's 16 window pairs are
+// hashed once, after which its windows are dead, and row q tests its hash
+// hv[q] by one compare a position.  Rows' stops are read only when some
+// row passed, since a pass is rare.
+template <int R>
+__device__ __forceinline__ unsigned hash_hits(const Tile& tile, const int* stop, int live,
+                                              const uint32_t* hv) {
+  unsigned hits = (1u << live) - 1u;
+  if (!tile.tail) {
+    uint32_t h[16];
+#pragma unroll
+    for (int b = 0; b < 16; ++b) h[b] = pair_hash(tile.win[b], tile.win[b + 4]);
+    unsigned pass = 0u;
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      bool hit = false;
+#pragma unroll
+      for (int b = 0; b < 16; ++b) hit |= h[b] == hv[q];
+      if (hit) pass |= 1u << q;
+    }
+    hits &= pass;
+  }
+  if (hits) {
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      if (tile.p0 >= stop[q]) hits &= ~(1u << q);
+    }
+  }
+  return hits;
+}
+
 // The exact walk of one row whose filter passed in the tile: bit b set
 // when position p0 + b lies below `stop` and satisfies every slot of the
 // row's table (val, msk).  Behind a one-slot filter: its slot-0 bits from
 // the tile's windows, then probe_slots from slot 1.  Behind a two-slot
 // filter (T > kMaxRegT) the walk is rare, so it reloads the corpus
-// (probe_wide) and the tile's 20 windows are dead once every row's filter
-// has run, which leaves their registers to the walk.
+// (probe_wide) and the tile's 20 windows (or 16 hashes) are dead once
+// every row's filter has run, which leaves their registers to the walk.
 template <int T>
 __device__ __forceinline__ unsigned row_bits(const uint32_t* __restrict__ hay, int n_words,
                                              const Tile& tile, int stop, const uint32_t* val,
@@ -335,8 +386,9 @@ __device__ __forceinline__ unsigned row_bits(const uint32_t* __restrict__ hay, i
 // (next_group) and the block reads it from shared memory after one
 // barrier; a barrier at the end of each item keeps the shared item and
 // table from being rewritten while a thread still reads them.  Per tile,
-// the rows share its windows (filter_hits, kFilterSlots<T> slots) and only
-// a row whose filter passed walks (row_bits).  Per row, each thread sums
+// the rows share its windows (filter_hits, kFilterSlots<T> slots), or the
+// hashes of its window pairs (hash_hits, kHashFilter), and only a row
+// whose filter passed walks (row_bits).  Per row, each thread sums
 // its matches in a register, and
 // each warp adds its sums once per item (warp_add): to `out`, the count per
 // row, or to the bitmap's item counts int32[n_chunks, rows] at [c, row].
@@ -389,6 +441,15 @@ __device__ __forceinline__ void group_loop(const uint32_t* __restrict__ hay, int
         partial |= 1u << q;
       }
     }
+    // An item whose rows' slots 0 and 1 are all whole filters on the pair
+    // hash (kHashFilter): v0[q] becomes row q's hash.  `partial` is the
+    // item's, so the branch is block-uniform.
+    if constexpr (kHashFilter<T, R>) {
+      if (partial == 0u) {
+#pragma unroll
+        for (int q = 0; q < R; ++q) v0[q] = pair_hash(v0[q], v1[q]);
+      }
+    }
     unsigned count[R];
 #pragma unroll
     for (int q = 0; q < R; ++q) count[q] = 0u;
@@ -398,9 +459,20 @@ __device__ __forceinline__ void group_loop(const uint32_t* __restrict__ hay, int
       unsigned hits = 0u;
       if (rel < len) {
         load_tile<S>(hay, n_words, start + rel, width, &tile);
-        hits = filter_hits<R, S>(tile, s_group.stop, live, v0, v1, partial, tab_msk, T);
+        if constexpr (kHashFilter<T, R>) {
+          hits = partial == 0u
+                     ? hash_hits<R>(tile, s_group.stop, live, v0)
+                     : filter_hits<R, S>(tile, s_group.stop, live, v0, v1, partial, tab_msk, T);
+        } else {
+          hits = filter_hits<R, S>(tile, s_group.stop, live, v0, v1, partial, tab_msk, T);
+        }
       }
+      // Behind the pair hash a pass is rare, so a tile where no row passed
+      // (in the bitmap, no row of the warp) ends here.
       if constexpr (kMode == kCountMode) {
+        if constexpr (kHashFilter<T, R>) {
+          if (hits == 0u) continue;
+        }
 #pragma unroll
         for (int q = 0; q < R; ++q) {
           if ((hits >> q) & 1u) {
@@ -410,6 +482,9 @@ __device__ __forceinline__ void group_loop(const uint32_t* __restrict__ hay, int
         }
       } else {
         const unsigned warp_hits = __reduce_or_sync(0xffffffffu, hits);
+        if constexpr (kHashFilter<T, R>) {
+          if (warp_hits == 0u) continue;
+        }
 #pragma unroll
         for (int q = 0; q < R; ++q) {
           if ((warp_hits >> q) & 1u) {

@@ -298,11 +298,16 @@ def _count_rows(wrapper: str, plan: QueuePlan, t: int, n_real: int) -> None:
     ``single_rows`` by the plan's rows per item, and under
     ``two_slot_rows`` too where the table's width takes the two-slot
     filter (csrc/queue.cuh kFilterSlots<T> == 2: T from MAX_REG_T + 1 to
-    MAX_GROUP_T)."""
+    MAX_GROUP_T), and then under ``hashed_rows`` where the plan takes
+    GROUP_ROWS rows an item, whose filter compares pair hashes
+    (kHashFilter<T, R>; an item with a partial slot 0 or 1 mask keeps the
+    pair test)."""
     tracing.count(f"launches.{wrapper}")
     tracing.count(f"{'tiled_rows' if plan.group > 1 else 'single_rows'}.{wrapper}", n_real)
     if MAX_REG_T < t <= MAX_GROUP_T:
         tracing.count(f"two_slot_rows.{wrapper}", n_real)
+        if plan.group == GROUP_ROWS:
+            tracing.count(f"hashed_rows.{wrapper}", n_real)
 
 
 def batched_find_plain(hay, values, masks, ends, base=0, n_real=None) -> torch.Tensor:

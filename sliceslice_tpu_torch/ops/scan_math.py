@@ -24,6 +24,30 @@ from ..config import SENTINEL
 _STEP_ELEMS = 1 << 23
 
 
+#: The multiplier of the count and bitmap kernels' pair hash
+#: (csrc/queue.cuh kPairHashK): odd, and one-to-one on the 65,536 pairs of
+#: 4-byte windows of a four-letter text.
+PAIR_HASH_K = 0x9E3779B1
+
+
+def pair_hash(a, b):
+    """The pair hash of slot-0 window ``a`` and slot-1 window ``b`` that the
+    count and bitmap kernels' hashed filter compares (csrc/queue.cuh
+    ``pair_hash``): ``(a + PAIR_HASH_K * b) mod 2**32``.  Ints and numpy
+    arrays (uint32, or int32 bit patterns) give uint32; int32 or int64
+    tensors give int32 bit patterns."""
+    if isinstance(a, torch.Tensor):
+        a = a.to(torch.int64) & 0xFFFFFFFF
+        b = b.to(torch.int64) & 0xFFFFFFFF
+        # K * b in two 16-bit halves of K, so no product leaves int64.
+        kb = b * (PAIR_HASH_K & 0xFFFF) + (((b * (PAIR_HASH_K >> 16)) & 0xFFFF) << 16)
+        h = (a + kb) & 0xFFFFFFFF
+        return torch.where(h >= 1 << 31, h - (1 << 32), h).to(torch.int32)
+    a = np.asarray(a).astype(np.uint64)
+    b = np.asarray(b).astype(np.uint64)
+    return ((a + np.uint64(PAIR_HASH_K) * b) & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+
+
 def table_bits(table, device) -> torch.Tensor:
     """A uint32 probe table (numpy, or an int32 tensor of bit patterns) as
     an int32 tensor on ``device``."""

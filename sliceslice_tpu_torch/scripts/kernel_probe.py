@@ -60,8 +60,9 @@ or, with ``device=cpu``, with the plain versions on the CPU (host clock;
 cut ``n`` there).  ``shares [device=D]`` prints instead :func:`walk_shares`
 (plain PyTorch on ``D``, no kernel of its own): the share of (warp, row,
 tile) steps that enter the count kernel's exact walk under the one-slot
-filter (tables of up to 4 slots) and the two-slot filter (5 to 8 slots),
-for i386's words by width group and for
+filter (tables of up to 4 slots), the two-slot filter (5 to 8 slots, one
+row an item) and the pair hash (5 to 8 slots, 8 rows an item), for
+i386's words by width group and for
 512 guides of 20 bytes cut from 64 MiB of i.i.d. ACGT drawn from seed 0,
 beside the shares expected of random ACGT.
 """
@@ -81,7 +82,8 @@ import torch
 from ..config import SENTINEL
 from ..needle import build_probe_table, needed_halo_for_t, num_probes
 from ..ops import cuda_lib, scan_kernel
-from ..ops.scan_math import match_counts, match_spans, packed_windows, position_limit, table_bits
+from ..ops.scan_math import (match_counts, match_spans, packed_windows, pair_hash, position_limit,
+                             table_bits)
 from ..utils import tracing
 
 #: Variant names, in the order of ``csrc/probe.cu``'s ``Variant`` codes.
@@ -256,13 +258,43 @@ def probe(variant, hay, values, masks, ends, base=0, n_real=None, rows=4) -> tor
     return out
 
 
+def hash_spans(flat: torch.Tensor, values: torch.Tensor, limits: torch.Tensor, span: int) -> torch.Tensor:
+    """int64[N]: for each row of a table of at least 2 whole slots, the
+    spans ``[s * span, (s + 1) * span)`` (``span`` a multiple of 32) that
+    hold a position ``p < limits[n]`` whose pair hash, :func:`..ops.
+    scan_math.pair_hash` of the windows at ``p`` and ``p + 4``, equals the
+    row's, of ``values[n, 0]`` and ``values[n, 1]``: the hashed filter's
+    passes.  The guarantee of ``match_spans`` on ``limits`` applies."""
+    n = values.shape[0]
+    device = flat.device
+    limits = limits.to(device=device, dtype=torch.int64)
+    lim_max = max(int(limits.max()), 0) if n else 0
+    hit = torch.zeros((n, -(-lim_max // span)), dtype=torch.bool, device=device)
+    hv = pair_hash(values[:, 0], values[:, 1])
+    step = max(span, (1 << 16) // span * span)
+    per = max(1, (1 << 23) // step)
+    for c0 in range(0, lim_max, step):
+        width = min(step, lim_max - c0)
+        win = packed_windows(flat[c0 : c0 + width + 7])
+        h = pair_hash(win[:width], win[4 : 4 + width])
+        pos = torch.arange(c0, c0 + width, device=device)
+        cols = -(-width // span)
+        for r0 in range(0, n, per):
+            acc = (h[None, :] == hv[r0 : r0 + per, None]) & (pos[None, :] < limits[r0 : r0 + per, None])
+            acc = torch.nn.functional.pad(acc, (0, cols * span - width))
+            hit[r0 : r0 + per, c0 // span : c0 // span + cols] |= acc.view(-1, cols, span).any(dim=2)
+    return hit.sum(dim=1)
+
+
 def walk_shares(hay: bytes, needles, device) -> list:
-    """``[(t, rows, steps, walk1, walk2)]``: for each width group of
+    """``[(t, rows, steps, walk1, walk2, walkh)]``: for each width group of
     ``needles`` over ``hay`` (tables as ``BatchedSearcher`` builds them),
-    its (warp, row, tile) steps and how many of them the one-slot and the
-    two-slot filter pass: :func:`..ops.scan_math.match_spans` of slot 0
-    and of slots 0 and 1 over the warps' spans of :data:`WARP_SPAN`
-    positions, on ``device``."""
+    its (warp, row, tile) steps and how many of them the one-slot, the
+    two-slot and the hashed filter pass: :func:`..ops.scan_math.match_spans`
+    of slot 0 and of slots 0 and 1, and :func:`hash_spans` for each row of
+    at least 2 slots whose slots 0 and 1 are whole (an item of such rows
+    hashes; any other row keeps the two-slot test), over the warps' spans
+    of :data:`WARP_SPAN` positions, on ``device``."""
     from ..ops.layout import preprocess
 
     widths = sorted({num_probes(len(nd)) for nd in needles})
@@ -275,16 +307,21 @@ def walk_shares(hay: bytes, needles, device) -> list:
         n_pos = dh.flat.numel()
         limits = torch.from_numpy(np.clip(ends, 0, position_limit(n_pos, t))).to(dh.flat.device)
         v, m = table_bits(values, dh.flat.device), table_bits(masks, dh.flat.device)
-        walks = [int(match_spans(dh.flat, v[:, :s], m[:, :s], limits, WARP_SPAN).sum())
-                 for s in (1, min(2, t))]
+        one, two = (match_spans(dh.flat, v[:, :s], m[:, :s], limits, WARP_SPAN) for s in (1, min(2, t)))
+        hashed = two.clone()
+        if t >= 2:
+            whole = (m[:, 0] == -1) & (m[:, 1] == -1)
+            hashed[whole] = hash_spans(dh.flat, v[whole], limits[whole], WARP_SPAN)
+        walks = [int(x.sum()) for x in (one, two, hashed)]
         out.append((t, len(group), warp_steps(ends, n_pos, t), *walks))
     return out
 
 
 def _print_shares(name: str, rows: list) -> None:
-    for t, n, steps, w1, w2 in rows + [("all", *np.sum([r[1:] for r in rows], axis=0))]:
+    for t, n, steps, w1, w2, wh in rows + [("all", *np.sum([r[1:] for r in rows], axis=0))]:
         print(f"{name} t={t}: {int(n)} rows, {int(steps)} steps; exact walk under one slot "
-              f"{100 * w1 / max(steps, 1):.4f}%, under two slots {100 * w2 / max(steps, 1):.4f}%")
+              f"{100 * w1 / max(steps, 1):.4f}%, under two slots {100 * w2 / max(steps, 1):.4f}%, "
+              f"under the pair hash {100 * wh / max(steps, 1):.4f}%")
 
 
 def main_shares(device) -> int:

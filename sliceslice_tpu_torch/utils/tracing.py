@@ -23,7 +23,9 @@ Names: ``launches.<kernel>`` (a kernel launched), ``tiled_rows.<wrapper>``
 share each corpus tile), ``single_rows.<wrapper>`` (the rows of one whose
 items are one row each), ``two_slot_rows.<wrapper>`` (the rows of one whose
 table, of 5 to 8 slots, is filtered on slots 0 and 1 before the exact
-walk), ``uploads.pair_block``
+walk), ``hashed_rows.<wrapper>`` (those of them whose launch groups 8 rows
+an item, where the filter compares a hash of the two slots' windows),
+``uploads.pair_block``
 (a pair plan sent to a card), ``readbacks`` / ``readback_bytes`` and
 ``uploads`` / ``upload_bytes`` (the copies of :mod:`..ops.transfer`).
 """

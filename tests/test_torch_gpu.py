@@ -29,7 +29,7 @@ from sliceslice_tpu_torch import (
 from sliceslice_tpu_torch.config import SENTINEL
 from sliceslice_tpu_torch.needle import build_probe_table, needed_halo_for_t
 from sliceslice_tpu_torch.ops import pairwise, scan_kernel, torch_backend
-from sliceslice_tpu_torch.ops.scan_math import table_bits
+from sliceslice_tpu_torch.ops.scan_math import PAIR_HASH_K, pair_hash, table_bits
 from sliceslice_tpu_torch.scripts import contract_cases, kernel_probe, pair_cases
 from sliceslice_tpu_torch.searcher import _host_positions
 from sliceslice_tpu_torch.utils import streaming, tracing
@@ -530,7 +530,8 @@ def _group_table(hay: bytes, t: int, rows: int = 41):
 
 def _row_counters() -> tuple:
     """The row counters of the count and bitmap wrappers, in one tuple."""
-    return tuple(_n(f"{rows}.{w}") for rows in ("tiled_rows", "single_rows", "two_slot_rows")
+    return tuple(_n(f"{rows}.{w}")
+                 for rows in ("tiled_rows", "single_rows", "two_slot_rows", "hashed_rows")
                  for w in ("batched_count", "match_bitmap_counted"))
 
 
@@ -538,11 +539,12 @@ def _walk_rows(t: int, grouped: tuple, single: tuple) -> tuple:
     """What ``_row_counters`` gains from the (count, bitmap) rows
     ``grouped`` launched 8 an item and ``single`` one an item, of width-t
     tables: the two-slot filter's rows are every row of a table of 5 to 8
-    slots."""
-    two = (0, 0)
+    slots, and the pair hash's those of them launched 8 an item."""
+    two = hashed = (0, 0)
     if scan_kernel.MAX_REG_T < t <= scan_kernel.MAX_GROUP_T:
         two = tuple(a + b for a, b in zip(grouped, single))
-    return (*grouped, *single, *two)
+        hashed = grouped
+    return (*grouped, *single, *two, *hashed)
 
 
 @pytest.mark.parametrize("t", [1, 2, 3, 4, 5, 6, 7, 8, 512])
@@ -670,6 +672,80 @@ def test_two_slot_filter_on_a_four_letter_text(cuda, monkeypatch, t):
     assert made == _walk_rows(t, (0, 0), (len(singles), len(singles)))
 
 
+def _hash_collisions(t: int, n: int = 2 << 20):
+    """A four-letter text of ``n`` bytes and 24 needles of 4t bytes cut
+    from it, 3 items of 8 rows, for the pair hash: each of the first 16
+    has 2 more exact copies planted, and 3 planted hash collisions, its
+    first 8 bytes replaced by the window pair ``(v0 - K, v1 + 1)`` of its
+    slot-0 and slot-1 values ``v0``, ``v1`` (ops/scan_math.py pair_hash,
+    ``K = PAIR_HASH_K``) and its later slots kept, so that each passes the
+    hashed filter and fails slot 0 of the exact walk.  The last needle is
+    the text's last 4t bytes.  Returns the text and the needles."""
+    rng = np.random.default_rng(2600 + t)
+    text = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)].copy()
+    k = 4 * t
+    at = rng.choice(np.arange(1, n // 256 - 2) * 256, 24 + 16 * 5, replace=False)
+    needles = [text[a : a + k].tobytes() for a in at[:24]]
+    sites = iter(at[24:])
+    for nd in needles[:16]:
+        v0, v1 = (int.from_bytes(nd[i : i + 4], "little") for i in (0, 4))
+        c0, c1 = (v0 - PAIR_HASH_K) & 0xFFFFFFFF, (v1 + 1) & 0xFFFFFFFF
+        assert pair_hash(c0, c1) == pair_hash(v0, v1) and c0 != v0
+        fake = c0.to_bytes(4, "little") + c1.to_bytes(4, "little")
+        for copy in [nd] * 2 + [fake + nd[8:]] * 3:
+            a = next(sites)
+            text[a : a + k] = np.frombuffer(copy, np.uint8)
+    hay = text.tobytes()
+    needles[-1] = hay[-k:]
+    return hay, needles
+
+
+@pytest.mark.parametrize("t", [5, 6, 7, 8])
+def test_hashed_filter_on_planted_collisions(cuda, monkeypatch, t):
+    """The pair-hash filter of tables of 5 to 8 slots at 8 rows an item (a
+    chunk of 4,096): on ``_hash_collisions``' text, where 16 rows each meet
+    3 planted windows that pass the hash and fail the pair test, besides
+    their 3 true copies, ``batched_count`` and ``match_bitmap_counted``
+    equal their plain versions and the needles' ``overlapping_count``, at
+    base 0 and base > 0 with n_real < n; the bitmap's totals are the
+    counts; ``hashed_rows.<wrapper>`` moves by the rows, and a one-row
+    launch (``<T, 1>``, the pair test) moves it by 0."""
+    for name in ("COUNT_CHUNK", "BITMAP_CHUNK"):
+        monkeypatch.setattr(scan_kernel, name, scan_kernel.WIDE_TILE)
+    hay, needles = _hash_collisions(t)
+    dh = preprocess(hay, kh=needed_halo_for_t(t), device=cuda)
+    vals, msks, lens = build_probe_table(needles, t_max=t)
+    assert (msks == 0xFFFFFFFF).all()
+    ends = np.maximum(len(hay) - lens + 1, 0).astype(np.int32)
+    v, m = table_bits(vals, cuda), table_bits(msks, cuda)
+    n = len(needles)
+    want = [overlapping_count(hay, nd) for nd in needles]
+    assert all(c >= 3 for c in want[:16]) and want[-1] >= 1
+    for base, n_real in ((0, n), (1 << 20, n - 3)):
+        e = torch.from_numpy(np.where(ends > 0, ends + base, 0).astype(np.int32)).to(cuda)
+        assert scan_kernel._queue_plan(scan_kernel.COUNT, dh.flat, t, n_real).group == 8
+        before = _row_counters()
+        got = scan_kernel.batched_count(dh.flat, v, m, e, base=base, n_real=n_real)
+        assert torch.equal(got, scan_kernel.batched_count_plain(dh.flat, v, m, e, base=base, n_real=n_real))
+        assert got.tolist() == want[:n_real] + [0] * (n - n_real)
+        _, totals = _check_positions_kernels(dh, v, m, e, base, n_real)
+        assert torch.equal(totals, got)
+        made = tuple(a - b for a, b in zip(_row_counters(), before))
+        assert made == _walk_rows(t, (n_real, 2 * n_real), (0, 0)), base
+        assert made[-2:] == (n_real, 2 * n_real)
+    e = torch.from_numpy(ends).to(cuda)
+    before = _row_counters()
+    for row in (0, 15, n - 1):  # one-row launches: the pair test
+        args = (dh.flat, v[row : row + 1], m[row : row + 1], e[row : row + 1])
+        got = scan_kernel.batched_count(*args)
+        assert torch.equal(got, scan_kernel.batched_count_plain(*args)) and int(got[0]) == want[row]
+        words, counts, chunk = scan_kernel.match_bitmap_counted(*args)
+        plain = scan_kernel.match_bitmap_counted_plain(*args)
+        assert torch.equal(words, plain[0]) and torch.equal(counts, plain[1]) and chunk == plain[2]
+    made = tuple(a - b for a, b in zip(_row_counters(), before))
+    assert made == _walk_rows(t, (0, 0), (3, 3)) and made[-2:] == (0, 0)
+
+
 def test_i386_count_groups_every_narrow_row(cuda):
     """All 4,585 i386 words counted in one ``count_all``: every answer
     ``overlapping_count``'s, and every row of a width group of t <= 3
@@ -700,10 +776,11 @@ def test_dna_guides_counted_on_card_equal_the_kmer_reference(cuda):
     (one width group of t = 5) counted by ``count_all`` on the card equal
     ``portbench/reference_dna.py`` on the card, from one count launch that
     groups its 512 rows 8 an item (``tiled_rows.batched_count``) behind
-    the two-slot filter (``two_slot_rows.batched_count``).  An i386 sweep
-    then still groups its 4,492 rows of t <= 3, walks its other 93 alone
+    the two-slot filter (``two_slot_rows.batched_count``), by pair hashes
+    (``hashed_rows.batched_count``).  An i386 sweep then still groups its
+    4,492 rows of t <= 3, walks its other 93 alone
     (``single_rows.batched_count``) and filters its 4 rows of t = 5 and 6
-    on two slots."""
+    on two slots, by the pair test."""
     import json
 
     from portbench import reference_dna, spec
@@ -719,8 +796,8 @@ def test_dna_guides_counted_on_card_equal_the_kmer_reference(cuda):
     before = tracing.counters()
     got = bs.count_all(dh)
     assert [_delta(before, c) for c in ("launches.batched_count", "single_rows.batched_count",
-                                        "tiled_rows.batched_count",
-                                        "two_slot_rows.batched_count")] == [1, 0, 512, 512]
+                                        "tiled_rows.batched_count", "two_slot_rows.batched_count",
+                                        "hashed_rows.batched_count")] == [1, 0, 512, 512, 512]
     want = reference_dna.count_all(inp.corpus, inp.needles, device=cuda)
     assert got.tolist() == want.tolist() and want.min() >= 1
 
@@ -733,6 +810,7 @@ def test_dna_guides_counted_on_card_equal_the_kmer_reference(cuda):
     assert _delta(before, "tiled_rows.batched_count") == 4492
     assert _delta(before, "single_rows.batched_count") == len(words) - 4492 == 93
     assert _delta(before, "two_slot_rows.batched_count") == 4
+    assert _delta(before, "hashed_rows.batched_count") == 0
 
 
 @pytest.mark.parametrize("chunk", [4096, 65536])
