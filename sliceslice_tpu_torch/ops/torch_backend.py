@@ -20,7 +20,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils.tracing import span
+from ..utils.tracing import count, span
 from . import scan_kernel
 from .scan_math import first_offsets, match_counts, position_limit, table_bits
 from .transfer import to_device, to_host
@@ -125,9 +125,12 @@ def two_tier_positions(flat, values, masks, ends, cap: int, plain: bool = False)
     device.  ``cap`` (the JAX sparse cap) is validated, a negative one
     refused, and changes nothing else: no row falls back to its bitmap.
     The call is the span ``sliceslice.positions.batch``, with the bases
-    (``sliceslice.positions.bases``), the row slices
-    (``sliceslice.positions.split``) and the copies of
-    :mod:`.transfer` inside it."""
+    (``sliceslice.positions.bases``), each window's copy of its int32
+    offsets into the int64 answers once read back
+    (``sliceslice.positions.widen``), the row slices
+    (``sliceslice.positions.split``) and the copies of :mod:`.transfer`
+    inside it; on a card the counter ``packed_offsets`` adds the batch's
+    offsets."""
     cap = int(cap)
     if cap < 0:
         raise ValueError(f"cap={cap} is negative")
@@ -149,12 +152,16 @@ def two_tier_positions(flat, values, masks, ends, cap: int, plain: bool = False)
             total = int(stops[-1])
             packed = np.empty((total,), np.int64)
             row_base = to_device(stops - cnt, words.device) if total else None
+        if words.is_cuda:
+            count("packed_offsets", total)
         step = window_entries()
         for lo in range(0, total, step):
             hi = min(lo + step, total)
             out = torch.empty((hi - lo,), dtype=torch.int32, device=words.device)
             compact(words, item_counts, first, chunk, out, row_base=row_base, window=(lo, hi))
-            packed[lo:hi] = to_host(out)
+            window = to_host(out)
+            with span("sliceslice.positions.widen"):
+                packed[lo:hi] = window
         with span("sliceslice.positions.split"):
             bounds = [0] + stops.tolist()
             # Row slices by hand: np.split costs several times more per row.

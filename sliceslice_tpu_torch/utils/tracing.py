@@ -27,7 +27,9 @@ walk), ``hashed_rows.<wrapper>`` (those of them whose launch groups 8 rows
 an item, where the filter compares a hash of the two slots' windows),
 ``uploads.pair_block``
 (a pair plan sent to a card), ``readbacks`` / ``readback_bytes`` and
-``uploads`` / ``upload_bytes`` (the copies of :mod:`..ops.transfer`).
+``uploads`` / ``upload_bytes`` (the copies of :mod:`..ops.transfer`),
+``packed_offsets`` (the offsets the positions protocol packed and read
+back).
 """
 
 from __future__ import annotations

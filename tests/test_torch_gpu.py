@@ -813,6 +813,42 @@ def test_dna_guides_counted_on_card_equal_the_kmer_reference(cuda):
     assert _delta(before, "hashed_rows.batched_count") == 0
 
 
+def test_dna_patterns_located_on_card_equal_the_kmer_reference(cuda):
+    """The ``dna200m-locate`` cell's path at 64 MiB: 12 patterns of 5 bytes
+    (one width group of t = 2) located by ``positions_all`` on the card
+    equal ``portbench/reference_dna_locate.py`` on the card, from one
+    bitmap launch whose 12 rows count under the side ``plan_grouped``
+    takes for that shape (``tiled_rows`` at 8 rows an item, else
+    ``single_rows``), one rank and one compaction launch, two readbacks;
+    ``packed_offsets`` adds the answers' total."""
+    import json
+
+    from portbench import reference_dna_locate, spec
+
+    cfg = json.loads((spec.HERE / "configs" / "dna200m-5mers.json").read_text())
+    cfg = dict(cfg, corpus=dict(cfg["corpus"], bytes=64 << 20),
+               repeats=dict(cfg["repeats"], families=8, max_copies=300))
+    inp = spec.load_kind(cfg["kind"]).inputs(cfg, 2**32 + 29)
+    assert len(inp.needles) == 12
+    dh = preprocess(inp.corpus, device=cuda)
+    bs = BatchedSearcher(inp.needles, device=cuda)
+    assert [g.t for g in bs.groups] == [2]
+    group = scan_kernel._queue_plan(scan_kernel.BITMAP, dh.flat, 2, 12).group
+    side, other = ("tiled_rows", "single_rows") if group > 1 else ("single_rows", "tiled_rows")
+    before = tracing.counters()
+    got = bs.positions_all(dh)
+    assert [_delta(before, c) for c in (
+        "launches.match_bitmap_counted", f"{side}.match_bitmap_counted",
+        f"{other}.match_bitmap_counted", "launches.item_ranks", "launches.compact_window",
+        "readbacks")] == [1, 12, 0, 1, 1, 2]
+    want = reference_dna_locate.positions_all(inp.corpus, inp.needles, device=cuda)
+    assert len(got) == 12 and all(np.array_equal(g, w) for g, w in zip(got, want))
+    assert all(g.dtype == np.int64 and g.size >= 1 for g in got)
+    total = sum(w.size for w in want)
+    assert _delta(before, "packed_offsets") == total > 12 * 50_000
+    print(f"dna200m-locate at 64 MiB: {group} rows an item, {total} offsets")
+
+
 @pytest.mark.parametrize("chunk", [4096, 65536])
 def test_rank_and_compaction_kernels_equal_plain(cuda, monkeypatch, chunk):
     """The rank kernel and both compaction modes against their plain

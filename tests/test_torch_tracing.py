@@ -26,8 +26,8 @@ SPANS = {
     "count_all": ("sliceslice.count_all", {"sliceslice.scatter", "sliceslice.huge"}),
     "positions_all": ("sliceslice.positions_all",
                       {"sliceslice.positions.batch", "sliceslice.positions.bases",
-                       "sliceslice.positions.split", "sliceslice.positions.place",
-                       "sliceslice.huge"}),
+                       "sliceslice.positions.widen", "sliceslice.positions.split",
+                       "sliceslice.positions.place", "sliceslice.huge"}),
 }
 
 
@@ -68,10 +68,11 @@ def test_each_call_is_a_root_span_with_its_stages_inside(held, call):
         assert root.time_range.start <= e.time_range.start <= e.time_range.end <= root.time_range.end
         # Operator-scope ranges: the profiler gives them no device-side copy.
         assert not e.is_user_annotation
-    # The row slices and the bases lie inside a batch of the protocol.
+    # The row slices, the bases and the widening lie inside a batch of the protocol.
     batches = [e.time_range for e in events if e.name == "sliceslice.positions.batch"]
     for e in events:
-        if e.name in ("sliceslice.positions.bases", "sliceslice.positions.split"):
+        if e.name in ("sliceslice.positions.bases", "sliceslice.positions.widen",
+                      "sliceslice.positions.split"):
             assert any(b.start <= e.time_range.start and e.time_range.end <= b.end for b in batches)
 
 
