@@ -313,10 +313,10 @@ def _positions_checks(flat, v, m, e, base=0, n_real=None):
     cnt = totals.cpu().numpy().astype(np.int64)
     row_base = torch.from_numpy(np.cumsum(cnt) - cnt).to(words.device)
     total = int(cnt.sum())
-    whole = torch.full((total,), -2, dtype=torch.int32, device=words.device)
+    whole = torch.full((total,), -2, dtype=torch.int64, device=words.device)
     scan_kernel.compact_window_plain(words, counts, first, chunk, whole, row_base=row_base, window=(0, total))
     for lo, hi in _rank_windows(total):
-        got = torch.full((hi - lo,), -1, dtype=torch.int32, device=words.device)
+        got = torch.full((hi - lo,), -1, dtype=torch.int64, device=words.device)
         scan_kernel.compact_window(words, counts, first, chunk, got, row_base=row_base, window=(lo, hi))
         compact_err = max(compact_err, _err(got, whole[lo:hi]))
         check(_same(got, whole[lo:hi]), f"packed compaction kernel != plain ({where}, window {lo}-{hi})")

@@ -28,6 +28,10 @@
 //     rank r of row n is packed rank row_base[n] + r, and the launch writes
 //     packed ranks [w0, w1) to out[0 .. w1 - w0): every row's offsets in one
 //     buffer, a window of it per launch, a dense row split across windows.
+// The store's width follows the mode: capped mode writes the contract's
+// int32, packed mode int64, the caller's answers as they are, so that a
+// window is read back straight into them and the host never widens an
+// offset.  The offset itself is an int either way (below 2^31 in a layout).
 // What bounds it on the H100: bytes.  Per match it does a few integer
 // operations; what it must move is the words of the items that hold a rank
 // in their row's window, every item's count and first rank, the row bases
@@ -119,14 +123,16 @@ rank_kernel(const int32_t* __restrict__ item_counts, int n_chunks, int rows,
 // bits: the bitmap as uint4[rows, row_quads]; item i is chunk c = i / rows
 // of row i % rows, its words [c * chunk_quads, (c + 1) * chunk_quads) in
 // quads, cut at the row's end.  row_base null: capped mode, else packed
-// (see the note above).  Every condition that steers the block is read
-// from global memory or shared memory by every thread alike.
+// (see the note above); Out is int32_t in capped mode, long long in packed
+// mode.  Every condition that steers the block is read from global memory
+// or shared memory by every thread alike.
+template <typename Out>
 __global__ void __launch_bounds__(kThreads)
 compact_kernel(const uint4* __restrict__ bits, long long row_quads, int rows, int n_items,
                int chunk_quads, const int32_t* __restrict__ item_counts,
                const int32_t* __restrict__ first_rank, int cap,
                const long long* __restrict__ row_base, long long w0, long long w1,
-               int32_t* __restrict__ out) {
+               Out* __restrict__ out) {
   __shared__ unsigned s_warp[kWarps];
   for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
     const int cnt = __ldg(item_counts + i);
@@ -159,7 +165,7 @@ compact_kernel(const uint4* __restrict__ bits, long long row_quads, int rows, in
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           for (uint32_t x = w[k]; x != 0u && r < hi; x &= x - 1u, ++r) {
-            if (r >= lo) out[dst + r] = p0 + 32 * k + __ffs(x) - 1;
+            if (r >= lo) out[dst + r] = static_cast<Out>(p0 + 32 * k + __ffs(x) - 1);
           }
         }
       }
@@ -192,7 +198,7 @@ int ssf_item_ranks(const void* item_counts, int n_chunks, int rows, void* counts
 // its first match within its row (ssf_item_ranks); chunk: positions per
 // item, a multiple of 128.  Capped mode (row_base null): out is
 // int32[rows, cap], each row's ranks below cap written, the rest left as
-// they are.  Packed mode: row_base is int64[rows], out int32[w1 - w0], the
+// they are.  Packed mode: row_base is int64[rows], out int64[w1 - w0], the
 // packed ranks [w0, w1) written.  grid: blocks of the grid-stride loop.
 int ssf_compact_positions(const void* bits, long long row_words, int rows, int n_items,
                           int chunk, const void* item_counts, const void* first_rank, int cap,
@@ -206,11 +212,20 @@ int ssf_compact_positions(const void* bits, long long row_words, int rows, int n
   if (rows <= 0 || n_items <= 0 || (packed ? w1 == w0 : cap == 0)) {
     return static_cast<int>(cudaGetLastError());
   }
-  compact_kernel<<<static_cast<unsigned>(grid), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(bits), row_words / 4, rows, n_items, chunk / 128,
-      static_cast<const int32_t*>(item_counts), static_cast<const int32_t*>(first_rank), cap,
-      static_cast<const long long*>(row_base), w0, w1, static_cast<int32_t*>(out));
+  const auto* b = static_cast<const uint4*>(bits);
+  const auto* ic = static_cast<const int32_t*>(item_counts);
+  const auto* fr = static_cast<const int32_t*>(first_rank);
+  const auto* rb = static_cast<const long long*>(row_base);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (packed) {
+    compact_kernel<long long><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
+        b, row_words / 4, rows, n_items, chunk / 128, ic, fr, cap, rb, w0, w1,
+        static_cast<long long*>(out));
+  } else {
+    compact_kernel<int32_t><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
+        b, row_words / 4, rows, n_items, chunk / 128, ic, fr, cap, rb, w0, w1,
+        static_cast<int32_t*>(out));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -584,7 +584,7 @@ def compact_window_plain(words, item_counts, first_rank, chunk, out, cap=None, r
     rank = before[r, w][:, None] + torch.cumsum(bits, dim=1) - bits
     k, b = torch.nonzero((bits != 0) & (rank >= lo[r][:, None]) & (rank < hi[r][:, None]),
                          as_tuple=True)
-    out.view(-1)[dst[r[k]] + rank[k, b]] = (32 * w[k] + b).to(torch.int32)
+    out.view(-1)[dst[r[k]] + rank[k, b]] = (32 * w[k] + b).to(out.dtype)
     return out
 
 
@@ -602,8 +602,8 @@ def compact_window(words, item_counts, first_rank, chunk, out, cap=None, row_bas
     * packed (``row_base`` given, int64[N], the exclusive cumsum of the
       rows' counts): rank ``r`` of row ``n`` is packed rank ``row_base[n] +
       r``, and the packed ranks ``[lo, hi) = window`` go to ``out[0 : hi -
-      lo]``, ``out`` int32[hi - lo]: every row's offsets, ascending, row
-      after row, a window at a time.
+      lo]``, ``out`` int64[hi - lo]: every row's offsets, ascending, row
+      after row, a window at a time, already of the answers' type.
 
     One launch of the compaction kernel (``csrc/positions.cu``) on the
     card; returns ``out``."""
@@ -616,21 +616,22 @@ def compact_window(words, item_counts, first_rank, chunk, out, cap=None, row_bas
         cap = int(cap)
         if cap < 0:
             raise ValueError(f"cap={cap} is negative")
-        shape = (n, cap)
+        shape, dtype, mode = (n, cap), torch.int32, "capped"
     elif not 0 <= lo <= hi:
         raise ValueError(f"window {window} is not a range of ranks")
     else:
-        shape = (hi - lo,)
-    if tuple(out.shape) != shape or out.dtype != torch.int32:
-        raise ValueError(f"out must be int32 of shape {shape}")
+        shape, dtype, mode = (hi - lo,), torch.int64, "packed"
+    if tuple(out.shape) != shape or out.dtype != dtype:
+        raise ValueError(f"out must be {dtype} of shape {shape} in {mode} mode")
     device = words.device
     if device.type == "cpu":
         return compact_window_plain(words, item_counts, first_rank, chunk, out, cap, row_base, window)
     if device.type != "cuda":
         raise ValueError(f"no compaction kernel for device {device}")
     for x, what, want in ((words, "words", words.shape), (item_counts, "item_counts", item_counts.shape),
-                          (first_rank, "first_rank", item_counts.shape), (out, "out", shape)):
+                          (first_rank, "first_rank", item_counts.shape)):
         _cuda_operand(x, what, want, device=device)
+    _cuda_operand(out, "out", shape, dtype, device)
     if row_base is not None:
         _cuda_operand(row_base, "row_base", (n,), torch.int64, device)
     if words.data_ptr() % 16:

@@ -23,7 +23,7 @@ import torch
 from ..utils.tracing import count, span
 from . import scan_kernel
 from .scan_math import first_offsets, match_counts, position_limit, table_bits
-from .transfer import to_device, to_host
+from .transfer import to_device, to_host, to_host_into
 
 
 def find_cols(flat, values, masks, end) -> torch.Tensor:
@@ -68,14 +68,15 @@ SPARSE_POSITIONS_CAP = 4096
 #: batch's bitmaps, item counts, ranks, counts and row bases, and one
 #: window of its packed offsets.
 POSITIONS_BUDGET_BYTES = 1 << 30
-#: The share of the budget one window of packed offsets takes (a quarter);
-#: the launch batch's rows hold the rest.
+#: The offsets of one window are a :data:`WINDOW_SHARE` of the budget
+#: counted at 4 bytes each (64 M at 1 GiB); stored as int64 they take half
+#: the budget, and the launch batch's rows the rest.
 WINDOW_SHARE = 4
 
 
 def window_entries() -> int:
-    """Offsets (int32) per window of the packed compaction: a
-    :data:`WINDOW_SHARE` of the budget, at least one."""
+    """Offsets per window of the packed compaction: a
+    :data:`WINDOW_SHARE` of the budget over 4 bytes, at least one."""
     return max(1, POSITIONS_BUDGET_BYTES // WINDOW_SHARE // 4)
 
 
@@ -83,12 +84,12 @@ def position_batches(rows: int, nbytes: int, t: int,
                      batch: Optional[int] = None) -> List[Tuple[int, int]]:
     """Row ranges ``[i0, i1)`` of the launch batches of ``rows`` width-``t``
     rows over an ``nbytes`` layout: as many rows per batch as the budget
-    holds beside one window of packed offsets (each row's bitmap, its item
-    counts and first ranks, its count and its int64 row base), at most
-    ``batch`` when given, at least one."""
+    holds beside one window of int64 packed offsets (each row's bitmap, its
+    item counts and first ranks, its count and its int64 row base), at
+    most ``batch`` when given, at least one."""
     words = scan_kernel.bitmap_words(nbytes, t)
     chunks = -(-position_limit(nbytes, t) // scan_kernel.BITMAP_CHUNK)
-    room = POSITIONS_BUDGET_BYTES - 4 * window_entries()
+    room = POSITIONS_BUDGET_BYTES - 8 * window_entries()
     per = max(1, room // (4 * (words + 2 * chunks + 3)))
     if batch is not None:
         per = min(per, max(1, int(batch)))
@@ -120,17 +121,19 @@ def two_tier_positions(flat, values, masks, ends, cap: int, plain: bool = False)
     tiers, with every row, sparse or dense, compacted on the layout's
     device.  One bitmap launch and one rank launch, then readback 1, the
     rows' counts; the packed bases on the host; then per window of
-    :func:`window_entries` packed offsets, one compaction launch and one
-    readback.  ``plain`` runs the kernels' plain versions on the layout's
-    device.  ``cap`` (the JAX sparse cap) is validated, a negative one
-    refused, and changes nothing else: no row falls back to its bitmap.
-    The call is the span ``sliceslice.positions.batch``, with the bases
-    (``sliceslice.positions.bases``), each window's copy of its int32
-    offsets into the int64 answers once read back
-    (``sliceslice.positions.widen``), the row slices
-    (``sliceslice.positions.split``) and the copies of :mod:`.transfer`
-    inside it; on a card the counter ``packed_offsets`` adds the batch's
-    offsets."""
+    :func:`window_entries` packed offsets, one compaction launch, which
+    stores them as int64, and one readback straight into the answers'
+    buffer (on the CPU the compaction writes there itself).  ``plain``
+    runs the kernels' plain versions on the layout's device.  ``cap`` (the
+    JAX sparse cap) is validated, a negative one refused, and changes
+    nothing else: no row falls back to its bitmap.  The call is the span
+    ``sliceslice.positions.batch``, with the bases
+    (``sliceslice.positions.bases``), the placing of each window in the
+    answers (``sliceslice.positions.widen``: the destination's view), the
+    row slices (``sliceslice.positions.split``) and the copies of
+    :mod:`.transfer` inside it; on a card the counters ``packed_offsets``
+    and ``direct_offsets`` add the batch's offsets, the second those a
+    readback wrote straight into the answers."""
     cap = int(cap)
     if cap < 0:
         raise ValueError(f"cap={cap} is negative")
@@ -157,11 +160,16 @@ def two_tier_positions(flat, values, masks, ends, cap: int, plain: bool = False)
         step = window_entries()
         for lo in range(0, total, step):
             hi = min(lo + step, total)
-            out = torch.empty((hi - lo,), dtype=torch.int32, device=words.device)
-            compact(words, item_counts, first, chunk, out, row_base=row_base, window=(lo, hi))
-            window = to_host(out)
             with span("sliceslice.positions.widen"):
-                packed[lo:hi] = window
+                dst = packed[lo:hi]
+            if words.is_cuda:
+                out = torch.empty((hi - lo,), dtype=torch.int64, device=words.device)
+                compact(words, item_counts, first, chunk, out, row_base=row_base, window=(lo, hi))
+                to_host_into(out, dst)
+                count("direct_offsets", hi - lo)
+            else:
+                compact(words, item_counts, first, chunk, torch.from_numpy(dst), row_base=row_base,
+                        window=(lo, hi))
         with span("sliceslice.positions.split"):
             bounds = [0] + stops.tolist()
             # Row slices by hand: np.split costs several times more per row.

@@ -25,6 +25,24 @@ def to_host(x: torch.Tensor) -> np.ndarray:
     return out
 
 
+def to_host_into(x: torch.Tensor, dst: np.ndarray) -> np.ndarray:
+    """``x`` copied into the caller's host array ``dst`` (of ``x``'s shape
+    and dtype) by one blocking copy, and ``dst`` returned: a readback, as
+    :func:`to_host`'s, that lands where the caller keeps its answers, in
+    whatever memory ``dst`` has (nothing page-locked is made or kept)."""
+    host = torch.from_numpy(dst)
+    if host.dtype != x.dtype or host.shape != x.shape:
+        raise ValueError(f"dst must be {x.dtype} of shape {tuple(x.shape)}")
+    if not x.is_cuda:
+        host.copy_(x)
+        return dst
+    with tracing.span("sliceslice.readback"):
+        host.copy_(x)
+    tracing.count("readbacks")
+    tracing.count("readback_bytes", dst.nbytes)
+    return dst
+
+
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """The host array ``a`` as a tensor on ``device``."""
     t = torch.from_numpy(a)

@@ -214,11 +214,12 @@ def positions_kernel_times(torch, calls, device, cap: int = 4096, reps: int = 32
     ranks = [sk.item_ranks(ic) for _, ic, _ in calls]
     offsets = [torch.empty((w.shape[0], cap), dtype=torch.int32, device=w.device) for w, _, _ in calls]
     packed = []
-    for (words, _, _), (counts, _) in zip(calls, ranks):
+    for (words, ic, ch), (counts, first) in zip(calls, ranks):
         cnt = counts.cpu().numpy().astype(np.int64)
         total = int(cnt.sum())
-        packed.append((torch.from_numpy(np.cumsum(cnt) - cnt).to(words.device), total,
-                       torch.empty((total,), dtype=torch.int32, device=words.device)))
+        base = torch.from_numpy(np.cumsum(cnt) - cnt).to(words.device)
+        dtype = packed_dtype(torch, sk, words, ic, first, ch, base)
+        packed.append((base, total, torch.empty((total,), dtype=dtype, device=words.device)))
     timed("item_ranks_packed", lambda: [sk.item_ranks(ic) for _, ic, _ in calls])
     timed("item_ranks_capped", lambda: [sk.item_ranks(ic, o) for (_, ic, _), o in zip(calls, offsets)])
     timed("compact_window_capped", lambda: [sk.compact_window(w, ic, r[1], ch, o, cap=cap)
@@ -232,6 +233,18 @@ def positions_kernel_times(torch, calls, device, cap: int = 4096, reps: int = 32
     return out
 
 
+def packed_dtype(torch, sk, words, item_counts, first, chunk, row_base):
+    """The type the tree's packed compaction stores: int64 since the
+    compaction writes the answers' type, int32 before (an empty window
+    tells them apart without a launch)."""
+    try:
+        sk.compact_window(words, item_counts, first, chunk, torch.empty((0,), dtype=torch.int64,
+                          device=words.device), row_base=row_base, window=(0, 0))
+    except ValueError:
+        return torch.int32
+    return torch.int64
+
+
 def positions_bounds(torch, calls, cap: int = 4096) -> dict:
     """{name: (bound ms, "bytes" or "operations")} of the positions
     functions over ``calls`` (``positions_calls``), each input byte read
@@ -239,8 +252,8 @@ def positions_bounds(torch, calls, cap: int = 4096) -> dict:
     (``utils.profiling.bound_ms``): the ranks (the item counts read, the
     first ranks and counts written; capped, also the SENTINEL tail), the
     packed compaction (every item's count and first rank, the row bases,
-    the words of every item holding a match, the offsets written: one op
-    per word read and per offset written), the capped one (the words of
+    the words of every item holding a match, the int64 offsets written:
+    one op per word read and per offset written), the capped one (the words of
     items holding a rank below ``cap``, each row's first ``cap`` offsets),
     and the JAX contract's capped function as a whole (the item counts and
     live words read, counts and every ``N x cap`` slot written)."""
@@ -260,7 +273,7 @@ def positions_bounds(torch, calls, cap: int = 4096) -> dict:
         total, kept = int(counts.sum()), int(taken.sum())
         acc["ranks"] += 4 * (2 * ic.numel() + n)
         acc["ranks_tail"] += 4 * (n * cap - kept)
-        acc["packed"] += 4 * live + 8 * ic.numel() + 8 * n + 4 * total
+        acc["packed"] += 4 * live + 8 * ic.numel() + 8 * n + 8 * total
         acc["packed_ops"] += live + total
         acc["capped"] += 4 * live_capped + 8 * ic.numel() + 4 * kept
         acc["capped_ops"] += live_capped + kept

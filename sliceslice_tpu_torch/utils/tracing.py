@@ -29,7 +29,8 @@ an item, where the filter compares a hash of the two slots' windows),
 (a pair plan sent to a card), ``readbacks`` / ``readback_bytes`` and
 ``uploads`` / ``upload_bytes`` (the copies of :mod:`..ops.transfer`),
 ``packed_offsets`` (the offsets the positions protocol packed and read
-back).
+back), ``direct_offsets`` (those of them a readback wrote straight into
+the caller's int64 answers).
 """
 
 from __future__ import annotations

@@ -139,9 +139,9 @@ def rank_windows(total: int) -> list:
 
 def _check_packed_windows(words, item_counts, chunk):
     """The rank kernel and the packed compaction against their plain
-    versions, each window of ``rank_windows`` also against the same slice
-    of the whole packed buffer; a window launches once, an empty one
-    never."""
+    versions, each window of ``rank_windows`` (int64, the answers' type)
+    also against the same slice of the whole packed buffer; a window
+    launches once, an empty one never."""
     before = _rank_launches()
     counts, first = scan_kernel.item_ranks(item_counts)
     assert _rank_launches() == (before[0] + 1, before[1])
@@ -151,7 +151,7 @@ def _check_packed_windows(words, item_counts, chunk):
     row_base = torch.from_numpy(np.cumsum(cnt) - cnt).to(words.device)
     whole = None
     for lo, hi in rank_windows(int(cnt.sum())):
-        got = torch.full((hi - lo,), -1, dtype=torch.int32, device=words.device)
+        got = torch.full((hi - lo,), -1, dtype=torch.int64, device=words.device)
         n0 = _n("launches.compact_window")
         scan_kernel.compact_window(words, item_counts, first, chunk, got, row_base=row_base, window=(lo, hi))
         assert _n("launches.compact_window") == n0 + (hi > lo)
@@ -161,7 +161,7 @@ def _check_packed_windows(words, item_counts, chunk):
         assert torch.equal(got, exp), (lo, hi)
         whole = got if lo == 0 and hi == int(cnt.sum()) else whole
     for lo, hi in rank_windows(int(cnt.sum())):
-        part = torch.empty((hi - lo,), dtype=torch.int32, device=words.device)
+        part = torch.empty((hi - lo,), dtype=torch.int64, device=words.device)
         scan_kernel.compact_window(words, item_counts, first, chunk, part, row_base=row_base, window=(lo, hi))
         assert torch.equal(part, whole[lo:hi]), (lo, hi)
 
@@ -845,7 +845,7 @@ def test_dna_patterns_located_on_card_equal_the_kmer_reference(cuda):
     assert len(got) == 12 and all(np.array_equal(g, w) for g, w in zip(got, want))
     assert all(g.dtype == np.int64 and g.size >= 1 for g in got)
     total = sum(w.size for w in want)
-    assert _delta(before, "packed_offsets") == total > 12 * 50_000
+    assert _delta(before, "packed_offsets") == _delta(before, "direct_offsets") == total > 12 * 50_000
     print(f"dna200m-locate at 64 MiB: {group} rows an item, {total} offsets")
 
 
@@ -1044,6 +1044,46 @@ def test_positions_on_card(cuda, monkeypatch):
         assert tuple(a - b for a, b in zip(_launches(), before)) == made
     got = BatchedSearcher([b"a", small[7:12]], device=cuda).positions_all(flat)
     assert [p.tolist() for p in got] == [_host_positions(small, nd).tolist() for nd in (b"a", small[7:12])]
+
+
+def test_packed_offsets_read_straight_into_the_answers(cuda):
+    """One ``positions_all`` on the card: every packed offset reaches the
+    answers by a readback into their int64 buffer (``direct_offsets``
+    moves as ``packed_offsets`` does), each answer an ``np.int64`` slice of
+    one buffer numpy owns, equal to the host scan; the capped compaction
+    of the same rows keeps its int32 ``[N, cap]`` answers, equal to its
+    plain version and to each row's first ``cap`` offsets."""
+    hay = open(os.path.join(DATA, "i386.txt"), "rb").read()
+    words = [w for w in open(os.path.join(DATA, "words.txt"), "rb").read().split(b"\n") if w][::37]
+    words += [b"e", b"the", hay[-7:]]
+    dh = preprocess(hay, kh=24, device=cuda)
+    bs = BatchedSearcher(words, device=cuda)
+    exp = [_host_positions(hay, w) for w in words]
+    before = tracing.counters()
+    got = bs.positions_all(dh)
+    total = sum(e.size for e in exp)
+    assert _delta(before, "direct_offsets") == _delta(before, "packed_offsets") == total > 100_000
+    roots = set()
+    for g, e in zip(got, exp):
+        assert type(g) is np.ndarray and g.dtype == np.int64 and np.array_equal(g, e)
+        while g.base is not None:
+            assert isinstance(g.base, np.ndarray)
+            g = g.base
+        assert g.flags.owndata
+        roots.add(id(g))
+    assert len(roots) == len(bs.groups)  # one buffer per launch batch, one batch per width group
+    cap = 64
+    for g in bs.groups:
+        v, m, e = g.values_dev, g.masks_dev, g.ends_dev(dh.length)
+        words_g, counts, chunk = scan_kernel.match_bitmap_counted(dh.flat, v, m, e)
+        cnt, offsets = scan_kernel.compact_positions(words_g, counts, chunk, cap)
+        ref = scan_kernel.compact_positions_plain(words_g, counts, chunk, cap)
+        assert offsets.dtype == ref[1].dtype == torch.int32 and offsets.shape == (v.shape[0], cap)
+        assert torch.equal(cnt, ref[0]) and torch.equal(offsets, ref[1])
+        for row, j in enumerate(g.indices.tolist()):
+            head = exp[j][:cap]
+            assert offsets[row, :head.size].tolist() == head.tolist()
+            assert (offsets[row, head.size:] == SENTINEL).all()
 
 
 def test_forced_rank_windows_on_card(cuda, monkeypatch):

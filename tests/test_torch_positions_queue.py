@@ -165,10 +165,11 @@ def test_compaction_item_counts_steer_ranks(rng):
 def test_position_batches_plan(words):
     """The launch-batch plan as a pure function: i386's 4,585 words take one
     batch per width group; 40 rows over a 256 MiB corpus (40 x 32 MiB of
-    bitmap) take two; ``batch`` caps the rows per batch when given; every
-    plan covers its rows once, in order, one row at least per batch, and a
-    batch's rows (bitmap, item counts and first ranks, count, int64 row
-    base) fit the budget beside one window of packed offsets."""
+    bitmap) take three, 15 a batch; the 12 rows of t = 2 over dna200m-locate's
+    200 MiB text take one; ``batch`` caps the rows per batch when given;
+    every plan covers its rows once, in order, one row at least per batch,
+    and a batch's rows (bitmap, item counts and first ranks, count, int64
+    row base) fit the budget beside one window of int64 packed offsets."""
     with open("data/i386.txt", "rb") as f:
         hay = f.read()
     dh = preprocess(hay, kh=24, device=CPU)
@@ -178,14 +179,15 @@ def test_position_batches_plan(words):
     assert [p[0] for p in plans] == [(0, g.n) for g in bs.groups]
     big = (256 << 20) + 64
     plan = torch_backend.position_batches(40, big, 16)
-    assert len(plan) == 2
+    assert plan == [(0, 15), (15, 30), (30, 40)]
+    assert torch_backend.position_batches(12, (200 << 20) + 64, 2) == [(0, 12)]
     for rows, batch in ((4585, 5), (2206, 7), (40, 8), (3, 8), (1, None), (0, None)):
         plan = torch_backend.position_batches(rows, dh.flat.numel(), 2, batch)
         assert [i for r in plan for i in range(*r)] == list(range(rows))
         assert all(0 < i1 - i0 <= (batch or rows) for i0, i1 in plan)
     assert torch_backend.position_batches(3, 1 << 34, 1) == [(0, 1), (1, 2), (2, 3)]
     per_row = 4 * (tsk.bitmap_words(big, 16) + 2 * -(-tsk.position_limit(big, 16) // tsk.BITMAP_CHUNK) + 3)
-    window = 4 * torch_backend.window_entries()
+    window = 8 * torch_backend.window_entries()
     assert all((i1 - i0) * per_row + window <= torch_backend.POSITIONS_BUDGET_BYTES for i0, i1 in plan)
 
 
@@ -324,24 +326,71 @@ def test_plain_capped_window_matches_jax(cap, ranked):
     assert torch.equal(wrapped[0], counts) and torch.equal(wrapped[1], offsets)
 
 
-def test_plain_packed_window_matches_jax(ranked):
-    """Packed mode: every row's offsets in one buffer, row after row, equal
-    to the JAX two tiers' answers joined in row order; any window of it is
-    the same slice of that buffer, including windows that start and end
-    inside a row and inside a bitmap word."""
+@pytest.mark.parametrize("fn", ["compact_window", "compact_window_plain"])
+def test_plain_packed_window_matches_jax(ranked, fn):
+    """Packed mode, through the wrapper and its plain version: every row's
+    offsets in one int64 buffer, row after row, equal to the JAX two tiers'
+    answers joined in row order; any window of it is the same slice of
+    that buffer, including windows that start and end inside a row and
+    inside a bitmap word."""
     _, needles, _, (words, item_counts, chunk), (jcnt, _, jtwo) = ranked
+    compact = getattr(tsk, fn)
     counts, first = tsk.item_ranks(item_counts)
     cnt = counts.numpy().astype(np.int64)
     row_base = torch.from_numpy(np.cumsum(cnt) - cnt)
     total = int(cnt.sum())
-    whole = torch.empty((total,), dtype=torch.int32)
-    tsk.compact_window(words, item_counts, first, chunk, whole, row_base=row_base, window=(0, total))
+    whole = torch.empty((total,), dtype=torch.int64)
+    assert compact(words, item_counts, first, chunk, whole, row_base=row_base, window=(0, total)) is whole
+    assert whole.dtype == torch.int64
     assert whole.tolist() == np.concatenate(jtwo).tolist()
     dense_end = int(cnt[0])
     for lo, hi in ((0, 0), (3, 3 + 31), (dense_end - 5, dense_end + 7), (total - 9, total), (0, total)):
-        part = torch.full((hi - lo,), -1, dtype=torch.int32)
-        tsk.compact_window(words, item_counts, first, chunk, part, row_base=row_base, window=(lo, hi))
+        part = torch.full((hi - lo,), -1, dtype=torch.int64)
+        compact(words, item_counts, first, chunk, part, row_base=row_base, window=(lo, hi))
         assert part.tolist() == whole[lo:hi].tolist(), (lo, hi)
+
+
+def test_compaction_store_type_follows_the_mode(ranked):
+    """Capped mode keeps the JAX contract's int32 and refuses int64; packed
+    mode stores int64 and refuses int32; each refusal names the type its
+    mode needs."""
+    _, _, _, (words, item_counts, chunk), _ = ranked
+    n = words.shape[0]
+    counts, first = tsk.item_ranks(item_counts)
+    cnt = counts.numpy().astype(np.int64)
+    row_base = torch.from_numpy(np.cumsum(cnt) - cnt)
+    capped = torch.empty((n, 7), dtype=torch.int32)
+    assert tsk.compact_window(words, item_counts, first, chunk, capped, cap=7).dtype == torch.int32
+    with pytest.raises(ValueError, match="torch.int32 .* capped mode"):
+        tsk.compact_window(words, item_counts, first, chunk, capped.to(torch.int64), cap=7)
+    with pytest.raises(ValueError, match="torch.int64 .* packed mode"):
+        tsk.compact_window(words, item_counts, first, chunk, torch.empty((10,), dtype=torch.int32),
+                           row_base=row_base, window=(0, 10))
+    packed = torch.empty((10,), dtype=torch.int64)
+    tsk.compact_window(words, item_counts, first, chunk, packed, row_base=row_base, window=(0, 10))
+    assert cnt[0] >= 10 and packed[:7].tolist() == capped[0].tolist()  # row 0 leads the packed ranks
+
+
+def test_two_tier_answers_share_one_numpy_buffer(ranked):
+    """``two_tier_positions`` returns ``np.int64`` rows that are slices of
+    one buffer numpy owns (the compaction wrote into it), not views of a
+    torch tensor's memory; the rows are the JAX two tiers' answers."""
+    _, needles, (tdh, values, masks, ends), _, (_, _, jtwo) = ranked
+    n_real = len(needles)
+    for plain in (False, True):
+        got = torch_backend.two_tier_positions(tdh.flat, values[:n_real], masks[:n_real],
+                                               ends[:n_real], 16, plain=plain)
+        assert [g.tolist() for g in got] == [j.tolist() for j in jtwo]
+        owners = set()
+        for g in got:
+            assert type(g) is np.ndarray and g.dtype == np.int64
+            root = g
+            while root.base is not None:
+                assert isinstance(root.base, np.ndarray)  # no torch storage beneath
+                root = root.base
+            assert root.flags.owndata
+            owners.add(id(root))
+        assert len(owners) == 1
 
 
 def test_forced_rank_windows_split_rows(ranked, monkeypatch):
